@@ -1,0 +1,348 @@
+"""Streaming fit engine (counterpart of ``spark_timeseries_tpu/engine.py``).
+
+:meth:`FitEngine.stream_fit` fits a panel larger than device memory in
+chunks of ``chunk_size`` series — the JAX engine's chunk boundaries — and
+isolates per-chunk failures (recorded in ``chunk_failures``, never
+raised).  On CUDA each host chunk is staged through a pinned buffer and
+copied on a side stream while the previous chunk fits, so the copy of
+chunk i+1 overlaps the fit of chunk i.  The tail chunk pads to its own
+:func:`series_bucket` like the JAX engine's (zero lanes for a dense
+chunk, all-NaN lanes for a ragged one); padding lanes quarantine
+themselves per lane and are sliced off.  :meth:`FitEngine.fit` fits one
+panel directly: eager PyTorch has no compile cache for bucketing to
+serve.
+
+What only JAX needs does not come across: the AOT executable cache,
+donation, the compile-cache directory, journals, deadlines, degradation,
+resilient mode and telemetry.  Their ``stream_fit`` keywords raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+import traceback as _traceback
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ._device import as_tensor, check_dtype, resolve_device
+from .ops.ragged import ragged_view
+
+__all__ = ["SERIES_BUCKET_FLOOR", "OBS_BUCKET_MULTIPLE", "pad_bucket",
+           "series_bucket", "FitEngine", "StreamResult"]
+
+SERIES_BUCKET_FLOOR = 8
+OBS_BUCKET_MULTIPLE = 32
+
+# stream_fit keywords of the JAX engine with no counterpart here
+_NOT_PORTED = ("prefetch", "donate", "journal", "job_meta", "deadline_s",
+               "retry", "degrade", "degrade_floor", "resilient", "fused",
+               "on_progress", "job_label")
+
+
+def series_bucket(n_series: int) -> int:
+    """Series-axis bucket: next power of two, floor 8."""
+    s = SERIES_BUCKET_FLOOR
+    while s < n_series:
+        s *= 2
+    return s
+
+
+def pad_bucket(n_series: int, n_obs: int) -> Tuple[int, int]:
+    """Canonical padded shape of a raw panel shape: series to the next
+    power of two (floor 8), observations to the next multiple of 32
+    (floor 32) — the JAX engine's bucket policy."""
+    t = max(OBS_BUCKET_MULTIPLE,
+            -(-n_obs // OBS_BUCKET_MULTIPLE) * OBS_BUCKET_MULTIPLE)
+    return series_bucket(n_series), t
+
+
+_STATICS_BUILDERS = {
+    "arima": lambda p=2, d=1, q=2, include_intercept=True,
+    method="css-lm", max_iter=None:
+        (int(p), int(d), int(q), bool(include_intercept), str(method),
+         max_iter),
+    "ar": lambda max_lag=2, no_intercept=False:
+        (int(max_lag), bool(no_intercept)),
+}
+
+
+def _statics(family: str, kwargs) -> tuple:
+    builder = _STATICS_BUILDERS.get(family)
+    if builder is None:
+        raise NotImplementedError(
+            f"engine family {family!r} is not ported yet; the port fits "
+            f"{sorted(_STATICS_BUILDERS)}")
+    return builder(**kwargs)
+
+
+def _fit_values(family: str, statics: tuple, values: torch.Tensor,
+                warn: bool = False):
+    """One batched fit of ``values`` on its own device.  NaN-padded lanes
+    are left-aligned and fitted against their valid windows; NaN inside a
+    window raises."""
+    from .models import arima, autoregression
+
+    values, n_valid = ragged_view(values)
+
+    if family == "arima":
+        p, d, q, icpt, method, max_iter = statics
+        return arima.fit(p, d, q, values, include_intercept=icpt,
+                         method=method, max_iter=max_iter, warn=warn,
+                         n_valid=n_valid, device=values.device)
+    max_lag, no_icpt = statics
+    return autoregression.fit(values, max_lag, no_intercept=no_icpt,
+                              n_valid=n_valid)
+
+
+def _interior_gap_count(host: np.ndarray) -> int:
+    """Lanes with NaN strictly inside their observed window."""
+    obs = ~np.isnan(host)
+    n = host.shape[-1]
+    any_obs = obs.any(axis=-1)
+    start = obs.argmax(axis=-1)
+    last = n - 1 - obs[:, ::-1].argmax(axis=-1)
+    window = np.where(any_obs, last - start + 1, 0)
+    return int(np.sum(obs.sum(axis=-1) != window))
+
+
+def _map_tensors(obj, fn):
+    """Apply ``fn`` to every tensor field of a (nested) NamedTuple."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_map_tensors(v, fn) for v in obj))
+    return obj
+
+
+class _ChunkDataError(ValueError):
+    """A chunk violates the data contract (interior gaps): deterministic,
+    so it is recorded, never retried."""
+
+
+class StreamResult(NamedTuple):
+    """Outcome of one :meth:`FitEngine.stream_fit` pass.
+
+    ``models`` is None unless ``collect=True`` (then per-chunk host models
+    in series order, padding lanes sliced off).  ``stats`` holds
+    ``chunk_size``, ``lm_iterations`` (the LM loop's iterations per fitted
+    arima chunk; the ARMA kernel runs once more than that per chunk),
+    ``collected_ranges`` with ``collect=True``, and ``device``."""
+    n_series: int
+    n_fitted: int
+    n_converged: int
+    wall_s: float
+    n_chunks: int
+    chunk_failures: List[Dict[str, Any]]
+    models: Optional[List[Any]]
+    stats: Dict[str, Any]
+
+    @property
+    def rate(self) -> float:
+        """Fitted series per second (0 when nothing completed)."""
+        return self.n_fitted / self.wall_s if self.wall_s > 0 else 0.0
+
+
+class _ChunkFeed:
+    """Two staging slots for host chunks.  On CUDA a slot is a pinned host
+    buffer plus a device buffer filled on a side stream; the consumer's
+    stream waits on the slot's copy event, and a slot is refilled only
+    after the work that read it was enqueued.  On the CPU a slot is a
+    plain host buffer."""
+
+    def __init__(self, rows: int, n_obs: int, dtype: torch.dtype,
+                 device: torch.device):
+        self.cuda = device.type == "cuda"
+        shape = (rows, n_obs)
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+                     for _ in range(2)]
+        if self.cuda:
+            self.dev = [torch.empty(shape, dtype=dtype, device=device)
+                        for _ in range(2)]
+            self.stream = torch.cuda.Stream(device)
+            self.copied = [torch.cuda.Event() for _ in range(2)]
+            self.released: List[Optional[torch.cuda.Event]] = [None, None]
+        else:
+            self.dev = self.host
+
+    def put(self, slot: int, part: np.ndarray) -> None:
+        rows = part.shape[0]
+        if self.cuda:
+            self.copied[slot].synchronize()  # last copy out of this buffer
+        self.host[slot][:rows].numpy()[...] = part
+        if self.cuda:
+            with torch.cuda.stream(self.stream):
+                if self.released[slot] is not None:
+                    self.stream.wait_event(self.released[slot])
+                self.dev[slot][:rows].copy_(self.host[slot][:rows],
+                                            non_blocking=True)
+                self.copied[slot].record(self.stream)
+
+    def take(self, slot: int, rows: int) -> torch.Tensor:
+        if self.cuda:
+            torch.cuda.current_stream().wait_event(self.copied[slot])
+        return self.dev[slot][:rows]
+
+    def release(self, slot: int) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self.released[slot] = ev
+
+
+class FitEngine:
+    """Batched fits of whole panels (:meth:`fit`) and streamed chunked
+    fits of panels larger than device memory (:meth:`stream_fit`)."""
+
+    def fit(self, values, family: str = "arima", *, device=None,
+            warn: bool = False, **kwargs):
+        """Fit one ``(n_series, n_obs)`` panel on ``device`` (``None`` means
+        CUDA).  ``kwargs`` are the family's fit parameters (arima:
+        ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``;
+        ar: ``max_lag``/``no_intercept``).  NaN-padded lanes fit their
+        valid windows; NaN inside a window raises."""
+        statics = _statics(family, kwargs)
+        dev = resolve_device(device)
+        v = as_tensor(values, dev)
+        if v.ndim != 2:
+            raise ValueError(
+                f"FitEngine.fit needs a (n_series, n_obs) panel, got "
+                f"{tuple(v.shape)}")
+        return _fit_values(family, statics, v, warn)
+
+    def stream_fit(self, values, family: str = "arima", *,
+                   chunk_size: int = 131072, collect: bool = False,
+                   device=None, **kwargs) -> StreamResult:
+        """Fit a host panel ``(n_series, n_obs)`` in chunks on ``device``.
+
+        Each chunk's fit is isolated: a chunk that raises (or violates the
+        data contract) lands in ``chunk_failures`` with its row range,
+        bucket, exception type and a truncated traceback, and the stream
+        goes on.  ``n_converged`` counts converged real lanes; ``wall_s``
+        covers staging through the last chunk's results on the host."""
+        not_ported = sorted(set(kwargs) & set(_NOT_PORTED))
+        if not_ported:
+            raise NotImplementedError(
+                f"stream_fit keywords {not_ported} belong to the JAX "
+                f"engine's durability and compile tiers, which the port "
+                f"does not have")
+        statics = _statics(family, kwargs)
+        dev = resolve_device(device)
+        host = np.asarray(values)
+        if host.ndim != 2:
+            raise ValueError(
+                f"stream_fit needs a (n_series, n_obs) panel, got "
+                f"{host.shape}")
+        dtype = torch.from_numpy(host[:0, :0]).dtype
+        check_dtype(dtype, dev)
+        n_series, n_obs = host.shape
+        chunk = max(1, min(int(chunk_size), n_series))
+        partition = [(s, min(s + chunk, n_series))
+                     for s in range(0, n_series, chunk)]
+
+        def bucket(n_real: int) -> int:
+            return chunk if n_real == chunk \
+                else min(series_bucket(n_real), chunk)
+
+        def stage(idx: int):
+            """Host-side prep of chunk ``idx`` into its slot: the data
+            contract check, tail padding, then the (async) copy."""
+            start, stop = partition[idx]
+            part = host[start:stop]
+            n_real = stop - start
+            ragged = bool(np.isnan(part).any())
+            if ragged:
+                gaps = _interior_gap_count(part)
+                if gaps:
+                    raise _ChunkDataError(
+                        f"{gaps} lane(s) have NaN strictly inside their "
+                        f"observed window; impute interior gaps first")
+            bs = bucket(n_real)
+            if bs != n_real:
+                padded = np.full((bs, n_obs), np.nan if ragged else 0.0,
+                                 part.dtype)
+                padded[:n_real] = part
+                part = padded
+            feed.put(idx % 2, part)
+            return bs
+
+        conv = 0
+        dead_series = 0
+        failures: List[Dict[str, Any]] = []
+        collected: Dict[int, Tuple[int, Any]] = {}
+        lm_iterations: List[int] = []
+
+        def record_failure(start: int, stop: int, e: Exception) -> None:
+            nonlocal dead_series
+            n_real = stop - start
+            dead_series += n_real
+            tb = "".join(_traceback.format_exception(
+                type(e), e, e.__traceback__))
+            failures.append({
+                "chunk_start": int(start), "chunk_stop": int(stop),
+                "n_series": int(n_real), "bucket": int(bucket(n_real)),
+                "kind": "data" if isinstance(e, _ChunkDataError)
+                else "error",
+                "error_type": type(e).__name__,
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": tb[-2000:], "attempts": 1})
+
+        # does an arima chunk run the LM loop (not the AR fast path)?
+        lm_path = False
+        if family == "arima":
+            p, _, q, icpt = statics[:4]
+            lm_path = not (p > 0 and q == 0) and p + q + icpt > 0
+        t0 = time.perf_counter()
+        feed = _ChunkFeed(chunk, n_obs, dtype, dev)
+
+        def try_stage(idx: int):
+            try:
+                return stage(idx)
+            except Exception as e:  # noqa: BLE001 — chunk isolation
+                return e
+
+        staged = try_stage(0)
+        for idx, (start, stop) in enumerate(partition):
+            cur = staged
+            if idx + 1 < len(partition):
+                staged = try_stage(idx + 1)
+            if isinstance(cur, Exception):
+                record_failure(start, stop, cur)
+                continue
+            bs = cur
+            n_real = stop - start
+            try:
+                values_dev = feed.take(idx % 2, bs)
+                try:
+                    model = _fit_values(family, statics, values_dev)
+                finally:
+                    # even a failed fit may have enqueued reads of the slot
+                    feed.release(idx % 2)
+                diag = model.diagnostics
+                conv += int(diag.converged[:n_real].sum())
+                if lm_path:
+                    lm_iterations.append(int(diag.n_iter.max()))
+                if collect:
+                    collected[start] = (stop, _map_tensors(
+                        model, lambda t: (t[:n_real] if t.ndim >= 1
+                                          and t.shape[0] == bs
+                                          else t).cpu()))
+            except Exception as e:  # noqa: BLE001 — chunk isolation
+                record_failure(start, stop, e)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+
+        stats: Dict[str, Any] = {"chunk_size": chunk,
+                                 "lm_iterations": lm_iterations,
+                                 "device": str(dev)}
+        models = None
+        if collect:
+            keys = sorted(collected)
+            models = [collected[k][1] for k in keys]
+            stats["collected_ranges"] = [[int(k), int(collected[k][0])]
+                                         for k in keys]
+        return StreamResult(n_series, max(n_series - dead_series, 0), conv,
+                            wall, len(partition), failures, models, stats)

@@ -1,0 +1,6 @@
+"""Batched model fits of the port (counterpart of
+``spark_timeseries_tpu/models``)."""
+
+from . import arima, autoregression, convert
+
+__all__ = ["arima", "autoregression", "convert"]

@@ -1,0 +1,54 @@
+"""Carrying fitted parameters into the port: numpy arrays (for example the
+fields of a JAX-package model, read with ``np.asarray``) become the
+port's model NamedTuples on a device, so both packages can forecast and
+score from identical coefficients."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .._device import as_tensor, resolve_device
+from .arima import ARIMAModel
+from .autoregression import ARModel
+from .base import FitDiagnostics
+
+
+def _diagnostics(diagnostics: Optional[Sequence], device
+                 ) -> Optional[FitDiagnostics]:
+    """``(converged, n_iter, fun)`` arrays -> :class:`FitDiagnostics`."""
+    if diagnostics is None:
+        return None
+    converged, n_iter, fun = diagnostics
+    return FitDiagnostics(
+        torch.as_tensor(converged, dtype=torch.bool, device=device),
+        torch.as_tensor(n_iter, dtype=torch.int32, device=device),
+        as_tensor(fun, device))
+
+
+def arima_from_numpy(p: int, d: int, q: int, coefficients,
+                     has_intercept: bool = True,
+                     diagnostics: Optional[Sequence] = None,
+                     device=None) -> ARIMAModel:
+    """The port's :class:`ARIMAModel` from numpy coefficients
+    ``(..., icpt+p+q)`` and optional ``(converged, n_iter, fun)``."""
+    dev = resolve_device(device)
+    coefs = as_tensor(coefficients, dev)
+    k = (1 if has_intercept else 0) + p + q
+    if coefs.shape[-1] != k:
+        raise ValueError(f"ARIMA({p},{d},{q}) with has_intercept="
+                         f"{has_intercept} has {k} coefficients, got "
+                         f"{coefs.shape[-1]}")
+    return ARIMAModel(int(p), int(d), int(q), coefs, bool(has_intercept),
+                      _diagnostics(diagnostics, dev))
+
+
+def autoregression_from_numpy(c, coefficients,
+                              diagnostics: Optional[Sequence] = None,
+                              device=None) -> ARModel:
+    """The port's :class:`ARModel` from numpy ``c (...)`` and
+    ``coefficients (..., p)``."""
+    dev = resolve_device(device)
+    return ARModel(as_tensor(c, dev), as_tensor(coefficients, dev),
+                   _diagnostics(diagnostics, dev))

@@ -1,0 +1,308 @@
+"""Fused ARMA normal equations and the batched LM solver around them
+(counterpart of ``spark_timeseries_tpu/ops/pallas_arma.py``).
+
+Every Levenberg-Marquardt iteration of the ARIMA CSS fit needs, per lane,
+``(JᵀJ, Jᵀr, sse)`` of the one-step residuals.  On a CUDA tensor
+:func:`normal_equations` launches the hand-written kernel
+``csrc/arma_ne.cu`` (the port of the Pallas kernel
+``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``); on a CPU tensor
+it runs :func:`normal_equations_plain`, the same arithmetic written as a
+Python loop over time steps on the lane batch.  There is no fallback
+between the two: a kernel that fails to build or launch raises.
+
+The kernel takes the panel time-major (``(n_obs, S)``, so a warp's loads
+at one step are contiguous); :func:`fit_css_lm` transposes the panel once
+before its loop, as the Pallas solver blocks it once up front.  What
+bounds the kernel on the H100 is written in the source note of
+``csrc/arma_ne.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .linalg import spd_solve
+
+KERNEL_MAX_ORDER = 3      # p, q <= 3 are instantiated in csrc/arma_ne.cu
+
+
+def _triu_pairs(k: int):
+    return [(a, b) for a in range(k) for b in range(a, k)]
+
+
+def n_outputs(k: int) -> int:
+    """Rows of the packed output ``[sse, triu(JᵀJ)..., Jᵀr...]``."""
+    return 1 + k * (k + 1) // 2 + k
+
+
+def check_kernel_order(p: int, q: int, icpt: int) -> None:
+    """Raise unless the CUDA kernel has an instantiation for the order."""
+    if not (0 <= p <= KERNEL_MAX_ORDER and 0 <= q <= KERNEL_MAX_ORDER):
+        raise ValueError(
+            f"the CUDA ARMA kernel supports p, q <= {KERNEL_MAX_ORDER}, got "
+            f"ARMA({p},{q}); larger orders are not ported yet")
+    if icpt + p + q == 0:
+        raise ValueError("the ARMA kernel needs at least one parameter")
+
+
+def _check_window(n_obs: int, p: int, q: int) -> None:
+    if n_obs <= max(p, q):
+        raise ValueError(
+            f"series too short for the CSS window: need more than "
+            f"max(p, q) = {max(p, q)} observations, got {n_obs}")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    from .. import _build
+    fn = _build.library("arma_ne").arma_ne_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(params_t: torch.Tensor, y_t: torch.Tensor,
+            nv: Optional[torch.Tensor], p: int, q: int,
+            icpt: int) -> torch.Tensor:
+    """Launch ``csrc/arma_ne.cu`` on the current stream; returns the packed
+    ``(n_out, S)`` output (not synchronised)."""
+    check_kernel_order(p, q, icpt)
+    k = icpt + p + q
+    n_obs, S = y_t.shape
+    tensors = [params_t, y_t] + ([] if nv is None else [nv])
+    for t in tensors:
+        if t.device != y_t.device:
+            raise ValueError("params, y and n_valid must share one device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"the CUDA ARMA kernel takes float32, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA ARMA kernel needs contiguous inputs")
+    if params_t.shape != (k, S) or (nv is not None and nv.shape != (S,)):
+        raise ValueError(
+            f"shape mismatch: params {tuple(params_t.shape)} (expected "
+            f"{(k, S)}), y {tuple(y_t.shape)}, n_valid "
+            f"{None if nv is None else tuple(nv.shape)}")
+    _check_window(n_obs, p, q)
+    out = torch.empty((n_outputs(k), S), dtype=torch.float32,
+                      device=y_t.device)
+    with torch.cuda.device(y_t.device):
+        stream = torch.cuda.current_stream(y_t.device).cuda_stream
+        rc = _kernel_fn()(params_t.data_ptr(), y_t.data_ptr(),
+                          0 if nv is None else nv.data_ptr(),
+                          out.data_ptr(), S, n_obs, p, q, icpt, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"arma_ne kernel launch failed for ARMA({p},{q}) icpt={icpt} "
+            f"S={S} n_obs={n_obs}: "
+            + ("unsupported arguments" if rc < 0 else f"CUDA error {rc}"))
+    normal_equations.launches += 1
+    return out
+
+
+def _packed_plain(params_t: torch.Tensor, y_t: torch.Tensor,
+                  nv: Optional[torch.Tensor], p: int, q: int,
+                  icpt: int) -> torch.Tensor:
+    """The kernel's arithmetic as plain tensor ops over the lane batch,
+    step by step in the kernel's order; any float dtype and device."""
+    k = icpt + p + q
+    n_obs = y_t.shape[0]
+    ml = max(p, q)
+    _check_window(n_obs, p, q)
+    pairs = _triu_pairs(k)
+    zero = torch.zeros_like(y_t[0])
+    one = torch.ones_like(y_t[0])
+    c = params_t[0] if icpt else zero
+    phi = [params_t[icpt + j] for j in range(p)]
+    theta = [params_t[icpt + p + m] for m in range(q)]
+    e_ring = [zero] * q
+    T_ring = [[zero] * k for _ in range(q)]
+    sse = zero
+    jtj = [zero] * len(pairs)
+    jtr = [zero] * k
+    for t in range(ml, n_obs):
+        y_lags = [y_t[t - j - 1] for j in range(p)]
+        yhat = c
+        for j in range(p):
+            yhat = yhat + phi[j] * y_lags[j]
+        for m in range(q):
+            yhat = yhat + theta[m] * e_ring[m]
+        e = y_t[t] - yhat
+        T = []
+        for x in range(k):
+            if x < icpt:
+                u = one
+            elif x < icpt + p:
+                u = y_lags[x - icpt]
+            else:
+                u = e_ring[x - icpt - p]
+            s = u
+            for m in range(q):
+                s = s + theta[m] * T_ring[m][x]
+            T.append(-s)
+        if nv is not None:
+            w = (t < nv).to(y_t.dtype)
+            e = e * w
+            T = [tx * w for tx in T]
+        sse = sse + e * e
+        jtj = [jtj[i] + T[a] * T[b] for i, (a, b) in enumerate(pairs)]
+        jtr = [jtr[x] + T[x] * e for x in range(k)]
+        if q:
+            e_ring = [e] + e_ring[:-1]
+            T_ring = [T] + T_ring[:-1]
+    return torch.stack([sse, *jtj, *jtr])
+
+
+def _packed(params_t, y_t, nv, p, q, icpt) -> torch.Tensor:
+    """Device dispatch: the kernel for CUDA tensors, the plain loop for
+    CPU tensors."""
+    if y_t.is_cuda:
+        return _launch(params_t, y_t, nv, p, q, icpt)
+    return _packed_plain(params_t, y_t, nv, p, q, icpt)
+
+
+@functools.lru_cache(maxsize=None)
+def _triu_index(k: int, device: torch.device):
+    """Row and column indices of the packed upper triangle, made once per
+    order and device (a fresh host-to-device copy per LM iteration would
+    stall the loop)."""
+    pairs = _triu_pairs(k)
+    return (torch.tensor([a for a, _ in pairs], device=device),
+            torch.tensor([b for _, b in pairs], device=device))
+
+
+def _unpack(out: torch.Tensor, k: int):
+    """``(n_out, S)`` packed output -> ``(JᵀJ (S,k,k), Jᵀr (S,k),
+    sse (S,))``."""
+    n_tri = k * (k + 1) // 2
+    S = out.shape[1]
+    tri = out[1:1 + n_tri].T
+    rows, cols = _triu_index(k, out.device)
+    jtj = out.new_zeros((S, k, k))
+    jtj[:, rows, cols] = tri
+    jtj[:, cols, rows] = tri
+    return jtj, out[1 + n_tri:].T, out[0]
+
+
+def _masked_ne(jtj, jtr, sse, mask):
+    """Chain-rule factor of the masked objective ``r(x ∘ mask)``: the
+    recurrence runs at the masked point, the outputs are post-scaled."""
+    return (jtj * mask[:, :, None] * mask[:, None, :], jtr * mask, sse)
+
+
+def _normal_equations(packed_fn, params, y, p, q, icpt, mask, n_valid):
+    k = icpt + p + q
+    _check_window(y.shape[-1], p, q)
+    if mask is not None:
+        mask = mask.to(params.dtype)
+        params = params * mask
+    nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    out = packed_fn(params.T.contiguous(), y.T.contiguous(), nv, p, q, icpt)
+    res = _unpack(out, k)
+    return _masked_ne(*res, mask) if mask is not None else res
+
+
+def normal_equations(params: torch.Tensor, y: torch.Tensor,
+                     p: int, q: int, icpt: int,
+                     mask: Optional[torch.Tensor] = None,
+                     n_valid: Optional[torch.Tensor] = None):
+    """Batched fused ``(JᵀJ (S, k, k), Jᵀr (S, k), sse (S,))`` of the ARMA
+    CSS residuals; ``params (S, k)``, ``y (S, n)``.
+
+    A CUDA tensor launches the kernel (float32, ``p, q <= 3``; anything
+    else raises) and adds one to ``normal_equations.launches``; a CPU
+    tensor runs :func:`normal_equations_plain`.  ``mask (S, k)`` gives the
+    masked objective ``r(x ∘ mask)``; ``n_valid (S,)`` restricts each lane
+    to its left-aligned valid window (``ops.ragged``)."""
+    return _normal_equations(_packed, params, y, p, q, icpt, mask, n_valid)
+
+
+normal_equations.launches = 0
+
+
+def normal_equations_plain(params: torch.Tensor, y: torch.Tensor,
+                           p: int, q: int, icpt: int,
+                           mask: Optional[torch.Tensor] = None,
+                           n_valid: Optional[torch.Tensor] = None):
+    """:func:`normal_equations` as plain tensor ops, on any device and
+    float dtype — the version the kernel is held against."""
+    return _normal_equations(_packed_plain, params, y, p, q, icpt, mask,
+                             n_valid)
+
+
+def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
+               icpt: int, tol: float = 1e-6, max_iter: int = 50,
+               mask: Optional[torch.Tensor] = None,
+               n_valid: Optional[torch.Tensor] = None):
+    """Panel-batched Levenberg-Marquardt on the CSS residuals, the normal
+    equations from :func:`normal_equations`' dispatch (the kernel on
+    CUDA).  A line-for-line port of the state machine of
+    ``pallas_arma.fit_css_lm``: Marquardt-scaled damping, trial-point
+    normal equations kept on accept, the pinned exit testing the
+    pre-update λ, per-lane ``done`` with finished lanes frozen.
+
+    ``x0 (S, k)``, ``y (S, n)``; returns ``(x, fun, converged, n_iter)``
+    with per-lane shapes.  The loop test ``~all(done) & it < max_iter``
+    reads one bool from the device per iteration; the kernel is launched
+    once up front and once per iteration."""
+    S, k = x0.shape
+    S_y, n_obs = y.shape
+    if S != S_y:
+        raise ValueError(
+            f"x0 has {S} lanes but the panel has {S_y} series (the "
+            f"candidate-grid form is not ported yet)")
+    _check_window(n_obs, p, q)
+    x0 = x0.to(y.dtype)
+    if mask is not None:
+        mask = mask.to(y.dtype)
+        x0 = x0 * mask
+    y_t = y.T.contiguous()                  # (n_obs, S), once per fit
+    nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    eye = torch.eye(k, dtype=y.dtype, device=y.device)
+
+    def ne(x):
+        if mask is not None:
+            x = x * mask
+        res = _unpack(_packed(x.T.contiguous(), y_t, nv, p, q, icpt), k)
+        return _masked_ne(*res, mask) if mask is not None else res
+
+    x = x0
+    jtj, jtr, f = ne(x0)
+    lam = torch.full((S,), 1e-3, dtype=y.dtype, device=y.device)
+    it_lanes = torch.zeros((S,), dtype=torch.int32, device=y.device)
+    done = torch.zeros((S,), dtype=torch.bool, device=y.device)
+    it = 0
+    while it < max_iter and not bool(done.all()):
+        active = ~done
+        damp = lam[:, None] * torch.diagonal(jtj, dim1=-2, dim2=-1) + 1e-12
+        delta = spd_solve(jtj + damp[..., None] * eye, jtr)
+        x_new = x - delta
+        jtj_new, jtr_new, f_new = ne(x_new)
+        ok = torch.isfinite(jtj_new).all(dim=-1).all(dim=-1) \
+            & torch.isfinite(jtr_new).all(dim=-1)
+        improved = (f_new < f) & torch.isfinite(f_new) & ok
+        take = improved & active
+        x = torch.where(take[:, None], x_new, x)
+        f_keep = torch.where(take, f_new, f)
+        jtj = torch.where(take[:, None, None], jtj_new, jtj)
+        jtr = torch.where(take[:, None], jtr_new, jtr)
+        # the pinned-at-minimum exit tests the PRE-update lambda, so a
+        # rejection at lam = 1e8 still raises lam and only the next
+        # rejection marks the lane done
+        rel_drop = (f - f_new) <= tol * (torch.abs(f) + tol)
+        step_small = torch.abs(delta).amax(dim=-1) <= tol * (
+            torch.abs(x).amax(dim=-1) + tol)
+        newly = (improved & (rel_drop | step_small)) \
+            | (~improved & (lam > 1e8))
+        lam = torch.where(active, torch.where(improved, lam * 0.1,
+                                              lam * 10.0), lam)
+        f = f_keep
+        it_lanes = it_lanes + active.to(torch.int32)
+        done = done | (newly & active)
+        it += 1
+    return x, f, done, it_lanes

@@ -1,0 +1,163 @@
+"""The port's ARMA normal-equations module against the JAX package.
+
+``normal_equations_plain`` (the CUDA kernel's plain twin, what a CPU
+tensor runs) is held against ``arima._arma_normal_eqs`` at float64 and
+against the Pallas kernel in interpret mode at float32;
+``fit_css_lm`` against the Pallas LM solver and the XLA LM route.  The
+CUDA kernel itself runs only on a card (``tests/test_torch_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spark_timeseries_tpu.models import arima as jarima
+from spark_timeseries_tpu.ops import pallas_arma
+from spark_timeseries_tpu.ops.optimize import minimize_least_squares
+from spark_timeseries_tpu_torch.models.arima import ARIMAModel
+from spark_timeseries_tpu_torch.ops import arma_ne
+
+torch.set_num_threads(1)
+
+
+def _panel(rng, S, n, phi=(0.25, 0.35), theta=(0.3, 0.1)):
+    e = rng.normal(size=(S, n + 16))
+    y = np.zeros_like(e)
+    for t in range(2, e.shape[1]):
+        y[:, t] = 1.0 + phi[0] * y[:, t - 1] + phi[1] * y[:, t - 2] \
+            + e[:, t] + theta[0] * e[:, t - 1] + theta[1] * e[:, t - 2]
+    return y[:, 16:]
+
+
+def _xla_ne(params, y, p, q, icpt, mask=None, nv=None):
+    def one(prm, yy, *extra):
+        m = extra[0] if mask is not None else None
+        v = extra[-1] if nv is not None else None
+        return jarima._arma_normal_eqs(prm, yy, p, q, icpt, mask=m,
+                                       n_valid=v)
+    extra = ([] if mask is None else [jnp.asarray(mask)]) \
+        + ([] if nv is None else [jnp.asarray(nv)])
+    return jax.vmap(one)(jnp.asarray(params), jnp.asarray(y), *extra)
+
+
+@pytest.mark.parametrize("mode", ["dense", "masked", "ragged"])
+@pytest.mark.parametrize("p,q,icpt", [(2, 2, 1), (0, 2, 1), (2, 0, 1),
+                                      (3, 2, 0)])
+def test_plain_matches_xla_normal_eqs(p, q, icpt, mode):
+    rng = np.random.default_rng(0)
+    S, n = 40, 64
+    y = _panel(rng, S, n)
+    k = icpt + p + q
+    params = 0.1 * rng.normal(size=(S, k))
+    mask = nv = None
+    if mode == "masked":
+        mask = (rng.uniform(size=(S, k)) > 0.3).astype(np.float64)
+    if mode == "ragged":
+        nv = rng.integers(20, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+    got = arma_ne.normal_equations_plain(
+        torch.from_numpy(params), torch.from_numpy(y), p, q, icpt,
+        mask=None if mask is None else torch.from_numpy(mask),
+        n_valid=None if nv is None else torch.from_numpy(nv))
+    want = _xla_ne(params, y, p, q, icpt, mask, nv)
+    # float64 both sides, the same recurrence summed in another order
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("S,n,ragged", [(160, 96, False), (130, 57, True)])
+def test_plain_f32_matches_pallas_interpret(S, n, ragged):
+    # (130, 57): n_obs - max_lag is not a multiple of the Pallas kernel's
+    # 16-step chunk, so its static tail path runs
+    rng = np.random.default_rng(1)
+    y = _panel(rng, S, n).astype(np.float32)
+    params = (0.1 * rng.normal(size=(S, 5))).astype(np.float32)
+    nv = rng.integers(20, n + 1, size=S) if ragged else None
+    got = arma_ne.normal_equations_plain(
+        torch.from_numpy(params), torch.from_numpy(y), 2, 2, 1,
+        n_valid=None if nv is None else torch.from_numpy(nv))
+    want = pallas_arma.normal_equations(
+        jnp.asarray(params), jnp.asarray(y), 2, 2, 1,
+        n_valid=None if nv is None else jnp.asarray(nv), interpret=True)
+    # float32 sums over ~100 steps in two summation orders
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-3)
+
+
+def test_fit_css_lm_matches_pallas_solver_and_xla_route():
+    rng = np.random.default_rng(2)
+    S, n, p, q = 64, 96, 2, 2
+    y = _panel(rng, S, n)
+    init = np.asarray(jarima.hannan_rissanen_init(p, q, jnp.asarray(y),
+                                                  True))
+
+    # float32: the port's solver against the Pallas solver (interpret)
+    x32, f32, done32, it32 = arma_ne.fit_css_lm(
+        torch.from_numpy(init.astype(np.float32)),
+        torch.from_numpy(y.astype(np.float32)), p, q, 1)
+    x_pl, f_pl, done_pl, it_pl = pallas_arma.fit_css_lm(
+        jnp.asarray(init, jnp.float32), jnp.asarray(y, jnp.float32), p, q,
+        1, interpret=True)
+    # the same state machine on float32 accumulators summed in another
+    # order: rounding may flip an accept/reject on the flat CSS ridges, so
+    # the contract is the JAX package's own between its two solvers
+    conv = done32.numpy() & np.asarray(done_pl) \
+        & np.isfinite(f32.numpy()) & np.isfinite(np.asarray(f_pl))
+    assert conv.mean() > 0.8
+    dx = np.abs(x32.numpy() - np.asarray(x_pl)).max(axis=1)[conv]
+    assert np.median(dx) < 2e-3 and np.mean(dx < 5e-3) >= 0.9
+    rel = np.abs(f32.numpy()[conv] - np.asarray(f_pl)[conv]) \
+        / np.asarray(f_pl)[conv]
+    assert np.mean(rel < 1e-3) >= 0.95
+
+    # float64: against the XLA LM route arima.fit takes on the CPU
+    x64, f64, done64, it64 = arma_ne.fit_css_lm(
+        torch.from_numpy(init), torch.from_numpy(y), p, q, 1, tol=1e-10)
+    res = minimize_least_squares(
+        None, jnp.asarray(init), jnp.asarray(y), max_iter=50,
+        normal_eqs_fn=lambda prm, yy: jarima._arma_normal_eqs(
+            prm, yy, p, q, 1))
+    # identical decisions at float64 (the solvers differ only in which x
+    # the step-size exit is scaled by, a 1e-10-relative test)
+    assert np.mean(done64.numpy() == np.asarray(res.converged)) >= 0.95
+    assert np.mean(it64.numpy() == np.asarray(res.n_iter)) >= 0.95
+    same = (done64.numpy() == np.asarray(res.converged)) \
+        & (it64.numpy() == np.asarray(res.n_iter))
+    np.testing.assert_allclose(x64.numpy()[same], np.asarray(res.x)[same],
+                               rtol=1e-7, atol=1e-8)
+    # the objective is compared where the MA part is invertible: a lane
+    # that runs off to a non-invertible point reaches SSEs of 1e100+,
+    # where a 1e-8 move of x changes the SSE by orders of magnitude
+    sane = same & ARIMAModel(p, 0, q, x64).is_invertible()
+    assert sane.mean() > 0.3
+    np.testing.assert_allclose(f64.numpy()[sane], np.asarray(res.fun)[sane],
+                               rtol=1e-9)
+
+
+def test_cpu_tensor_runs_the_plain_version():
+    rng = np.random.default_rng(3)
+    y = torch.from_numpy(_panel(rng, 12, 40))
+    params = torch.from_numpy(0.1 * rng.normal(size=(12, 5)))
+    before = arma_ne.normal_equations.launches
+    got = arma_ne.normal_equations(params, y, 2, 2, 1)
+    want = arma_ne.normal_equations_plain(params, y, 2, 2, 1)
+    assert arma_ne.normal_equations.launches == before   # no kernel here
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="too short"):
+        arma_ne.normal_equations(params, y[:, :2], 2, 2, 1)
+
+
+def test_kernel_order_check():
+    arma_ne.check_kernel_order(3, 3, 1)
+    arma_ne.check_kernel_order(0, 0, 1)
+    with pytest.raises(ValueError, match="p, q <= 3"):
+        arma_ne.check_kernel_order(4, 1, 1)
+    with pytest.raises(ValueError, match="p, q <= 3"):
+        arma_ne.check_kernel_order(1, 5, 0)
+    with pytest.raises(ValueError, match="at least one"):
+        arma_ne.check_kernel_order(0, 0, 0)
