@@ -8,7 +8,10 @@ Phases, one JSON line each:
 
 1. ``device``: the card (with ``nvidia-smi``'s name and power limit on a
    line of its own), torch and CUDA versions; TF32 matmuls off.
-2. ``build``: nvcc builds every kernel from ``csrc/``.
+2. ``build``: nvcc builds every kernel from ``csrc/``, one process per
+   source, all started together.  Then the Holt-Winters panel is made and
+   four CPU worker processes start refitting 1024 of its lanes in float64
+   (they run while the card works; ``hw_path`` reads them).
 3. ``kernel_vs_plain``: ``ops.arma_ne.normal_equations`` (the CUDA kernel)
    against ``normal_equations_plain`` in float32 on the card and in
    float64 on the CPU, at the main path's chunk shape.
@@ -18,6 +21,22 @@ Phases, one JSON line each:
    refitted on the CPU in float64 and compared.
 5. ``timing``: CUDA-event times of the kernel and of its plain version,
    the kernel's bound, and one LM iteration split into kernel and rest.
+6. ``css_cost_vs_plain``: ``ops.arma_ne.css_cost`` (the cost-only kernel)
+   against ``css_cost_plain``, dense and ragged, at the ARIMA chunk shape.
+7. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the Holt-Winters
+   kernel) against ``value_and_grad_plain`` in float32 on the card and in
+   float64 on the CPU: additive period 12 dense and ragged,
+   multiplicative period 12, and period 52 (the generic form).
+8. ``hw_path``: ``FitEngine().stream_fit(panel, "holt_winters",
+   period=12, model_type="additive")`` over a 1,048,576 x 120 float32
+   panel (``bench_suite.py``'s monthly recipe) in 131072-series chunks,
+   the kernel's launches counted over exactly that run against the
+   solver's value-and-grad calls; ``log_likelihood_css`` of one ARIMA
+   chunk's fitted models on the card (the cost-only kernel on a path);
+   the float64 CPU refit compared by objective.
+9. ``hw_timing``: CUDA-event times of both new kernels and their plain
+   versions, their bounds, and one box-fit iteration split into kernel
+   and rest.
 
 Then one line of per-kernel numbers and, last, the result line.  Any
 failed check raises, so the script exits non-zero and prints no result
@@ -38,6 +57,11 @@ N_SERIES = 1_048_576     # the bench's north-star panel
 N_OBS = 128
 CHUNK = 131072           # series per chunk, as the JAX bench streams them
 N_REFIT = 4096           # lanes refitted on the CPU in float64
+HW_N_OBS = 120           # monthly Holt-Winters panel: bench_suite.py:339
+HW_PERIOD = 12
+HW_N_REFIT = 1024        # Holt-Winters lanes refitted on the CPU in float64
+HW_REFIT_WORKERS = 4     # CPU processes sharing that refit
+HW_F64_LANES = 16384     # lanes of the float64 CPU kernel reference
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores
@@ -58,6 +82,40 @@ NE_TOL = 1e-4
 # A wrong kernel or solver moves lanes by far more, so: at least 40% of
 # lanes converged in both agree to 1e-3 and at least 90% to 5e-3.
 AGREE = ((1e-3, 0.40), (5e-3, 0.90))
+
+# cost-only kernel vs plain: relative sse error.  The same float32 sums
+# as NE_TOL's over <= 127 steps, so the same bound
+CSS_TOL = 1e-4
+
+# Holt-Winters kernel vs plain: sse relative to itself, each gradient
+# entry relative to the larger of its lane's largest and its SSE.  Float32
+# alone moves these far on ill-conditioned lanes: the plain loop in
+# float32 against float64 (CPU, the first chunk of this panel at random
+# parameters) reaches 1.4e-4 on the sse, and on the gradient 2.9e-4 at
+# the 99.9th percentile and 4.9e-3 at worst, on lanes with a small alpha and
+# beta, gamma near 1, whose tangent recurrences amplify rounding.  The
+# kernel differs from the plain loop by FMA contraction and the order of
+# the tangents' unit-vector terms, so it is held to float32's own spread:
+# the sse and 99.9% of gradient entries within HW_TOL, every gradient
+# entry within HW_TOL_ALL.  A wrong recurrence is off by O(1)
+HW_TOL = 1e-3
+HW_TOL_ALL = 2e-2
+
+# f32-on-card vs f64-on-CPU Holt-Winters fits: the float32 box solver
+# stops when a step no longer moves x or f in float32 (its 1e-10
+# tolerance is below float32's resolution), the float64 one at a relative
+# SSE change of 1e-10 or its 1000-iteration cap; fits sit along flat
+# directions, so objectives are compared, not parameters: of the lanes
+# converged in both, at least 90% must have a card SSE (re-evaluated in
+# float64 at the card's parameters) within 1e-3 relative of the float64
+# fit's.  A wrong kernel or solver leaves far more lanes off than that
+HW_AGREE = (1e-3, 0.90)
+
+# the card's CSS log likelihood vs float64 on invertible converged lanes:
+# a float32 sum of <= 127 squares is good to ~1e-6 relative and the log
+# likelihood inherits that; 1e-5 leaves room for FMA contraction
+LL_TOL = 1e-5
+HW_CONVERGED_FLOOR = 90.0
 
 
 def emit(obj) -> None:
@@ -244,7 +302,8 @@ def phase_main_path(panel, dev, n_refit=N_REFIT, chunk=CHUNK):
             "refit_both_converged": float(np.mean(both)),
             "refit_agree_share": agree,
             "refit_agree_floor": {f"{t:g}": f for t, f in AGREE},
-            "refit_median_abs_diff": float(np.median(dx))}, launches
+            "refit_median_abs_diff": float(np.median(dx))}, launches, \
+        res.models[0]
 
 
 def _event_ms(fn, reps: int):
@@ -308,6 +367,366 @@ def phase_timing(panel, seed, dev):
             "lm_iteration_rest_ms": per_iter_ms - kernel_per_iter_ms}
 
 
+def synthetic_hw_panel(n_series: int, n_obs: int, period: int,
+                       seed: int = 0) -> np.ndarray:
+    """``100 + 0.5 t + 10 sin(2πt/period) + N(0, 2²)`` per series (the JAX
+    package's ``benchmarks/bench_suite.py`` Holt-Winters recipe), float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_obs, dtype=np.float32)
+    base = (100.0 + 0.5 * t
+            + 10.0 * np.sin(2 * np.pi * t / period)).astype(np.float32)
+    out = rng.standard_normal((n_series, n_obs), dtype=np.float32)
+    out *= 2.0
+    out += base
+    return out
+
+
+def _hw_refit_part(values: np.ndarray, period: int):
+    """One CPU worker's share of the float64 Holt-Winters refit."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import holt_winters
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    m = holt_winters.fit(values, period, "additive", device="cpu")
+    return {"x": torch.stack([m.alpha, m.beta, m.gamma], dim=-1).numpy(),
+            "fun": m.diagnostics.fun.numpy(),
+            "converged": m.diagnostics.converged.numpy(),
+            "n_iter": m.diagnostics.n_iter.numpy(),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_hw_refit(hw_panel: np.ndarray):
+    """Start the float64 CPU refit of the first ``HW_N_REFIT`` lanes in
+    ``HW_REFIT_WORKERS`` spawned processes; returns ``(pool, pending)``."""
+    import multiprocessing
+
+    values = hw_panel[:HW_N_REFIT].astype(np.float64)
+    pool = multiprocessing.get_context("spawn").Pool(HW_REFIT_WORKERS)
+    parts = np.array_split(values, HW_REFIT_WORKERS)
+    pending = pool.starmap_async(_hw_refit_part,
+                                 [(v, HW_PERIOD) for v in parts])
+    return pool, pending
+
+
+def css_cases(panel: np.ndarray, seed: int):
+    """The cost-only kernel's cases at the ARIMA chunk shape: name,
+    (p, q, icpt), series, params, n_valid."""
+    rng = np.random.default_rng(seed + 2)
+    chunk = panel[:CHUNK]
+    diffed = np.ascontiguousarray(np.diff(chunk, axis=1))
+    S = chunk.shape[0]
+    nv = rng.integers(40, diffed.shape[1] + 1, S).astype(np.float32)
+    cases = []
+    for name, (p, q, icpt), y, ragged in (
+            ("arima(2,1,2)+c", (2, 2, 1), diffed, False),
+            ("arima(2,1,2)+c ragged", (2, 2, 1), diffed, True),
+            ("arima(5,1,0)+c", (5, 0, 1), diffed, False)):
+        params = (0.1 * rng.normal(size=(S, icpt + p + q))).astype(
+            np.float32)
+        cases.append((name, (p, q, icpt), y, params,
+                      nv if ragged else None))
+    return cases
+
+
+def phase_css_cost_vs_plain(panel, seed, dev):
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    rows, max_abs = [], 0.0
+    for name, (p, q, icpt), y, params, nv in css_cases(panel, seed):
+        y_d = torch.from_numpy(y).to(dev)
+        prm_d = torch.from_numpy(params).to(dev)
+        nv_d = None if nv is None else torch.from_numpy(nv).to(dev)
+        got = arma_ne.css_cost(prm_d, y_d, p, q, icpt, n_valid=nv_d)
+        plain = arma_ne.css_cost_plain(prm_d, y_d, p, q, icpt, n_valid=nv_d)
+        ref64 = arma_ne.css_cost_plain(
+            torch.from_numpy(params).double(), torch.from_numpy(y).double(),
+            p, q, icpt,
+            n_valid=None if nv is None else torch.from_numpy(nv).double())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        errs = {label: ((got.double().cpu() - ref.double().cpu()).abs()
+                        / ref.double().cpu().abs()).max().item()
+                for label, ref in (("plain f32", plain),
+                                   ("plain f64", ref64))}
+        if name == "arima(2,1,2)+c":
+            max_abs = (got - plain).abs().max().item()
+        rows.append({"case": name, "S": y.shape[0], "n_obs": y.shape[1],
+                     "rel_err": errs, "tol": CSS_TOL})
+        for label, err in errs.items():
+            check(err <= CSS_TOL, f"{name}: css kernel vs {label} relative "
+                                  f"error {err:.3g} > {CSS_TOL:g}")
+    return rows, max_abs
+
+
+def _hw_errors(got, ref):
+    """Normalized errors of ``(sse, grad)`` against a reference: sse
+    relative to itself, each gradient entry relative to the larger of its
+    lane's largest reference entry and the lane's SSE (over the unit box
+    the SSE moves by about itself, so the SSE is the gradient's natural
+    scale where the gradient happens to be small)."""
+    import torch
+
+    f, g = (t.double().cpu() for t in got)
+    f_r, g_r = (t.double().cpu() for t in ref)
+    scale = torch.maximum(g_r.abs().amax(dim=1), f_r.abs())[:, None]
+    grad = ((g - g_r).abs() / scale).flatten()
+    return {"sse": ((f - f_r).abs() / f_r.abs()).max().item(),
+            "grad_q999": torch.quantile(grad, 0.999).item(),
+            "grad_max": grad.max().item()}
+
+
+def hw_cases(hw_panel: np.ndarray, seed: int):
+    """The Holt-Winters kernel's cases at the chunk shape: name, period,
+    model type, series, params, n_valid."""
+    rng = np.random.default_rng(seed + 3)
+    chunk = hw_panel[:CHUNK]
+    S, n = chunk.shape
+    m = HW_PERIOD
+    nv = rng.integers(2 * m + 1, n + 1, S)
+    ragged = np.where(np.arange(n)[None, :] < nv[:, None], chunk,
+                      np.float32(0.0))
+    # 52 is not one of the register periods: the generic form
+    weekly = synthetic_hw_panel(S, 5 * 52, 52, seed + 4)
+    cases = []
+    for name, period, model_type, y, lanes_nv in (
+            ("additive m=12", m, "additive", chunk, None),
+            ("additive m=12 ragged", m, "additive", ragged, nv),
+            ("multiplicative m=12", m, "multiplicative", chunk, None),
+            ("additive m=52 generic", 52, "additive", weekly, None)):
+        params = rng.uniform(0.05, 0.95, size=(S, 3)).astype(np.float32)
+        cases.append((name, period, model_type, y, params, lanes_nv))
+    return cases
+
+
+def phase_hw_kernel_vs_plain(hw_panel, seed, dev):
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import hw_sse
+
+    rows, max_abs = [], 0.0
+    k = HW_F64_LANES
+    for name, m, model_type, y, params, nv in hw_cases(hw_panel, seed):
+        y_d = torch.from_numpy(y).to(dev)
+        prm_d = torch.from_numpy(params).to(dev)
+        nv_d = None if nv is None else torch.from_numpy(nv).to(dev)
+        got = hw_sse.value_and_grad(prm_d, y_d, m, model_type, n_valid=nv_d)
+        plain = hw_sse.value_and_grad_plain(prm_d, y_d, m, model_type,
+                                            n_valid=nv_d)
+        ref64 = hw_sse.value_and_grad_plain(
+            torch.from_numpy(params[:k]).double(),
+            torch.from_numpy(y[:k]).double(), m, model_type,
+            n_valid=None if nv is None else torch.from_numpy(nv[:k]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        vs_plain = _hw_errors(got, plain)
+        vs_f64 = _hw_errors([t[:k] for t in got], ref64)
+        if name == "additive m=12":
+            max_abs = max((a - b).abs().max().item()
+                          for a, b in zip(got, plain))
+        rows.append({"case": name, "S": y.shape[0], "n_obs": y.shape[1],
+                     "period": m, "vs_plain_f32": vs_plain,
+                     "vs_plain_f64_cpu": vs_f64, "f64_lanes": k,
+                     "tol": HW_TOL, "tol_all": HW_TOL_ALL})
+        for label, errs in (("plain f32", vs_plain), ("plain f64", vs_f64)):
+            for key, err in errs.items():
+                tol = HW_TOL_ALL if key == "grad_max" else HW_TOL
+                check(err <= tol, f"{name}: hw kernel vs {label} {key} "
+                                  f"error {err:.3g} > {tol:g}")
+    return rows, max_abs
+
+
+def phase_hw_path(hw_panel, arima_panel, arima_model, refit, dev,
+                  chunk=CHUNK):
+    import torch
+
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+
+    engine = FitEngine()
+    kw = dict(period=HW_PERIOD, model_type="additive")
+    # warm-up: library load, allocator (not counted)
+    engine.stream_fit(hw_panel[:4096], "holt_winters", chunk_size=4096,
+                      device=dev, **kw)
+    hw_sse.value_and_grad.launches = 0
+    arma_ne.css_cost.launches = 0
+    res = engine.stream_fit(hw_panel, "holt_winters", chunk_size=chunk,
+                            device=dev, collect=True, **kw)
+    launches = hw_sse.value_and_grad.launches
+    calls = res.stats["value_and_grad_calls"]
+    check(not res.chunk_failures,
+          f"chunk failures: {[f['error'] for f in res.chunk_failures]}")
+    check(launches > 0, "the Holt-Winters path never launched its kernel")
+    check(launches == sum(calls),
+          f"hw_sse launches {launches} != the solver's value-and-grad "
+          f"calls {sum(calls)}")
+    converged_pct = 100.0 * res.n_converged / res.n_series
+    check(converged_pct >= HW_CONVERGED_FLOOR,
+          f"Holt-Winters converged_pct {converged_pct:.2f} < "
+          f"{HW_CONVERGED_FLOOR}")
+    x = torch.cat([torch.stack([m.alpha, m.beta, m.gamma], dim=-1)
+                   for m in res.models]).numpy()
+    conv = torch.cat([m.diagnostics.converged for m in res.models]).numpy()
+    check(x.shape == (hw_panel.shape[0], 3), f"parameters {x.shape}")
+    check(bool(np.isfinite(x[conv]).all() and (x[conv] >= 0).all()
+               and (x[conv] <= 1).all()),
+          "converged lanes' parameters are not finite and in [0, 1]")
+
+    # the cost-only kernel on a path: the CSS log likelihood of the first
+    # ARIMA chunk's fitted models, on the card
+    model = arima_model._replace(
+        coefficients=arima_model.coefficients.to(dev),
+        diagnostics=None)
+    ll = model.log_likelihood_css(torch.from_numpy(arima_panel[:chunk])
+                                  .to(dev)).cpu()
+    css_launches = arma_ne.css_cost.launches
+    check(css_launches > 0, "log_likelihood_css never launched the css "
+                            "kernel")
+    # against float64 on the CPU, on converged lanes whose MA part is
+    # invertible (elsewhere the error recurrence amplifies float32
+    # rounding without bound, in any implementation)
+    k = N_REFIT
+    ref = model._replace(coefficients=arima_model.coefficients[:k].double())
+    ll64 = ref.log_likelihood_css(torch.from_numpy(arima_panel[:k]).double())
+    ok = torch.isfinite(ll64) & arima_model.diagnostics.converged[:k] \
+        & torch.from_numpy(np.asarray(ref.is_invertible()))
+    ll_rel = ((ll[:k].double() - ll64).abs() / ll64.abs())[ok]
+    ll_share = float((ll_rel <= LL_TOL).double().mean())
+    check(ll_share >= 0.999, f"only {ll_share:.4f} of the card's CSS log "
+                             f"likelihoods agree with float64 to {LL_TOL:g}")
+
+    # the float64 CPU refit, by objective
+    pool, pending = refit
+    t0 = time.perf_counter()
+    parts = pending.get(timeout=900)
+    waited = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    ref_x = np.concatenate([p["x"] for p in parts])
+    ref_fun = np.concatenate([p["fun"] for p in parts])
+    ref_conv = np.concatenate([p["converged"] for p in parts])
+    k = HW_N_REFIT
+    card_sse = hw_sse.value_and_grad_plain(
+        torch.from_numpy(x[:k]).double(),
+        torch.from_numpy(hw_panel[:k]).double(), HW_PERIOD,
+        "additive")[0].numpy()
+    both = conv[:k] & ref_conv
+    rel = (card_sse - ref_fun) / ref_fun
+    tol, floor = HW_AGREE
+    agree = float(np.mean(np.abs(rel[both]) <= tol))
+    check(agree >= floor, f"only {agree:.3f} of lanes converged in both "
+                          f"have a card SSE within {tol:g} of the float64 "
+                          f"fit's (floor {floor})")
+    return {"phase": "hw_path", "n_series": res.n_series,
+            "n_obs": hw_panel.shape[1], "period": HW_PERIOD,
+            "chunk_size": chunk, "n_chunks": res.n_chunks,
+            "wall_s": res.wall_s, "series_per_s": res.rate,
+            "converged_pct": converged_pct,
+            "box_iterations_per_chunk": res.stats["box_iterations"],
+            "value_and_grad_calls_per_chunk": calls,
+            "hw_sse_launches": launches,
+            "arima_css_loglik_lanes": int(ll.shape[0]),
+            "arima_css_launches": css_launches,
+            "arima_css_loglik_f64_lanes": int(ok.sum()),
+            "arima_css_loglik_f64_share": ll_share,
+            "arima_css_loglik_f64_max_rel": float(ll_rel.max()),
+            "refit_lanes": k, "refit_workers": HW_REFIT_WORKERS,
+            "refit_cpu_f64_s": max(p["seconds"] for p in parts),
+            "refit_waited_s": waited,
+            "refit_f64_converged": float(np.mean(ref_conv)),
+            "refit_both_converged": float(np.mean(both)),
+            "refit_sse_agree_share": agree,
+            "refit_sse_agree_tol_floor": [tol, floor],
+            "refit_card_not_worse_share": float(
+                np.mean(rel[both] <= tol)),
+            "refit_median_rel_sse_diff": float(np.median(rel[both]))}, \
+        launches, css_launches
+
+
+def hw_bound_s(S: int, n_steps: int, m: int):
+    """Least time of one additive, dense Holt-Winters kernel call: y,
+    init, params read once and out written once over the HBM rate, 81
+    flop per lane-step (csrc/hw_sse.cu's count) over the fp32 rate."""
+    n_bytes = 4 * S * (n_steps + 2 + m + 3 + 4)
+    flops = 81 * n_steps * S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, flops
+
+
+def css_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int):
+    """Least time of one dense cost-only ARMA call: y and params read and
+    sse written once; yhat (2 per AR and MA term), e (1) and sse (2) per
+    lane-step."""
+    n_bytes = 4 * S * (n_obs + icpt + p + q + 1)
+    flops = (2 * (p + q) + 3) * (n_obs - max(p, q)) * S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, flops
+
+
+def phase_hw_timing(hw_panel, arima_panel, seed, dev):
+    import torch
+
+    from spark_timeseries_tpu_torch.models import holt_winters
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+
+    name, m, model_type, y, params, _ = hw_cases(hw_panel, seed)[0]
+    y_d = torch.from_numpy(y).to(dev)
+    S, n = y.shape
+    inp = hw_sse.prepare(y_d, m, model_type)
+    prm_t = torch.from_numpy(params).to(dev).T.contiguous()
+    kernel_ms = _event_ms(lambda: hw_sse._launch(prm_t, inp), 20)
+    plain_ms = _event_ms(lambda: hw_sse._packed_plain(prm_t, inp), 3)
+    bound_s, bound_by, n_bytes, flops = hw_bound_s(S, n - m, m)
+
+    # one box fit of the chunk from the (0.3, 0.1, 0.1) start
+    stats = {}
+    torch.cuda.synchronize()
+    launches0 = hw_sse.value_and_grad.launches
+    t0 = time.perf_counter()
+    holt_winters.fit(y_d, m, model_type, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_launch = hw_sse.value_and_grad.launches - launches0
+    iterations = max(stats["iterations"], 1)
+    per_iter_ms = fit_s * 1e3 / iterations
+    kernel_per_iter_ms = kernel_ms * n_launch / iterations
+
+    # the cost-only ARMA kernel at the ARIMA chunk shape
+    c_name, (p, q, icpt), cy, cparams, _ = css_cases(arima_panel, seed)[0]
+    cy_t = torch.from_numpy(cy).to(dev).T.contiguous()
+    cprm_t = torch.from_numpy(cparams).to(dev).T.contiguous()
+    css_ms = _event_ms(
+        lambda: arma_ne._css_launch(cprm_t, cy_t, None, p, q, icpt), 20)
+    css_plain_ms = _event_ms(
+        lambda: arma_ne._packed_plain(cprm_t, cy_t, None, p, q, icpt,
+                                      grad=False), 3)
+    c_bound_s, c_bound_by, c_bytes, c_flops = css_bound_s(
+        cy.shape[0], cy.shape[1], p, q, icpt)
+    return {"phase": "hw_timing", "case": name, "S": S, "n_obs": n,
+            "period": m, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_us": bound_s * 1e6, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": flops,
+            "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
+            "box_iterations": stats["iterations"],
+            "box_kernel_launches": n_launch,
+            "trials_per_iteration": stats["trials"] / iterations,
+            "box_fit_ms": fit_s * 1e3,
+            "box_iteration_ms": per_iter_ms,
+            "box_iteration_kernel_ms": kernel_per_iter_ms,
+            "box_iteration_rest_ms": per_iter_ms - kernel_per_iter_ms,
+            "css_case": c_name, "css_S": cy.shape[0],
+            "css_n_obs": cy.shape[1], "css_kernel_ms": css_ms,
+            "css_plain_ms": css_plain_ms, "css_bound_us": c_bound_s * 1e6,
+            "css_bound_by": c_bound_by, "css_bytes": c_bytes,
+            "css_flops": c_flops,
+            "css_share_of_bound": c_bound_s * 1e3 / css_ms}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -328,7 +747,7 @@ def main(argv=None) -> int:
               "card", file=sys.stderr)
         return 1
     from spark_timeseries_tpu_torch import _build
-    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,22 +762,50 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     arma_ne._kernel_fn()
+    arma_ne._css_kernel_fn()
+    hw_sse._kernel_fn()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.name) for p in libs]})
 
     t0 = time.perf_counter()
+    hw_panel = synthetic_hw_panel(N_SERIES, HW_N_OBS, HW_PERIOD, args.seed)
+    refit = start_hw_refit(hw_panel)
+    try:
+        return _run(args, dev, smi, hw_panel, refit, t0)
+    finally:
+        refit[0].terminate()
+        refit[0].join()
+
+
+def _run(args, dev, smi, hw_panel, refit, t0) -> int:
+    import torch
+
     panel = synthetic_arima_panel(N_SERIES, N_OBS, args.seed)
     emit({"phase": "panel", "shape": list(panel.shape),
-          "dtype": str(panel.dtype), "seconds": time.perf_counter() - t0})
+          "dtype": str(panel.dtype), "hw_shape": list(hw_panel.shape),
+          "seconds": time.perf_counter() - t0})
 
     rows, max_abs = phase_kernel_vs_plain(panel, args.seed, dev)
     emit({"phase": "kernel_vs_plain", "cases": rows})
 
-    main_row, launches = phase_main_path(panel, dev)
+    main_row, launches, arima_model = phase_main_path(panel, dev)
     emit(main_row)
 
     timing = phase_timing(panel, args.seed, dev)
     emit(timing)
+
+    css_rows, css_max_abs = phase_css_cost_vs_plain(panel, args.seed, dev)
+    emit({"phase": "css_cost_vs_plain", "cases": css_rows})
+
+    hw_rows, hw_max_abs = phase_hw_kernel_vs_plain(hw_panel, args.seed, dev)
+    emit({"phase": "hw_kernel_vs_plain", "cases": hw_rows})
+
+    hw_row, hw_launches, css_launches = phase_hw_path(
+        hw_panel, panel, arima_model, refit, dev)
+    emit(hw_row)
+
+    hw_timing = phase_hw_timing(hw_panel, panel, args.seed, dev)
+    emit(hw_timing)
 
     emit({"kernels": [{
         "name": "arma_ne", "route": "cuda",
@@ -367,7 +814,22 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_us"] / 1e3,
-        "bound_by": timing["bound_by"], "library_ms": None}]})
+        "bound_by": timing["bound_by"], "library_ms": None}, {
+        "name": "arma_css", "route": "cuda",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "replaces": "docs/experiments/arma_pallas.py:67",
+        "launches": css_launches, "max_abs_err": css_max_abs,
+        "ms": hw_timing["css_kernel_ms"],
+        "plain_ms": hw_timing["css_plain_ms"],
+        "bound_ms": hw_timing["css_bound_us"] / 1e3,
+        "bound_by": hw_timing["css_bound_by"], "library_ms": None}, {
+        "name": "hw_sse", "route": "cuda",
+        "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
+        "replaces": "docs/experiments/hw_pallas.py:61",
+        "launches": hw_launches, "max_abs_err": hw_max_abs,
+        "ms": hw_timing["kernel_ms"], "plain_ms": hw_timing["plain_ms"],
+        "bound_ms": hw_timing["bound_us"] / 1e3,
+        "bound_by": hw_timing["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

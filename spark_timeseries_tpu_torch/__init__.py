@@ -1,13 +1,17 @@
 """PyTorch/CUDA port of ``spark_timeseries_tpu``.
 
 The JAX package beside this one is the reference; this package computes
-the same functions on tensors, with the ARMA normal-equations pass as a
-hand-written CUDA kernel (``csrc/arma_ne.cu``).  It imports neither
-``jax`` nor ``spark_timeseries_tpu``.
+the same functions on tensors, with the JAX package's Pallas kernels as
+hand-written CUDA kernels (``csrc/arma_ne.cu``: the ARMA normal
+equations and the CSS cost; ``csrc/hw_sse.cu``: the Holt-Winters SSE
+value and gradient).  It imports neither ``jax`` nor
+``spark_timeseries_tpu``.
 
 Ported so far: the batched ARIMA(p, d, q) CSS fit (``models.arima.fit``,
-``method="css-lm"``) and the streaming fit engine
-(``engine.FitEngine.fit`` / ``stream_fit``) with the ops they need.
+``method="css-lm"``), the batched Holt-Winters fit
+(``models.holt_winters.fit``) and the streaming fit engine
+(``engine.FitEngine.fit`` / ``stream_fit``, families ``arima``, ``ar``
+and ``holt_winters``) with the ops they need.
 
 Device policy: the entry points take ``device=None``, which means CUDA.
 Without a card they raise unless the caller passes ``device="cpu"``.

@@ -8,7 +8,9 @@ wrappers pass pointers and the stream as ``ctypes.c_void_p``.
 
 Importing this module needs no nvcc; building happens when a CUDA tensor
 first reaches a kernel wrapper (or :func:`build_all` is called), and a
-missing nvcc raises then.
+missing nvcc raises then.  :func:`check_inputs` and :func:`launch` are
+the wrappers' side of the binding: what may cross into a kernel, and a
+launch on the current stream whose error code raises.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
@@ -100,3 +104,29 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             _libs[name] = lib
         return lib
+
+
+def check_inputs(tensors: Sequence[torch.Tensor], kernel: str) -> None:
+    """Raise unless every tensor is float32, contiguous and on the first
+    one's device: the pointers a kernel takes carry no shape or type."""
+    for t in tensors:
+        if t.device != tensors[0].device:
+            raise ValueError(f"the {kernel} kernel's inputs must share one "
+                             f"device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"the CUDA {kernel} kernel takes float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA {kernel} kernel needs contiguous "
+                             f"inputs")
+
+
+def launch(fn, device: torch.device, *args, what: str) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream; a non-zero return (-1: arguments the kernel does not take,
+    else a ``cudaError_t``) raises."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: " + ("unsupported arguments" if rc < 0
+                                          else f"CUDA error {rc}"))

@@ -1,4 +1,5 @@
-// Fused ARMA normal equations for the CSS Levenberg-Marquardt fit.
+// Fused ARMA normal equations for the CSS Levenberg-Marquardt fit, and
+// (arma_css_kernel, further down) the CSS cost alone.
 //
 // Replaces the Pallas TPU kernel
 // spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel and computes its
@@ -163,7 +164,99 @@ cudaError_t launch_icpt(int icpt, const float* params, const float* y,
               : launch<P, Q, 0>(params, y, nv, out, S, n_obs, stream);
 }
 
+// The CSS cost alone: the port of the cost-only mode of the Pallas kernel
+// docs/experiments/arma_pallas.py::_css_kernel (with_grad=False), whose
+// gradient mode is the kernel above on a dense panel.  Per lane,
+// sse = sum_{t >= max(p, q)} e_t^2 with the recurrence above and only the
+// e ring carried; ragged lanes weight e by (t < nv) before the
+// accumulator and the ring push, as above.  Q (<= 5, the auto-fit grid's
+// largest MA order) is static so the e ring stays in registers; p is a
+// runtime argument and the AR terms read their y lags and coefficients
+// where they lie (lines the warp loaded in the last p steps, so L1 hits),
+// which lets the AR fast path of any order score itself on the card.
+// Output (1, S).  Bound at (2,1,2) with intercept, S = 131072,
+// n_obs = 127: reading y and params and writing sse moves 69.7 MB, ~21 us;
+// 11 flop per lane-step (yhat 8, e 1, sse 2) are 0.18 GFLOP, ~3 us: bytes.
+template <int Q, int ICPT, bool RAGGED>
+__global__ void __launch_bounds__(128)
+arma_css_kernel(const float* __restrict__ params, const float* __restrict__ y,
+                const float* __restrict__ nv, float* __restrict__ out, int S,
+                int n_obs, int p) {
+  constexpr int QA = Q > 0 ? Q : 1;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const size_t stride = static_cast<size_t>(S);
+  const int ml = p > Q ? p : Q;
+  const float c = ICPT ? params[s] : 0.0f;
+  const float* phi = params + static_cast<size_t>(ICPT) * stride + s;
+  float theta[QA], er[QA];
+#pragma unroll
+  for (int m = 0; m < QA; ++m) {
+    theta[m] = m < Q ? params[(ICPT + p + m) * stride + s] : 0.0f;
+    er[m] = 0.0f;
+  }
+  const float n_valid = RAGGED ? nv[s] : 0.0f;
+  float sse = 0.0f;
+  for (int t = ml; t < n_obs; ++t) {
+    float yhat = c;
+    for (int j = 0; j < p; ++j)
+      yhat += phi[j * stride] * y[static_cast<size_t>(t - j - 1) * stride + s];
+#pragma unroll
+    for (int m = 0; m < Q; ++m) yhat += theta[m] * er[m];
+    float e = y[static_cast<size_t>(t) * stride + s] - yhat;
+    if (RAGGED) e *= static_cast<float>(t) < n_valid ? 1.0f : 0.0f;
+    sse += e * e;
+    if (Q > 0) {
+#pragma unroll
+      for (int m = QA - 1; m > 0; --m) er[m] = er[m - 1];
+      er[0] = e;
+    }
+  }
+  out[s] = sse;
+}
+
+template <int Q, int ICPT>
+cudaError_t launch_css(const float* params, const float* y, const float* nv,
+                       float* out, int S, int n_obs, int p,
+                       cudaStream_t stream) {
+  const dim3 grid((S + kThreads - 1) / kThreads);
+  if (nv != nullptr)
+    arma_css_kernel<Q, ICPT, true><<<grid, kThreads, 0, stream>>>(
+        params, y, nv, out, S, n_obs, p);
+  else
+    arma_css_kernel<Q, ICPT, false><<<grid, kThreads, 0, stream>>>(
+        params, y, nv, out, S, n_obs, p);
+  return cudaGetLastError();
+}
+
+template <int Q>
+cudaError_t launch_css_icpt(int icpt, const float* params, const float* y,
+                            const float* nv, float* out, int S, int n_obs,
+                            int p, cudaStream_t stream) {
+  return icpt ? launch_css<Q, 1>(params, y, nv, out, S, n_obs, p, stream)
+              : launch_css<Q, 0>(params, y, nv, out, S, n_obs, p, stream);
+}
+
 }  // namespace
+
+// The cost-only kernel: as arma_ne_launch, for any p >= 0 and q <= 5;
+// `out` is (1, S).
+extern "C" int arma_css_launch(const float* params, const float* y,
+                               const float* nv, float* out, int S, int n_obs,
+                               int p, int q, int icpt, void* stream_ptr) {
+  if (S <= 0 || p < 0 || n_obs <= (p > q ? p : q) || p + q + icpt == 0)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  switch (q) {
+    case 0: return launch_css_icpt<0>(icpt, params, y, nv, out, S, n_obs, p, st);
+    case 1: return launch_css_icpt<1>(icpt, params, y, nv, out, S, n_obs, p, st);
+    case 2: return launch_css_icpt<2>(icpt, params, y, nv, out, S, n_obs, p, st);
+    case 3: return launch_css_icpt<3>(icpt, params, y, nv, out, S, n_obs, p, st);
+    case 4: return launch_css_icpt<4>(icpt, params, y, nv, out, S, n_obs, p, st);
+    case 5: return launch_css_icpt<5>(icpt, params, y, nv, out, S, n_obs, p, st);
+    default: return -1;
+  }
+}
 
 // Launches on `stream`, does not synchronise, allocates nothing.  Returns
 // the cudaError_t of the launch (0 on success), or -1 for an order

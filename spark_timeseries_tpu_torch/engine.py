@@ -66,7 +66,13 @@ _STATICS_BUILDERS = {
          max_iter),
     "ar": lambda max_lag=2, no_intercept=False:
         (int(max_lag), bool(no_intercept)),
+    "holt_winters": lambda period=12, model_type="additive":
+        (int(period), str(model_type)),
 }
+
+# families with a ragged engine path: a NaN chunk of any other family is a
+# data failure in stream_fit, as in the JAX engine
+RAGGED_FAMILIES = ("arima", "ar")
 
 
 def _statics(family: str, kwargs) -> tuple:
@@ -79,12 +85,17 @@ def _statics(family: str, kwargs) -> tuple:
 
 
 def _fit_values(family: str, statics: tuple, values: torch.Tensor,
-                warn: bool = False):
+                warn: bool = False, stats: Optional[dict] = None):
     """One batched fit of ``values`` on its own device.  NaN-padded lanes
     are left-aligned and fitted against their valid windows; NaN inside a
-    window raises."""
-    from .models import arima, autoregression
+    window raises.  ``stats`` receives the Holt-Winters solver's counts."""
+    from .models import arima, autoregression, holt_winters
 
+    if family == "holt_winters":
+        # the direct fit left-aligns its ragged lanes itself
+        period, model_type = statics
+        return holt_winters.fit(values, period, model_type,
+                                device=values.device, stats=stats)
     values, n_valid = ragged_view(values)
 
     if family == "arima":
@@ -129,6 +140,8 @@ class StreamResult(NamedTuple):
     in series order, padding lanes sliced off).  ``stats`` holds
     ``chunk_size``, ``lm_iterations`` (the LM loop's iterations per fitted
     arima chunk; the ARMA kernel runs once more than that per chunk),
+    for holt_winters ``value_and_grad_calls`` and ``box_iterations`` per
+    fitted chunk (the Holt-Winters kernel runs once per call),
     ``collected_ranges`` with ``collect=True``, and ``device``."""
     n_series: int
     n_fitted: int
@@ -201,8 +214,9 @@ class FitEngine:
         """Fit one ``(n_series, n_obs)`` panel on ``device`` (``None`` means
         CUDA).  ``kwargs`` are the family's fit parameters (arima:
         ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``;
-        ar: ``max_lag``/``no_intercept``).  NaN-padded lanes fit their
-        valid windows; NaN inside a window raises."""
+        ar: ``max_lag``/``no_intercept``; holt_winters:
+        ``period``/``model_type``).  NaN-padded lanes fit their valid
+        windows; NaN inside a window raises."""
         statics = _statics(family, kwargs)
         dev = resolve_device(device)
         v = as_tensor(values, dev)
@@ -253,6 +267,10 @@ class FitEngine:
             part = host[start:stop]
             n_real = stop - start
             ragged = bool(np.isnan(part).any())
+            if ragged and family not in RAGGED_FAMILIES:
+                raise _ChunkDataError(
+                    f"NaN input needs a ragged engine path; family "
+                    f"{family!r} has none (only {RAGGED_FAMILIES})")
             if ragged:
                 gaps = _interior_gap_count(part)
                 if gaps:
@@ -273,6 +291,8 @@ class FitEngine:
         failures: List[Dict[str, Any]] = []
         collected: Dict[int, Tuple[int, Any]] = {}
         lm_iterations: List[int] = []
+        vag_calls: List[int] = []
+        box_iterations: List[int] = []
 
         def record_failure(start: int, stop: int, e: Exception) -> None:
             nonlocal dead_series
@@ -315,8 +335,10 @@ class FitEngine:
             n_real = stop - start
             try:
                 values_dev = feed.take(idx % 2, bs)
+                solver: Dict[str, int] = {}
                 try:
-                    model = _fit_values(family, statics, values_dev)
+                    model = _fit_values(family, statics, values_dev,
+                                        stats=solver)
                 finally:
                     # even a failed fit may have enqueued reads of the slot
                     feed.release(idx % 2)
@@ -324,6 +346,9 @@ class FitEngine:
                 conv += int(diag.converged[:n_real].sum())
                 if lm_path:
                     lm_iterations.append(int(diag.n_iter.max()))
+                if family == "holt_winters":
+                    vag_calls.append(solver["calls"])
+                    box_iterations.append(solver["iterations"])
                 if collect:
                     collected[start] = (stop, _map_tensors(
                         model, lambda t: (t[:n_real] if t.ndim >= 1
@@ -338,6 +363,9 @@ class FitEngine:
         stats: Dict[str, Any] = {"chunk_size": chunk,
                                  "lm_iterations": lm_iterations,
                                  "device": str(dev)}
+        if family == "holt_winters":
+            stats["value_and_grad_calls"] = vag_calls
+            stats["box_iterations"] = box_iterations
         models = None
         if collect:
             keys = sorted(collected)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
-from ..ops.arma_ne import (check_kernel_order, fit_css_lm,
+from ..ops.arma_ne import (check_kernel_order, css_cost, fit_css_lm,
                            normal_equations_plain)
 from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram
@@ -97,16 +97,26 @@ def _log_likelihood_css_arma(params: torch.Tensor, diffed: torch.Tensor,
     series: residuals for ``t < max(p, q)`` are dropped and
     ``sigma² = css / n`` (with the real ``-n / 2.0`` leading factor, as in
     the JAX package).  ``n_valid (...,)`` weights out the residuals past
-    each lane's valid window and makes it the divisor."""
-    _, err = _one_step_errors(params, diffed, p, q, icpt)
-    if n_valid is None:
-        n_eff = float(diffed.shape[-1])
-        css = (err * err).sum(dim=-1)
+    each lane's valid window and makes it the divisor.
+
+    The sum of squares is ``ops.arma_ne.css_cost`` over the broadcast
+    lanes — the cost-only CUDA kernel on the card; an order without
+    parameters has no recurrence, and its residuals are the series."""
+    n = diffed.shape[-1]
+    n_eff = float(n) if n_valid is None else n_valid.to(diffed.dtype)
+    if p + q + icpt == 0:
+        w = 1.0 if n_valid is None else step_weights(
+            n, n_valid[..., None], dtype=diffed.dtype)
+        css = (w * diffed * diffed).sum(dim=-1)
     else:
-        w = step_weights(err.shape[-1], n_valid[..., None],
-                         offset=max(p, q), dtype=diffed.dtype)
-        n_eff = n_valid.to(diffed.dtype)
-        css = (w * err * err).sum(dim=-1)
+        batch = torch.broadcast_shapes(params.shape[:-1], diffed.shape[:-1],
+                                       () if n_valid is None
+                                       else n_valid.shape)
+        nv = None if n_valid is None else n_valid.expand(batch).reshape(-1)
+        css = css_cost(params.expand(*batch, params.shape[-1])
+                       .reshape(-1, params.shape[-1]),
+                       diffed.expand(*batch, n).reshape(-1, n), p, q, icpt,
+                       n_valid=nv).reshape(batch)
     sigma2 = css / n_eff
     return (-n_eff / 2.0) * torch.log(2.0 * math.pi * sigma2) \
         - css / (2.0 * sigma2)

@@ -13,6 +13,7 @@ from .._device import as_tensor, resolve_device
 from .arima import ARIMAModel
 from .autoregression import ARModel
 from .base import FitDiagnostics
+from .holt_winters import HoltWintersModel
 
 
 def _diagnostics(diagnostics: Optional[Sequence], device
@@ -52,3 +53,15 @@ def autoregression_from_numpy(c, coefficients,
     dev = resolve_device(device)
     return ARModel(as_tensor(c, dev), as_tensor(coefficients, dev),
                    _diagnostics(diagnostics, dev))
+
+
+def holt_winters_from_numpy(model_type: str, period: int, alpha, beta,
+                            gamma, diagnostics: Optional[Sequence] = None,
+                            device=None) -> HoltWintersModel:
+    """The port's :class:`HoltWintersModel` from numpy ``alpha``, ``beta``
+    and ``gamma`` (scalars or ``(n_series,)``)."""
+    dev = resolve_device(device)
+    return HoltWintersModel(str(model_type), int(period),
+                            as_tensor(alpha, dev), as_tensor(beta, dev),
+                            as_tensor(gamma, dev),
+                            _diagnostics(diagnostics, dev))

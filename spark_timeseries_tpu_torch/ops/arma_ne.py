@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from .. import _build
 from .linalg import spd_solve
 
 KERNEL_MAX_ORDER = 3      # p, q <= 3 are instantiated in csrc/arma_ne.cu
@@ -58,7 +59,6 @@ def _check_window(n_obs: int, p: int, q: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    from .. import _build
     fn = _build.library("arma_ne").arma_ne_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
@@ -74,15 +74,8 @@ def _launch(params_t: torch.Tensor, y_t: torch.Tensor,
     check_kernel_order(p, q, icpt)
     k = icpt + p + q
     n_obs, S = y_t.shape
-    tensors = [params_t, y_t] + ([] if nv is None else [nv])
-    for t in tensors:
-        if t.device != y_t.device:
-            raise ValueError("params, y and n_valid must share one device")
-        if t.dtype != torch.float32:
-            raise ValueError(f"the CUDA ARMA kernel takes float32, "
-                             f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA ARMA kernel needs contiguous inputs")
+    _build.check_inputs([y_t, params_t] + ([] if nv is None else [nv]),
+                        "ARMA")
     if params_t.shape != (k, S) or (nv is not None and nv.shape != (S,)):
         raise ValueError(
             f"shape mismatch: params {tuple(params_t.shape)} (expected "
@@ -91,25 +84,21 @@ def _launch(params_t: torch.Tensor, y_t: torch.Tensor,
     _check_window(n_obs, p, q)
     out = torch.empty((n_outputs(k), S), dtype=torch.float32,
                       device=y_t.device)
-    with torch.cuda.device(y_t.device):
-        stream = torch.cuda.current_stream(y_t.device).cuda_stream
-        rc = _kernel_fn()(params_t.data_ptr(), y_t.data_ptr(),
-                          0 if nv is None else nv.data_ptr(),
-                          out.data_ptr(), S, n_obs, p, q, icpt, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"arma_ne kernel launch failed for ARMA({p},{q}) icpt={icpt} "
-            f"S={S} n_obs={n_obs}: "
-            + ("unsupported arguments" if rc < 0 else f"CUDA error {rc}"))
+    _build.launch(_kernel_fn(), y_t.device, params_t.data_ptr(),
+                  y_t.data_ptr(), 0 if nv is None else nv.data_ptr(),
+                  out.data_ptr(), S, n_obs, p, q, icpt,
+                  what=f"arma_ne kernel launch failed for ARMA({p},{q}) "
+                       f"icpt={icpt} S={S} n_obs={n_obs}")
     normal_equations.launches += 1
     return out
 
 
 def _packed_plain(params_t: torch.Tensor, y_t: torch.Tensor,
                   nv: Optional[torch.Tensor], p: int, q: int,
-                  icpt: int) -> torch.Tensor:
+                  icpt: int, grad: bool = True) -> torch.Tensor:
     """The kernel's arithmetic as plain tensor ops over the lane batch,
-    step by step in the kernel's order; any float dtype and device."""
+    step by step in the kernel's order; any float dtype and device.
+    ``grad=False`` is the cost-only kernel's: ``(1, S)`` sse, no tangents."""
     k = icpt + p + q
     n_obs = y_t.shape[0]
     ml = max(p, q)
@@ -133,6 +122,13 @@ def _packed_plain(params_t: torch.Tensor, y_t: torch.Tensor,
         for m in range(q):
             yhat = yhat + theta[m] * e_ring[m]
         e = y_t[t] - yhat
+        if not grad:
+            if nv is not None:
+                e = e * (t < nv).to(y_t.dtype)
+            sse = sse + e * e
+            if q:
+                e_ring = [e] + e_ring[:-1]
+            continue
         T = []
         for x in range(k):
             if x < icpt:
@@ -155,6 +151,8 @@ def _packed_plain(params_t: torch.Tensor, y_t: torch.Tensor,
         if q:
             e_ring = [e] + e_ring[:-1]
             T_ring = [T] + T_ring[:-1]
+    if not grad:
+        return sse[None]
     return torch.stack([sse, *jtj, *jtr])
 
 
@@ -233,6 +231,84 @@ def normal_equations_plain(params: torch.Tensor, y: torch.Tensor,
     float dtype — the version the kernel is held against."""
     return _normal_equations(_packed_plain, params, y, p, q, icpt, mask,
                              n_valid)
+
+
+# ---------------------------------------------------------------------------
+# the CSS cost alone (the port of arma_pallas.py::_css_kernel, cost mode)
+# ---------------------------------------------------------------------------
+
+CSS_MAX_Q = 5             # q <= 5 (any p) in arma_css_kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _css_kernel_fn():
+    fn = _build.library("arma_ne").arma_css_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _css_launch(params_t: torch.Tensor, y_t: torch.Tensor,
+                nv: Optional[torch.Tensor], p: int, q: int,
+                icpt: int) -> torch.Tensor:
+    """Launch the cost-only kernel of ``csrc/arma_ne.cu`` on the current
+    stream; returns the ``(1, S)`` sse (not synchronised)."""
+    if not (p >= 0 and 0 <= q <= CSS_MAX_Q) or icpt + p + q == 0:
+        raise ValueError(
+            f"the CUDA CSS-cost kernel takes q <= {CSS_MAX_Q} and at least "
+            f"one parameter, got ARMA({p},{q}) icpt={icpt}")
+    k = icpt + p + q
+    n_obs, S = y_t.shape
+    _build.check_inputs([y_t, params_t] + ([] if nv is None else [nv]),
+                        "CSS-cost")
+    if params_t.shape != (k, S) or (nv is not None and nv.shape != (S,)):
+        raise ValueError(
+            f"shape mismatch: params {tuple(params_t.shape)} (expected "
+            f"{(k, S)}), y {tuple(y_t.shape)}")
+    _check_window(n_obs, p, q)
+    out = torch.empty((1, S), dtype=torch.float32, device=y_t.device)
+    _build.launch(_css_kernel_fn(), y_t.device, params_t.data_ptr(),
+                  y_t.data_ptr(), 0 if nv is None else nv.data_ptr(),
+                  out.data_ptr(), S, n_obs, p, q, icpt,
+                  what=f"arma_css kernel launch failed for ARMA({p},{q}) "
+                       f"icpt={icpt} S={S} n_obs={n_obs}")
+    css_cost.launches += 1
+    return out
+
+
+def _css_cost(launch, params, y, p, q, icpt, n_valid):
+    _check_window(y.shape[-1], p, q)
+    nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    return launch(params.T.contiguous(), y.T.contiguous(), nv, p, q,
+                  icpt)[0]
+
+
+def css_cost(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
+             icpt: int, n_valid: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """Batched CSS ``sum_{t >= max(p, q)} e_t²`` of the ARMA one-step
+    residuals, ``(S,)``; ``params (S, k)``, ``y (S, n)``, ``n_valid (S,)``
+    restricts each lane to its left-aligned valid window.
+
+    A CUDA tensor launches the cost-only kernel (float32, ``q <= 5``;
+    anything else raises) and adds one to ``css_cost.launches``; a CPU
+    tensor runs :func:`css_cost_plain`."""
+    if y.is_cuda:
+        return _css_cost(_css_launch, params, y, p, q, icpt, n_valid)
+    return css_cost_plain(params, y, p, q, icpt, n_valid)
+
+
+css_cost.launches = 0
+
+
+def css_cost_plain(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
+                   icpt: int, n_valid: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """:func:`css_cost` as plain tensor ops, on any device and float
+    dtype — the version the kernel is held against."""
+    return _css_cost(functools.partial(_packed_plain, grad=False), params,
+                     y, p, q, icpt, n_valid)
 
 
 def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,

@@ -3,9 +3,14 @@
 ``normal_equations_plain`` (the CUDA kernel's plain twin, what a CPU
 tensor runs) is held against ``arima._arma_normal_eqs`` at float64 and
 against the Pallas kernel in interpret mode at float32;
-``fit_css_lm`` against the Pallas LM solver and the XLA LM route.  The
-CUDA kernel itself runs only on a card (``tests/test_torch_cuda.py``).
+``fit_css_lm`` against the Pallas LM solver and the XLA LM route;
+``css_cost_plain`` (the cost-only kernel's plain twin) against the JAX
+residuals and the archived Pallas ``_css_kernel`` in interpret mode.  The
+CUDA kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -161,3 +166,91 @@ def test_kernel_order_check():
         arma_ne.check_kernel_order(1, 5, 0)
     with pytest.raises(ValueError, match="at least one"):
         arma_ne.check_kernel_order(0, 0, 0)
+
+
+def _load_arma_pallas():
+    path = Path(__file__).resolve().parents[1] / "docs" / "experiments" \
+        / "arma_pallas.py"
+    spec = importlib.util.spec_from_file_location("_arma_pallas", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("p,q,icpt,ragged", [(2, 2, 1, False),
+                                             (2, 2, 1, True),
+                                             (5, 0, 1, False),
+                                             (1, 5, 0, True)])
+def test_css_cost_plain_matches_jax_residuals(p, q, icpt, ragged):
+    rng = np.random.default_rng(5)
+    S, n = 40, 64
+    y = _panel(rng, S, n)
+    k = icpt + p + q
+    params = 0.1 * rng.normal(size=(S, k))
+    nv = rng.integers(20, n + 1, size=S) if ragged else None
+    if ragged:
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+    got = arma_ne.css_cost_plain(
+        torch.from_numpy(params), torch.from_numpy(y), p, q, icpt,
+        n_valid=None if nv is None else torch.from_numpy(nv))
+    err = np.asarray(jax.vmap(
+        lambda prm, yy: jarima._one_step_errors(prm, yy, p, q, icpt)[1])(
+            jnp.asarray(params), jnp.asarray(y)))
+    if ragged:
+        err = err * (np.arange(max(p, q), n)[None, :] < nv[:, None])
+    # float64, the same recurrence summed in another order
+    np.testing.assert_allclose(got.numpy(), (err * err).sum(axis=1),
+                               rtol=1e-11)
+    before = arma_ne.css_cost.launches
+    assert torch.equal(arma_ne.css_cost(
+        torch.from_numpy(params), torch.from_numpy(y), p, q, icpt,
+        n_valid=None if nv is None else torch.from_numpy(nv)), got)
+    assert arma_ne.css_cost.launches == before      # no kernel here
+    if p <= 3 and q <= 3:
+        # the cost mode is the normal equations' sse, op for op
+        _, _, sse = arma_ne.normal_equations_plain(
+            torch.from_numpy(params), torch.from_numpy(y), p, q, icpt,
+            n_valid=None if nv is None else torch.from_numpy(nv))
+        assert torch.equal(sse, got)
+
+
+def test_css_pallas_interpret_matches_plain():
+    # the archived Pallas _css_kernel: its cost mode against css_cost_plain
+    # and its gradient mode against the ported normal equations
+    pallas = _load_arma_pallas()
+    rng = np.random.default_rng(6)
+    S, n, p, q, icpt = 200, 50, 2, 2, 1
+    y = _panel(rng, S, n).astype(np.float32)
+    params = (0.1 * rng.normal(size=(S, 5))).astype(np.float32)
+    cost = pallas.css_cost(jnp.asarray(params), jnp.asarray(y), p, q, icpt,
+                           interpret=True)
+    jtj, jtr, cost_g = pallas.css_normal_equations(
+        jnp.asarray(params), jnp.asarray(y), p, q, icpt, interpret=True)
+    tp, ty = torch.from_numpy(params), torch.from_numpy(y)
+    got = arma_ne.css_cost_plain(tp, ty, p, q, icpt)
+    got_ne = arma_ne.normal_equations_plain(tp, ty, p, q, icpt)
+    # float32 sums over 48 steps in two summation orders
+    np.testing.assert_allclose(got.numpy(), np.asarray(cost), rtol=1e-5)
+    for g, w in zip(got_ne, (jtj, jtr, cost_g)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-3)
+
+
+def test_log_likelihood_css_routes_through_css_cost(monkeypatch):
+    rng = np.random.default_rng(7)
+    y = np.cumsum(_panel(rng, 6, 50), axis=1)
+    calls = []
+    real = arma_ne.css_cost_plain
+
+    def counted(*args, **kw):
+        calls.append(args[2:5])
+        return real(*args, **kw)
+    monkeypatch.setattr(arma_ne, "css_cost_plain", counted)
+    coefs = 0.1 * rng.normal(size=(6, 5))
+    model = ARIMAModel(2, 1, 2, torch.from_numpy(coefs))
+    got = model.log_likelihood_css(torch.from_numpy(y))
+    want = jax.vmap(lambda c, s: jarima.ARIMAModel(2, 1, 2, c)
+                    .log_likelihood_css(s))(jnp.asarray(coefs),
+                                            jnp.asarray(y))
+    assert calls == [(2, 2, 1)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-11)

@@ -101,7 +101,7 @@ def test_stream_fit_rejects_what_the_port_lacks(monkeypatch):
         engine.FitEngine().stream_fit(y, "arima", journal="j.jsonl",
                                       device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        engine.FitEngine().stream_fit(y, "holt_winters", device="cpu")
+        engine.FitEngine().stream_fit(y, "ewma", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.FitEngine().stream_fit(y, "arima")
