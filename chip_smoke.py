@@ -30,13 +30,20 @@ Phases, one JSON line each:
 8. ``hw_path``: ``FitEngine().stream_fit(panel, "holt_winters",
    period=12, model_type="additive")`` over a 1,048,576 x 120 float32
    panel (``bench_suite.py``'s monthly recipe) in 131072-series chunks,
-   the kernel's launches counted over exactly that run against the
-   solver's value-and-grad calls; ``log_likelihood_css`` of one ARIMA
+   the box-fit kernel's launches counted over exactly that run (one per
+   chunk, and no single-pass launch); ``log_likelihood_css`` of one ARIMA
    chunk's fitted models on the card (the cost-only kernel on a path);
    the float64 CPU refit compared by objective.
-9. ``hw_timing``: CUDA-event times of both new kernels and their plain
-   versions, their bounds, and one box-fit iteration split into kernel
-   and rest.
+9. ``hw_timing``: CUDA-event times of the single-pass Holt-Winters kernel
+   and the cost-only ARMA kernel, their plain versions and their bounds.
+10. ``hw_fit_vs_solver``: on the first 131072-lane Holt-Winters chunk,
+   the box-fit kernel (``ops.hw_sse.box_fit``, block sizes 64/128/256)
+   against the batched solver over the single-pass kernel
+   (``minimize_box(hw_sse.evaluator(inp))``, one launch per trial, its
+   launches counted over that run): both times, per-lane agreement, the
+   lanes' evaluations, the kernel's operation bound, its warp efficiency
+   and its slowest lane fitted alone; then the kernel against
+   ``box_fit_plain`` on the card on the chunk's first 256 lanes.
 
 Then one line of per-kernel numbers and, last, the result line.  Any
 failed check raises, so the script exits non-zero and prints no result
@@ -110,6 +117,25 @@ HW_TOL_ALL = 2e-2
 # float64 at the card's parameters) within 1e-3 relative of the float64
 # fit's.  A wrong kernel or solver leaves far more lanes off than that
 HW_AGREE = (1e-3, 0.90)
+
+# box-fit kernel vs the batched solver over the single-pass kernel, per
+# lane: the same pass and the solver's arithmetic in the solver's order, so
+# lanes may part only where a reduction or a contraction rounds otherwise.
+# Shares of lanes with the same iteration count, and with an objective
+# within 1e-5 relative (tests/test_torch_cuda.py holds the same floors)
+HW_SOLVER_SHARE = (0.95, 0.95)
+# ... and vs the plain box fit (float32 on the card).  The plain pass
+# rounds otherwise on every step (no FMA, its own order of the tangent
+# terms), so in float32 most lanes part from it near the end of their fit,
+# where Armijo decisions and the stall test turn on the last bits of f:
+# their iteration counts differ though they reach the same optimum.  The
+# batched solver over the single-pass kernel parts from the plain fit the
+# same way, so the kernel is held to it: its shares against the plain fit
+# at most HW_PLAIN_MARGIN below the solver route's (the kernel and that
+# route part on at most 1 - HW_SOLVER_SHARE of lanes)
+HW_PLAIN_MARGIN = 0.1
+HW_PLAIN_LANES = 256     # lanes of the plain box fit on the card
+HW_FUN_RTOL = 1e-5
 
 # the card's CSS log likelihood vs float64 on invertible converged lanes:
 # a float32 sum of <= 127 squares is good to ~1e-6 relative and the log
@@ -551,18 +577,20 @@ def phase_hw_path(hw_panel, arima_panel, arima_model, refit, dev,
     # warm-up: library load, allocator (not counted)
     engine.stream_fit(hw_panel[:4096], "holt_winters", chunk_size=4096,
                       device=dev, **kw)
+    hw_sse.box_fit.launches = 0
     hw_sse.value_and_grad.launches = 0
     arma_ne.css_cost.launches = 0
     res = engine.stream_fit(hw_panel, "holt_winters", chunk_size=chunk,
                             device=dev, collect=True, **kw)
-    launches = hw_sse.value_and_grad.launches
-    calls = res.stats["value_and_grad_calls"]
+    launches = hw_sse.box_fit.launches
+    sse_launches = hw_sse.value_and_grad.launches
     check(not res.chunk_failures,
           f"chunk failures: {[f['error'] for f in res.chunk_failures]}")
     check(launches > 0, "the Holt-Winters path never launched its kernel")
-    check(launches == sum(calls),
-          f"hw_sse launches {launches} != the solver's value-and-grad "
-          f"calls {sum(calls)}")
+    check(launches == res.n_chunks == sum(res.stats["box_fit_launches"]),
+          f"hw_box_fit launches {launches} != chunks {res.n_chunks}")
+    check(sse_launches == 0, f"the Holt-Winters fit launched the "
+                             f"single-pass kernel {sse_launches} times")
     converged_pct = 100.0 * res.n_converged / res.n_series
     check(converged_pct >= HW_CONVERGED_FLOOR,
           f"Holt-Winters converged_pct {converged_pct:.2f} < "
@@ -626,8 +654,9 @@ def phase_hw_path(hw_panel, arima_panel, arima_model, refit, dev,
             "wall_s": res.wall_s, "series_per_s": res.rate,
             "converged_pct": converged_pct,
             "box_iterations_per_chunk": res.stats["box_iterations"],
-            "value_and_grad_calls_per_chunk": calls,
-            "hw_sse_launches": launches,
+            "lane_evaluations_per_chunk": res.stats["lane_evaluations"],
+            "hw_box_fit_launches": launches,
+            "hw_sse_launches": sse_launches,
             "arima_css_loglik_lanes": int(ll.shape[0]),
             "arima_css_launches": css_launches,
             "arima_css_loglik_f64_lanes": int(ok.sum()),
@@ -671,7 +700,6 @@ def css_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int):
 def phase_hw_timing(hw_panel, arima_panel, seed, dev):
     import torch
 
-    from spark_timeseries_tpu_torch.models import holt_winters
     from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
 
     name, m, model_type, y, params, _ = hw_cases(hw_panel, seed)[0]
@@ -682,19 +710,6 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
     kernel_ms = _event_ms(lambda: hw_sse._launch(prm_t, inp), 20)
     plain_ms = _event_ms(lambda: hw_sse._packed_plain(prm_t, inp), 3)
     bound_s, bound_by, n_bytes, flops = hw_bound_s(S, n - m, m)
-
-    # one box fit of the chunk from the (0.3, 0.1, 0.1) start
-    stats = {}
-    torch.cuda.synchronize()
-    launches0 = hw_sse.value_and_grad.launches
-    t0 = time.perf_counter()
-    holt_winters.fit(y_d, m, model_type, device=dev, stats=stats)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    n_launch = hw_sse.value_and_grad.launches - launches0
-    iterations = max(stats["iterations"], 1)
-    per_iter_ms = fit_s * 1e3 / iterations
-    kernel_per_iter_ms = kernel_ms * n_launch / iterations
 
     # the cost-only ARMA kernel at the ARIMA chunk shape
     c_name, (p, q, icpt), cy, cparams, _ = css_cases(arima_panel, seed)[0]
@@ -712,19 +727,170 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
             "bound_us": bound_s * 1e6, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
             "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
-            "box_iterations": stats["iterations"],
-            "box_kernel_launches": n_launch,
-            "trials_per_iteration": stats["trials"] / iterations,
-            "box_fit_ms": fit_s * 1e3,
-            "box_iteration_ms": per_iter_ms,
-            "box_iteration_kernel_ms": kernel_per_iter_ms,
-            "box_iteration_rest_ms": per_iter_ms - kernel_per_iter_ms,
             "css_case": c_name, "css_S": cy.shape[0],
             "css_n_obs": cy.shape[1], "css_kernel_ms": css_ms,
             "css_plain_ms": css_plain_ms, "css_bound_us": c_bound_s * 1e6,
             "css_bound_by": c_bound_by, "css_bytes": c_bytes,
             "css_flops": c_flops,
             "css_share_of_bound": c_bound_s * 1e3 / css_ms}
+
+
+def box_fit_bound_s(S: int, n_steps: int, m: int, evaluations: int):
+    """Least time of the box fit of S additive dense lanes that needed
+    ``evaluations`` value-and-grad passes in all: 81 flop a lane-step of
+    each pass over the fp32 rate, and y, init and x0 read once and x, fun,
+    converged, n_iter and the evaluations written once over the HBM
+    rate; the larger wins."""
+    n_bytes = 4 * S * (n_steps + 2 + m + 3) + S * (4 * 3 + 4 + 1 + 4 + 4)
+    flops = 81 * n_steps * evaluations
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, flops
+
+
+def _warp_efficiency(evals) -> float:
+    """Useful passes over the passes a warp runs: each group of 32
+    consecutive entries (a warp's threads) runs as long as its longest."""
+    w = evals.double().reshape(-1, 32)
+    return float(w.sum() / (32.0 * w.amax(dim=1).sum()))
+
+
+def _box_agreement(got, want, got_evals=None, want_evals=None):
+    """Per-lane shares: the same iteration count, ``fun`` within
+    ``HW_FUN_RTOL`` relative, the same converged flag (and the same
+    evaluations)."""
+    same = got.n_iter == want.n_iter
+    rel = (got.fun.double() - want.fun.double()).abs() / want.fun.double()
+    out = {"n_iter_equal": float(same.double().mean()),
+           "fun_within_1e-5": float((rel <= HW_FUN_RTOL).double().mean()),
+           "converged_equal": float((got.converged == want.converged)
+                                    .double().mean())}
+    if got_evals is not None:
+        out["evaluations_equal"] = float((got_evals == want_evals)
+                                         .double().mean())
+    return out
+
+
+def phase_hw_fit_vs_solver(hw_panel, sse_kernel_ms, dev, chunk=CHUNK,
+                           plain_lanes=HW_PLAIN_LANES):
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import hw_sse
+    from spark_timeseries_tpu_torch.ops.optimize import minimize_box
+
+    m = HW_PERIOD
+    y_d = torch.from_numpy(hw_panel[:chunk]).to(dev)
+    inp = hw_sse.prepare(y_d, m, "additive")
+    n_steps, S = inp.y.shape
+    x0 = torch.tensor([0.3, 0.1, 0.1], device=dev).expand(S, 3)
+    kw = dict(tol=1e-10, max_iter=1000, max_backtracks=40)
+
+    def launch(sub=inp, start=x0, **extra):
+        return hw_sse._box_launch(sub, start, 0.0, 1.0, **kw, **extra)
+
+    # the box-fit kernel at three block sizes
+    sizes = []
+    for threads in (64, 128, 256):
+        cfg = hw_sse.box_fit_config(inp, threads)
+        ms = _event_ms(lambda: launch(threads=threads), 3)
+        sizes.append({**cfg._asdict(), "ms": ms,
+                      "occupancy": cfg.blocks_per_sm * threads / 2048})
+    chosen = hw_sse.box_fit_config(inp).threads
+    box_ms = next(r["ms"] for r in sizes if r["threads"] == chosen)
+    got, evals, per_thread = launch(thread_evals=True)
+
+    # the batched solver over the single-pass kernel, one launch per trial
+    hw_sse.value_and_grad.launches = 0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route = minimize_box(hw_sse.evaluator(inp), x0, 0.0, 1.0, stats=stats,
+                         **kw)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    sse_launches = hw_sse.value_and_grad.launches
+    check(sse_launches == stats["calls"] > 0,
+          f"hw_sse launches {sse_launches} != the solver's calls "
+          f"{stats['calls']}")
+    iterations = max(stats["iterations"], 1)
+    per_iter_ms = route_s * 1e3 / iterations
+    kernel_per_iter_ms = sse_kernel_ms * sse_launches / iterations
+
+    vs_solver = _box_agreement(got, route, evals, stats["evaluations"])
+    e = evals.double()
+    total = int(evals.sum())
+    bound_s, bound_by, n_bytes, flops = box_fit_bound_s(S, n_steps, m, total)
+
+    # the slowest lane alone: one thread, its serial chain
+    worst = int(evals.argmax())
+    lane = slice(worst, worst + 1)
+    alone = hw_sse.HWInputs(inp.y[:, lane].contiguous(),
+                            inp.init[:, lane].contiguous(), None, m, True)
+    worst_ms = _event_ms(lambda: launch(alone, x0[lane]), 3)
+
+    # the plain box fit on the card, on the chunk's first lanes
+    k = plain_lanes
+    head = hw_sse.HWInputs(inp.y[:, :k].contiguous(),
+                           inp.init[:, :k].contiguous(), None, m, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, plain_evals = hw_sse.box_fit_plain(head, x0[:k], **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_k = hw_sse.MinimizeResult(*(t[:k] for t in got))
+    vs_plain = _box_agreement(got_k, plain, evals[:k], plain_evals)
+    route_vs_plain = _box_agreement(
+        hw_sse.MinimizeResult(*(t[:k] for t in route)), plain,
+        stats["evaluations"][:k], plain_evals)
+    same = got_k.n_iter == plain.n_iter
+    dx = (got_k.x - plain.x).abs().amax(dim=1)
+    row = {"phase": "hw_fit_vs_solver", "S": S, "n_obs": y_d.shape[1],
+            "period": m, "box_fit_ms": box_ms, "threads": chosen,
+            "block_sizes": sizes,
+            "solver_route_ms": route_s * 1e3,
+            "solver_route_hw_sse_launches": sse_launches,
+            "solver_route_iterations": stats["iterations"],
+            "solver_route_trials_per_iteration":
+                stats["trials"] / iterations,
+            "solver_route_iteration_ms": per_iter_ms,
+            "solver_route_iteration_kernel_ms": kernel_per_iter_ms,
+            "solver_route_iteration_rest_ms":
+                per_iter_ms - kernel_per_iter_ms,
+            "speedup": route_s * 1e3 / box_ms,
+            "vs_solver": vs_solver, "vs_solver_floor": HW_SOLVER_SHARE,
+            "lane_evaluations": {
+                "sum": total, "mean": float(e.mean()),
+                "median": float(e.median()),
+                "p99": float(torch.quantile(e, 0.99)),
+                "max": int(evals.max())},
+            "lane_iterations_max": int(got.n_iter.max()),
+            "converged_pct": 100.0 * float(got.converged.double().mean()),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": flops,
+            "share_of_bound": bound_s * 1e3 / box_ms,
+            "warp_efficiency_queue": _warp_efficiency(per_thread),
+            "warp_efficiency_lane_per_thread": _warp_efficiency(evals),
+            "slowest_lane_alone_ms": worst_ms,
+            "slowest_lane_step_ns": worst_ms * 1e6 / (int(evals.max())
+                                                      * n_steps),
+            "plain_lanes": k, "plain_ms": plain_ms, "vs_plain": vs_plain,
+            "solver_route_vs_plain": route_vs_plain,
+            "vs_plain_margin": HW_PLAIN_MARGIN,
+            "vs_plain_max_abs_x_same_iter": float(dx[same].max())
+            if bool(same.any()) else None,
+            "vs_plain_max_abs_x": float(dx.max())}
+    emit(row)     # before the checks, so a failed check leaves its numbers
+    for key, floor in zip(("n_iter_equal", "fun_within_1e-5"),
+                          HW_SOLVER_SHARE):
+        check(vs_solver[key] >= floor,
+              f"box-fit kernel vs solver: {key} share {vs_solver[key]:.4f} "
+              f"< {floor}")
+        floor = route_vs_plain[key] - HW_PLAIN_MARGIN
+        check(vs_plain[key] >= floor,
+              f"box-fit kernel vs plain: {key} share {vs_plain[key]:.4f} "
+              f"< the solver route's {route_vs_plain[key]:.4f} - "
+              f"{HW_PLAIN_MARGIN}")
+    return row
 
 
 def nvidia_smi_line() -> str:
@@ -764,6 +930,7 @@ def main(argv=None) -> int:
     arma_ne._kernel_fn()
     arma_ne._css_kernel_fn()
     hw_sse._kernel_fn()
+    hw_sse._box_fns()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.name) for p in libs]})
 
@@ -807,6 +974,8 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
     hw_timing = phase_hw_timing(hw_panel, panel, args.seed, dev)
     emit(hw_timing)
 
+    fit_row = phase_hw_fit_vs_solver(hw_panel, hw_timing["kernel_ms"], dev)
+
     emit({"kernels": [{
         "name": "arma_ne", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
@@ -826,10 +995,20 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
         "name": "hw_sse", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
-        "launches": hw_launches, "max_abs_err": hw_max_abs,
+        "launches": fit_row["solver_route_hw_sse_launches"],
+        "max_abs_err": hw_max_abs,
         "ms": hw_timing["kernel_ms"], "plain_ms": hw_timing["plain_ms"],
         "bound_ms": hw_timing["bound_us"] / 1e3,
-        "bound_by": hw_timing["bound_by"], "library_ms": None}]})
+        "bound_by": hw_timing["bound_by"], "library_ms": None}, {
+        "name": "hw_box_fit", "route": "cuda",
+        "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
+        "replaces": "docs/experiments/hw_pallas.py:61",
+        "launches": hw_launches,
+        "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
+        "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
+        "plain_lanes": fit_row["plain_lanes"],
+        "bound_ms": fit_row["bound_ms"], "bound_by": fit_row["bound_by"],
+        "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,11 @@ class StreamResult(NamedTuple):
     in series order, padding lanes sliced off).  ``stats`` holds
     ``chunk_size``, ``lm_iterations`` (the LM loop's iterations per fitted
     arima chunk; the ARMA kernel runs once more than that per chunk),
-    for holt_winters ``value_and_grad_calls`` and ``box_iterations`` per
-    fitted chunk (the Holt-Winters kernel runs once per call),
+    for holt_winters per fitted chunk ``box_iterations`` (the chunk's most
+    iterations of a lane), ``lane_evaluations`` (the value-and-grad passes
+    its lanes needed, summed) and ``box_fit_launches`` (1 per chunk on
+    CUDA, 0 on the CPU), and on the CPU ``value_and_grad_calls`` (the
+    plain solver's calls; the card's fit makes none), then
     ``collected_ranges`` with ``collect=True``, and ``device``."""
     n_series: int
     n_fitted: int
@@ -291,8 +294,11 @@ class FitEngine:
         failures: List[Dict[str, Any]] = []
         collected: Dict[int, Tuple[int, Any]] = {}
         lm_iterations: List[int] = []
-        vag_calls: List[int] = []
-        box_iterations: List[int] = []
+        hw_stats: Dict[str, List[int]] = {
+            "box_iterations": [], "lane_evaluations": [],
+            "box_fit_launches": []}
+        if dev.type != "cuda":
+            hw_stats["value_and_grad_calls"] = []
 
         def record_failure(start: int, stop: int, e: Exception) -> None:
             nonlocal dead_series
@@ -343,12 +349,24 @@ class FitEngine:
                     # even a failed fit may have enqueued reads of the slot
                     feed.release(idx % 2)
                 diag = model.diagnostics
-                conv += int(diag.converged[:n_real].sum())
-                if lm_path:
-                    lm_iterations.append(int(diag.n_iter.max()))
+                # the chunk's one host sync: every count it reports
+                reads = [diag.converged[:n_real].sum()]
+                if lm_path or family == "holt_winters":
+                    reads.append(diag.n_iter.max().long())
                 if family == "holt_winters":
-                    vag_calls.append(solver["calls"])
-                    box_iterations.append(solver["iterations"])
+                    reads.append(solver["evaluations"].sum())
+                counts = torch.stack(reads).tolist()
+                conv += counts[0]
+                if lm_path:
+                    lm_iterations.append(counts[1])
+                if family == "holt_winters":
+                    hw_stats["box_iterations"].append(counts[1])
+                    hw_stats["lane_evaluations"].append(counts[2])
+                    hw_stats["box_fit_launches"].append(
+                        solver.get("box_fit_launches", 0))
+                    if "value_and_grad_calls" in hw_stats:
+                        hw_stats["value_and_grad_calls"].append(
+                            solver["calls"])
                 if collect:
                     collected[start] = (stop, _map_tensors(
                         model, lambda t: (t[:n_real] if t.ndim >= 1
@@ -364,8 +382,7 @@ class FitEngine:
                                  "lm_iterations": lm_iterations,
                                  "device": str(dev)}
         if family == "holt_winters":
-            stats["value_and_grad_calls"] = vag_calls
-            stats["box_iterations"] = box_iterations
+            stats.update(hw_stats)
         models = None
         if collect:
             keys = sorted(collected)

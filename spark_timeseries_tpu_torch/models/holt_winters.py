@@ -5,9 +5,10 @@ Additive and multiplicative seasonality with the R ``stats::HoltWinters``
 components recurrence, initialization from the first two periods, the SSE
 objective over ``t >= period`` and level + trend + season forecasts with
 prediction bands.  :func:`fit` minimizes the SSE over ``[0, 1]³`` with
-the batched projected gradient ``ops.optimize.minimize_box``; every trial
-evaluates the fused value-and-grad pass of ``ops.hw_sse`` — on CUDA, the
-hand-written kernel; on the CPU, its plain version.
+the per-lane projected gradient of ``ops.hw_sse.box_fit`` — on CUDA, one
+launch of the hand-written persistent kernel for the whole fit; on the
+CPU, its plain version (``ops.optimize.minimize_box`` over the fused
+value-and-grad pass).
 
 Not ported yet: ``retry`` (raises ``NotImplementedError``),
 ``fit_resilient`` (waits for the resilience module) and ``fit_panel``
@@ -23,15 +24,9 @@ import torch
 from .._device import as_tensor, resolve_device
 from ..ops import hw_sse
 from ..ops.hw_sse import _kernel  # noqa: F401  (the JAX module's helper)
-from ..ops.optimize import minimize_box
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from .base import FitDiagnostics, diagnostics_from, normal_quantile
-
-# On the CPU a call of the plain pass costs about the same for any lane
-# batch up to a few thousand lanes, so the fit evaluates several line-
-# search trials per call there: up to this many (trial, lane) pairs.
-CPU_TRIAL_LANES = 4096
 
 
 class HoltWintersModel(NamedTuple):
@@ -180,11 +175,13 @@ def fit(ts, period: int, model_type: str = "additive",
 
     ``ts (..., n)`` (array-like or tensor) fits in one batched solve on
     ``device`` (``None`` means CUDA, which runs float32 and raises without
-    a card; pass ``device="cpu"`` for the CPU, float32 or float64).  Every
-    trial evaluates ``ops.hw_sse``'s fused pass — the CUDA kernel on the
-    card, one launch per trial; on the CPU the plain pass, several trials
-    per call (:data:`CPU_TRIAL_LANES`).  ``stats`` (a dict, optional)
-    receives the solver's ``calls``/``iterations``/``trials``.
+    a card; pass ``device="cpu"`` for the CPU, float32 or float64).  The
+    solve is ``ops.hw_sse.box_fit``: on the card one launch of the
+    persistent box-fit kernel, on the CPU the plain solver, several trials
+    per call (``ops.hw_sse.CPU_TRIAL_LANES``).  ``stats`` (a dict,
+    optional) receives ``evaluations``, the ``(S,)`` value-and-grad passes
+    each lane needed, and the route's counts: ``box_fit_launches`` on the
+    card, the solver's ``calls``/``iterations``/``trials`` on the CPU.
 
     NaN-padded panels (leading/trailing padding per lane) fit directly:
     valid windows are left-aligned and the SSE weighted to them.  Lanes
@@ -205,10 +202,9 @@ def fit(ts, period: int, model_type: str = "additive",
                          None if obs_len is None else obs_len.reshape(-1))
     S = lanes.shape[0]
     x0 = torch.tensor(init, dtype=ts.dtype, device=dev).expand(S, 3)
-    res = minimize_box(hw_sse.evaluator(inp), x0, 0.0, 1.0, tol=tol,
-                       max_iter=1000 if max_iter is None else max_iter,
-                       trials_per_call=1 if dev.type == "cuda"
-                       else max(1, CPU_TRIAL_LANES // S), stats=stats)
+    res, _ = hw_sse.box_fit(
+        inp, x0, 0.0, 1.0, tol=tol,
+        max_iter=1000 if max_iter is None else max_iter, stats=stats)
     ok = torch.isfinite(res.x).all(dim=-1, keepdim=True)
     p = torch.where(ok, res.x, x0)
     conv = diagnostics_from(res, ok)

@@ -1,21 +1,30 @@
-"""Fused Holt-Winters SSE value and gradient (counterpart of the JAX
-package's ``models/holt_winters.py::_hw_sse_value_and_grad`` and of the
-Pallas pass ``docs/experiments/hw_pallas.py``).
+"""Fused Holt-Winters SSE value and gradient, and the whole box fit
+(counterparts of the JAX package's
+``models/holt_winters.py::_hw_sse_value_and_grad`` and of the Pallas pass
+and panel fit loop in ``docs/experiments/hw_pallas.py``).
 
 Every trial of the Holt-Winters projected-gradient fit needs, per lane,
 the SSE of the one-step errors over ``t >= period`` and its gradient over
 ``(α, β, γ)``, which the hand tangent recurrences carry forward beside the
-level, trend and season ring.  On a CUDA tensor :func:`value_and_grad`
-launches the hand-written kernel ``csrc/hw_sse.cu`` (the port of the
-Pallas ``_hw_kernel``); on a CPU tensor it runs
-:func:`value_and_grad_plain`, the same recurrence as a Python loop over
-steps on the lane batch.  There is no fallback between the two: a kernel
-that fails to build or launch raises.
+level, trend and season ring.  Two entry points run that pass, each a
+hand-written kernel of ``csrc/hw_sse.cu`` on a CUDA tensor and a plain
+PyTorch version on a CPU tensor, with no fallback between the two (a
+kernel that fails to build or launch raises):
+
+- :func:`value_and_grad`, one pass for a batch of parameter sets
+  (``hw_sse_kernel``, the port of the Pallas ``_hw_kernel``; plain:
+  :func:`value_and_grad_plain`, a Python loop over steps on the lane
+  batch);
+- :func:`box_fit`, the whole projected-gradient fit of a panel
+  (``hw_box_fit_kernel``: one persistent launch that runs every lane's
+  solver state machine on the card; plain: :func:`box_fit_plain`,
+  ``ops.optimize.minimize_box`` over the plain pass).  The fit of
+  ``models.holt_winters`` runs this one.
 
 The initial components depend on the data alone, so :func:`prepare`
 computes them once per fit, with the time-major panel ``(n - m, S)`` the
-kernel reads; :func:`evaluator` then gives the solver its batched
-``x (S, 3) -> (f (S,), g (S, 3))``.  What bounds the kernel on the H100
+kernels read; :func:`evaluator` then gives a solver its batched
+``x (S, 3) -> (f (S,), g (S, 3))``.  What bounds the kernels on the H100
 is written in the source note of ``csrc/hw_sse.cu``.
 """
 
@@ -31,10 +40,21 @@ import torch.nn.functional as F
 
 from .. import _build
 from .lag import lag_matrix
+from .optimize import MinimizeResult, minimize_box
 
-# periods whose ring the kernel keeps in registers; any other runs the
+# periods whose ring the kernels keep in registers; any other runs the
 # generic form with its ring in a scratch buffer
 REGISTER_PERIODS = (4, 7, 12, 24)
+
+# threads a block of the box-fit kernel, in order of preference: the
+# first whose shared tile fits (PERF.md: 256 ran the 131072-lane monthly
+# chunk fastest on the H100, 64 and 128 about 15 % slower)
+BOX_FIT_THREADS = (256, 128, 64)
+
+# On the CPU a call of the plain pass costs about the same for any lane
+# batch up to a few thousand lanes, so box_fit_plain evaluates several
+# line-search trials per call there: up to this many (trial, lane) pairs.
+CPU_TRIAL_LANES = 4096
 
 
 def check_model_type(model_type: str) -> bool:
@@ -278,3 +298,154 @@ def value_and_grad_plain(params: torch.Tensor, series: torch.Tensor,
     float dtype — the version the kernel is held against."""
     return evaluator(prepare(series, period, model_type, n_valid),
                      _packed_plain)(params)
+
+
+@functools.lru_cache(maxsize=None)
+def _box_fns():
+    lib = _build.library("hw_sse")
+    config = lib.hw_box_fit_config
+    config.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    config.restype = ctypes.c_int
+    launch = lib.hw_box_fit_launch
+    launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return config, launch
+
+
+class BoxFitConfig(NamedTuple):
+    """The box-fit kernel's launch for a prepared panel: threads and
+    blocks (the resident blocks, at most the lanes' worth and the
+    caller's cap), the dynamic shared tile in bytes (0: the series too
+    long for it, read from global memory), resident blocks per SM, SMs,
+    registers and spill bytes a thread."""
+    threads: int
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def box_fit_config(inp: HWInputs, threads: Optional[int] = None,
+                   max_blocks: int = 0) -> BoxFitConfig:
+    """How :func:`box_fit` launches on ``inp``'s card: ``threads`` a
+    block, or (None) the first of :data:`BOX_FIT_THREADS` whose shared
+    tile fits, else the last; ``max_blocks`` > 0 caps the grid, so fewer
+    threads share the lane queue."""
+    n_steps, S = inp.y.shape
+    config, _ = _box_fns()
+    for t in BOX_FIT_THREADS if threads is None else (threads,):
+        cfg = (ctypes.c_int * 6)()
+        with torch.cuda.device(inp.y.device):
+            rc = config(S, n_steps, inp.period, int(inp.additive),
+                        int(inp.n_valid is not None), t, max_blocks, cfg)
+        if rc != 0:
+            raise RuntimeError(
+                f"hw_box_fit configuration failed for period {inp.period} "
+                f"S={S} n_steps={n_steps} threads={t}: "
+                + ("unsupported arguments" if rc < 0
+                   else f"CUDA error {rc}"))
+        if cfg[1] > 0:          # the tile fits
+            break
+    return BoxFitConfig(t, *cfg)
+
+
+def _box_launch(inp: HWInputs, x0: torch.Tensor, lower: float,
+                upper: float, tol: float, max_iter: int,
+                max_backtracks: int, threads: Optional[int] = None,
+                max_blocks: int = 0, thread_evals: bool = False):
+    """Launch the box-fit kernel on the current stream (not
+    synchronised) with :func:`box_fit_config`'s grid; returns
+    ``(MinimizeResult, evaluations (S,), evaluations per thread
+    (blocks * threads,) or None)``."""
+    n_steps, S = inp.y.shape
+    m = inp.period
+    x0_t = x0.movedim(-1, 0).contiguous()
+    _build.check_inputs([inp.y, x0_t, inp.init]
+                        + ([] if inp.n_valid is None else [inp.n_valid]),
+                        "Holt-Winters box fit")
+    if x0_t.shape != (3, S) or inp.init.shape != (2 + m, S):
+        raise ValueError(
+            f"shape mismatch: x0 {tuple(x0.shape)} (expected {(S, 3)}), "
+            f"init {tuple(inp.init.shape)}, y {tuple(inp.y.shape)}")
+    cfg = box_fit_config(inp, threads, max_blocks)
+    dev = inp.y.device
+    n_threads = cfg.blocks * cfg.threads
+    ring = None if m in REGISTER_PERIODS else torch.empty(
+        (4 * m, n_threads), dtype=torch.float32, device=dev)
+    x = torch.empty((3, S), dtype=torch.float32, device=dev)
+    fun = torch.empty((S,), dtype=torch.float32, device=dev)
+    converged = torch.empty((S,), dtype=torch.bool, device=dev)
+    n_iter = torch.empty((S,), dtype=torch.int32, device=dev)
+    evaluations = torch.empty((S,), dtype=torch.int32, device=dev)
+    per_thread = torch.empty((n_threads,), dtype=torch.int32, device=dev) \
+        if thread_evals else None
+    head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _, launch = _box_fns()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    _build.launch(launch, dev, x0_t.data_ptr(), inp.init.data_ptr(),
+                  inp.y.data_ptr(), ptr(inp.n_valid), ptr(ring),
+                  x.data_ptr(), fun.data_ptr(), converged.data_ptr(),
+                  n_iter.data_ptr(), evaluations.data_ptr(),
+                  ptr(per_thread), head.data_ptr(), S, n_steps, m,
+                  int(inp.additive), float(lower), float(upper), float(tol),
+                  int(max_iter), int(max_backtracks), cfg.threads,
+                  max_blocks,
+                  what=f"hw_box_fit kernel launch failed for period {m} "
+                       f"S={S} n_steps={n_steps}")
+    box_fit.launches += 1
+    return MinimizeResult(x.T, fun, converged, n_iter), evaluations, \
+        per_thread
+
+
+def box_fit_plain(inp: HWInputs, x0: torch.Tensor, lower: float = 0.0,
+                  upper: float = 1.0, tol: float = 1e-10,
+                  max_iter: int = 1000, max_backtracks: int = 40,
+                  stats: Optional[dict] = None):
+    """:func:`box_fit` as plain tensor ops, on any device and float
+    dtype — the version the kernel is held against: ``minimize_box`` over
+    the plain pass, evaluating up to :data:`CPU_TRIAL_LANES` (trial,
+    lane) pairs per call (the same per-lane result as one trial per
+    call).  ``stats`` receives the solver's counts."""
+    st = {} if stats is None else stats
+    res = minimize_box(evaluator(inp, _packed_plain), x0, lower, upper,
+                       tol=tol, max_iter=max_iter,
+                       max_backtracks=max_backtracks,
+                       trials_per_call=max(1, CPU_TRIAL_LANES
+                                           // x0.shape[0]),
+                       stats=st)
+    return res, st["evaluations"]
+
+
+def box_fit(inp: HWInputs, x0: torch.Tensor, lower: float = 0.0,
+            upper: float = 1.0, tol: float = 1e-10, max_iter: int = 1000,
+            max_backtracks: int = 40, stats: Optional[dict] = None):
+    """The Holt-Winters projected-gradient fit of a prepared panel from
+    ``x0 (S, 3)`` on the box ``[lower, upper]³``: per lane the state
+    machine of ``ops.optimize.minimize_box`` (the JAX package's
+    ``_minimize_box_one``).  Returns ``(MinimizeResult, evaluations)``,
+    ``evaluations (S,)`` the value-and-grad passes each lane needed (1
+    plus its trials up to and including each accepted one).
+
+    A CUDA tensor launches the persistent kernel once for the whole fit
+    (float32 only; anything else raises) and adds one to
+    ``box_fit.launches``.  A CPU tensor runs :func:`box_fit_plain`.
+    ``stats`` receives ``evaluations`` and the route's counts:
+    ``box_fit_launches`` on CUDA, the solver's ``calls``, ``iterations``
+    and ``trials`` on the CPU."""
+    if inp.y.is_cuda:
+        res, evaluations, _ = _box_launch(inp, x0, lower, upper, tol,
+                                          max_iter, max_backtracks)
+        if stats is not None:
+            stats.update(box_fit_launches=1, evaluations=evaluations)
+        return res, evaluations
+    return box_fit_plain(inp, x0, lower, upper, tol, max_iter,
+                         max_backtracks, stats)
+
+
+box_fit.launches = 0

@@ -54,7 +54,10 @@ def minimize_box(value_and_grad_fn: Callable, x0: torch.Tensor,
 
     The loop reads the device twice: ``all(done)`` once per iteration and
     ``any(pending)`` once per call.  ``stats`` (a dict, optional) receives
-    ``calls`` (value-and-grad evaluations), ``iterations`` and ``trials``.
+    ``calls`` (value-and-grad calls), ``iterations``, ``trials`` and
+    ``evaluations``, the ``(S,)`` int32 value-and-grad passes each lane
+    needed: 1 plus its trials up to and including each accepted one, as
+    if it ran alone with ``trials_per_call = 1`` (whatever K is).
     """
     if restarts:
         raise NotImplementedError(
@@ -68,6 +71,7 @@ def minimize_box(value_and_grad_fn: Callable, x0: torch.Tensor,
     x = _project(x0, lower, upper)
     f, g = value_and_grad_fn(x)
     calls, trials = 1, 0
+    evaluations = torch.ones((S,), dtype=torch.int32, device=dev)
     it_lanes = torch.zeros((S,), dtype=torch.int32, device=dev)
     done = torch.zeros((S,), dtype=torch.bool, device=dev)
     it = 0
@@ -89,6 +93,7 @@ def minimize_box(value_and_grad_fn: Callable, x0: torch.Tensor,
                 x_trial = _project(x - (0.5 ** k) * g, lower, upper)
                 f_t, g_t = value_and_grad_fn(x_trial)
                 ok = armijo(f_t, x_trial)
+                used = 1
             else:
                 steps = (0.5 ** k) * halvings[:kk, None, None]
                 xs = _project(x - steps * g, lower, upper)
@@ -97,6 +102,9 @@ def minimize_box(value_and_grad_fn: Callable, x0: torch.Tensor,
                 first = oks.to(torch.uint8).argmax(dim=0)   # first accepted
                 ok = oks.any(dim=0)
                 x_trial, f_t, g_t = (v[first, lanes] for v in (xs, fs, gs))
+                # a lane that accepts stops counting at its first success
+                used = torch.where(ok, first.to(torch.int32) + 1, kk)
+            evaluations += torch.where(pending, used, 0).to(torch.int32)
             calls += 1
             k += kk
             newly = ok & pending
@@ -117,5 +125,6 @@ def minimize_box(value_and_grad_fn: Callable, x0: torch.Tensor,
         done = done | (newly_done & active)
         it += 1
     if stats is not None:
-        stats.update(calls=calls, iterations=it, trials=trials)
+        stats.update(calls=calls, iterations=it, trials=trials,
+                     evaluations=evaluations)
     return MinimizeResult(x, f, done, it_lanes)

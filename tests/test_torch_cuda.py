@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: the CUDA kernels (ARMA normal equations,
-CSS cost, Holt-Winters SSE value and gradient) against their plain
-versions, and the fits and the streaming engine on CUDA against the same
-calls on the CPU.
+CSS cost, Holt-Winters SSE value and gradient, Holt-Winters box fit)
+against their plain versions, and the fits and the streaming engine on
+CUDA against the same calls on the CPU.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -17,6 +17,7 @@ import torch
 from spark_timeseries_tpu_torch.engine import FitEngine
 from spark_timeseries_tpu_torch.models import arima, holt_winters
 from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+from spark_timeseries_tpu_torch.ops.optimize import minimize_box
 
 pytestmark = pytest.mark.cuda
 
@@ -167,9 +168,12 @@ def test_hw_fit_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(9)
     y = _hw_panel(rng, 512, 60, 12)
     stats = {}
-    before = hw_sse.value_and_grad.launches
+    before = (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches)
     got = holt_winters.fit(y, 12, device=cuda, stats=stats)
-    assert hw_sse.value_and_grad.launches - before == stats["calls"]
+    # the whole fit is one box-fit launch, and no single-pass launch
+    assert (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches) \
+        == (before[0] + 1, before[1])
+    assert stats["box_fit_launches"] == 1
     want = holt_winters.fit(y, 12, device="cpu")
     conv = got.diagnostics.converged.cpu().numpy()
     w_conv = want.diagnostics.converged.numpy()
@@ -187,6 +191,176 @@ def test_hw_float64_on_cuda_raises(cuda):
     with pytest.raises(ValueError, match="float32"):
         holt_winters.fit(y, 4, device=cuda)
     yt = torch.from_numpy(y).to(cuda)
+    x0 = torch.full((8, 3), 0.3, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
-        hw_sse.value_and_grad(torch.full((8, 3), 0.3, dtype=torch.float64,
-                                         device=cuda), yt, 4, "additive")
+        hw_sse.value_and_grad(x0, yt, 4, "additive")
+    before = hw_sse.box_fit.launches
+    with pytest.raises(ValueError, match="float32"):
+        hw_sse.box_fit(hw_sse.prepare(yt, 4, "additive"), x0)
+    with pytest.raises(ValueError, match="float32"):
+        hw_sse.box_fit(hw_sse.prepare(yt.float(), 4, "additive"), x0)
+    assert hw_sse.box_fit.launches == before
+
+
+# Per-lane agreement of the box-fit kernel with the batched solver over
+# the single-pass kernel, and with the plain box fit, in float32.  (See
+# the thresholds below.)
+def _agreement(got, want):
+    """Shares of lanes with the same iteration count, and with ``fun``
+    within 1e-5 relative."""
+    same_iter = (got.n_iter == want.n_iter).double().mean()
+    rel = (got.fun - want.fun).abs() / want.fun.abs()
+    return float(same_iter), float((rel <= 1e-5).double().mean())
+
+
+def _solver_route(inp, x0, max_iter=1000):
+    """The batched solver over the single-pass kernel: one launch per
+    line-search trial."""
+    stats = {}
+    res = minimize_box(hw_sse.evaluator(inp), x0, 0.0, 1.0, tol=1e-10,
+                       max_iter=max_iter, stats=stats)
+    return res, stats["evaluations"]
+
+
+def _lanes(inp, idx):
+    return inp._replace(
+        y=inp.y[:, idx].contiguous(), init=inp.init[:, idx].contiguous(),
+        n_valid=None if inp.n_valid is None
+        else inp.n_valid[idx].contiguous())
+
+
+# The kernel runs the single-pass kernel's pass and the solver's
+# arithmetic in the solver's order, so against the solver route it may
+# part only where a reduction or a contraction rounds otherwise: at least
+# SOLVER_SHARE of lanes must take the same iterations and end within
+# 1e-5 of the same objective.  The plain pass rounds otherwise on every
+# step (no FMA, its own order of the tangent terms), so in float32 most
+# lanes part from it near the end of their fit, where Armijo decisions
+# and the stall test turn on the last bits of f.  The solver route parts
+# from the plain fit the same way, so the kernel is held to the route:
+# its shares against the plain fit at most PLAIN_MARGIN below the route's.
+SOLVER_SHARE = (0.95, 0.95)
+PLAIN_MARGIN = 0.1
+PLAIN_LANES = 32
+
+
+@pytest.mark.parametrize("m", [4, 7, 12, 24, 5, 52])
+@pytest.mark.parametrize("model_type", ["additive", "multiplicative"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_hw_box_fit_matches_solver_and_plain(cuda, m, model_type, ragged):
+    rng = np.random.default_rng(11)
+    S, n = 512, 3 * m + 5
+    y = _hw_panel(rng, S, n, m)
+    nv = None
+    if ragged:
+        nv = rng.integers(2 * m + 1, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+        nv = torch.from_numpy(nv).to(cuda)
+    inp = hw_sse.prepare(torch.from_numpy(y).to(cuda), m, model_type, nv)
+    x0 = torch.tensor([0.3, 0.1, 0.1], device=cuda).expand(S, 3)
+    before = (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches)
+    got, evals = hw_sse.box_fit(inp, x0)
+    torch.cuda.synchronize()
+    assert (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches) \
+        == (before[0] + 1, before[1])
+    assert bool(((got.x >= 0) & (got.x <= 1)).all())
+    assert bool((evals >= 1 + got.n_iter).all())
+    route, r_evals = _solver_route(inp, x0)
+    shares = _agreement(got, route)
+    print(f"m={m} {model_type} ragged={ragged} vs solver {shares}")
+    assert shares[0] >= SOLVER_SHARE[0] and shares[1] >= SOLVER_SHARE[1]
+    same = got.n_iter == route.n_iter
+    assert float((evals == r_evals)[same].double().mean()) >= 0.95
+    assert bool((got.converged == route.converged)[same].all())
+    k = PLAIN_LANES
+    plain, _ = hw_sse.box_fit_plain(_lanes(inp, slice(0, k)), x0[:k])
+    p_shares = _agreement(got._replace(n_iter=got.n_iter[:k],
+                                       fun=got.fun[:k]), plain)
+    r_shares = _agreement(route._replace(n_iter=route.n_iter[:k],
+                                         fun=route.fun[:k]), plain)
+    print(f"m={m} {model_type} ragged={ragged} vs plain {p_shares}, "
+          f"solver route vs plain {r_shares}")
+    for got_share, route_share in zip(p_shares, r_shares):
+        assert got_share >= route_share - PLAIN_MARGIN
+
+
+def test_hw_box_fit_iteration_cap(cuda):
+    rng = np.random.default_rng(12)
+    y = torch.from_numpy(_hw_panel(rng, 256, 40, 4)).to(cuda)
+    inp = hw_sse.prepare(y, 4, "multiplicative")
+    x0 = torch.tensor([0.3, 0.1, 0.1], device=cuda).expand(256, 3)
+    got, evals = hw_sse.box_fit(inp, x0, max_iter=5)
+    route, r_evals = _solver_route(inp, x0, max_iter=5)
+    assert int(got.n_iter.max()) == 5
+    shares = _agreement(got, route)
+    assert shares[0] >= SOLVER_SHARE[0] and shares[1] >= SOLVER_SHARE[1]
+    same = got.n_iter == route.n_iter
+    assert bool((got.converged == route.converged)[same].all())
+    assert bool((evals == r_evals)[same].all())
+    # no iterations: the projected start, evaluated once
+    none, n_evals = hw_sse.box_fit(inp, x0, max_iter=0)
+    assert bool((none.n_iter == 0).all() and (n_evals == 1).all())
+    assert not bool(none.converged.any())
+    torch.testing.assert_close(none.x, x0)
+
+
+def test_hw_box_fit_lane_queue(cuda):
+    # lanes of very different iteration counts, and far more lanes than
+    # threads: every thread works through the queue
+    rng = np.random.default_rng(13)
+    S, n, m = 2048, 60, 12
+    y = _hw_panel(rng, S, n, m)
+    y[S // 2:3 * S // 4] += rng.normal(0.0, 20.0, size=(S // 4, n))
+    y[3 * S // 4:] += np.cumsum(rng.normal(0.0, 3.0, size=(S // 4, n)),
+                                axis=1).astype(np.float32)
+    y = y[rng.permutation(S)]
+    inp = hw_sse.prepare(torch.from_numpy(y).to(cuda), m, "additive")
+    x0 = torch.tensor([0.3, 0.1, 0.1], device=cuda).expand(S, 3)
+    full, f_evals, _ = hw_sse._box_launch(inp, x0, 0.0, 1.0, 1e-10, 1000,
+                                          40)
+    cfg = hw_sse.box_fit_config(inp, 64, max_blocks=2)
+    assert cfg.blocks == 2 and cfg.smem_bytes > 0
+    queued, q_evals, per_thread = hw_sse._box_launch(
+        inp, x0, 0.0, 1.0, 1e-10, 1000, 40, threads=64, max_blocks=2,
+        thread_evals=True)
+    torch.cuda.synchronize()
+    assert len(set(full.n_iter.tolist())) > 20
+    # a lane's result does not depend on the thread that ran it
+    for a, b in zip((*queued, q_evals), (*full, f_evals)):
+        assert torch.equal(a, b)
+    assert int(per_thread.sum()) == int(q_evals.sum())
+    route, _ = _solver_route(inp, x0)
+    shares = _agreement(full, route)
+    assert shares[0] >= SOLVER_SHARE[0] and shares[1] >= SOLVER_SHARE[1]
+
+
+def test_hw_box_fit_long_series_reads_global_memory(cuda):
+    # a series too long for a block's shared tile at any block size
+    # (1002 rows of 64 threads: 256 KB) runs from global memory
+    rng = np.random.default_rng(14)
+    S, n, m = 256, 1000, 4
+    inp = hw_sse.prepare(torch.from_numpy(_hw_panel(rng, S, n, m)).to(cuda),
+                         m, "additive")
+    assert hw_sse.box_fit_config(inp).smem_bytes == 0
+    x0 = torch.tensor([0.3, 0.1, 0.1], device=cuda).expand(S, 3)
+    got, _ = hw_sse.box_fit(inp, x0)
+    route, _ = _solver_route(inp, x0)
+    shares = _agreement(got, route)
+    assert shares[0] >= SOLVER_SHARE[0] and shares[1] >= SOLVER_SHARE[1]
+
+
+def test_hw_stream_fit_launches_box_fit_once_per_chunk(cuda):
+    rng = np.random.default_rng(15)
+    y = _hw_panel(rng, 600, 48, 12)
+    before = (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches)
+    res = FitEngine().stream_fit(y, "holt_winters", chunk_size=256,
+                                 period=12, device=cuda)
+    assert not res.chunk_failures and res.n_chunks == 3
+    assert (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches) \
+        == (before[0] + 3, before[1])
+    assert res.stats["box_fit_launches"] == [1, 1, 1]
+    assert "value_and_grad_calls" not in res.stats
+    assert len(res.stats["lane_evaluations"]) == 3
+    # the start and at least one trial for each lane of the smallest
+    # (tail) bucket, 128 lanes
+    assert min(res.stats["lane_evaluations"]) >= 2 * 128

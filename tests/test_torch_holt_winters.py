@@ -324,3 +324,136 @@ def test_engine_matches_jax_engine(monkeypatch):
         == (0, 3, "data")
     assert got.stats["collected_ranges"] == [[3, 6]]
     assert got.n_fitted == want.n_fitted == 3
+
+
+def _lanes(inp, idx):
+    """Lanes ``idx`` of a prepared panel."""
+    return inp._replace(
+        y=inp.y[:, idx].contiguous(), init=inp.init[:, idx].contiguous(),
+        n_valid=None if inp.n_valid is None
+        else inp.n_valid[idx].contiguous())
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_box_fit_plain_matches_jax(ragged):
+    rng = np.random.default_rng(9)
+    S, n, m = 16, 36, 4
+    model_type = "multiplicative" if ragged else "additive"
+    y = _panel(rng, S, n, m)
+    nv = None
+    if ragged:
+        y, nv = _ragged(rng, y, m)
+    x0 = np.tile([0.3, 0.1, 0.1], (S, 1))
+    x0[1] = [0.9, 1.3, -0.1]               # out of the box: projected first
+
+    def vag(p, s, *v):
+        return jhw._hw_sse_value_and_grad(p, s, m, model_type,
+                                          n_valid=v[0] if v else None)
+
+    args = (jnp.asarray(y),) + (() if nv is None else (jnp.asarray(nv),))
+    want = jminimize_box(lambda p, *a: vag(p, *a)[0], jnp.asarray(x0), 0.0,
+                         1.0, *args, tol=1e-10, max_iter=120,
+                         value_and_grad_fn=vag)
+    inp = hw_sse.prepare(torch.from_numpy(y), m, model_type,
+                         None if nv is None else torch.from_numpy(nv))
+    stats = {}
+    got, evaluations = hw_sse.box_fit_plain(inp, torch.from_numpy(x0),
+                                            tol=1e-10, max_iter=120,
+                                            stats=stats)
+    # the JAX state machine per lane, on float64 passes that agree to 1e-12
+    np.testing.assert_array_equal(got.n_iter.numpy(),
+                                  np.asarray(want.n_iter))
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(got.fun.numpy(), np.asarray(want.fun),
+                               rtol=1e-9)
+    assert torch.equal(stats["evaluations"], evaluations)
+    # an evaluation for the start, then from one to K = 40 trials a call
+    assert (evaluations >= 1 + got.n_iter).all()
+    assert (evaluations <= 1 + 40 * (stats["calls"] - 1)).all()
+
+
+def test_box_fit_lanes_are_independent():
+    # the property the card's per-lane kernel rests on: a lane's result
+    # depends on that lane alone, not on its batch or its place in it
+    rng = np.random.default_rng(10)
+    S, n, m = 12, 30, 4
+    y, nv = _ragged(rng, _panel(rng, S, n, m), m)
+    y[:3] += rng.normal(0.0, 15.0, size=(3, n))      # hard, long fits
+    inp = hw_sse.prepare(torch.from_numpy(y), m, "multiplicative",
+                         torch.from_numpy(nv))
+    x0 = torch.from_numpy(rng.uniform(0.0, 1.0, size=(S, 3)))
+    kw = dict(tol=1e-10, max_iter=60)
+    batch, b_evals = hw_sse.box_fit_plain(inp, x0, **kw)
+    assert len(set(batch.n_iter.tolist())) > 2      # lanes of unlike length
+    perm = torch.from_numpy(rng.permutation(S))
+    permuted, p_evals = hw_sse.box_fit_plain(_lanes(inp, perm), x0[perm],
+                                             **kw)
+    for got, want in zip((*permuted, p_evals), (*batch, b_evals)):
+        assert torch.equal(got, want[perm])
+    for lane in (0, 5):
+        alone, a_evals = hw_sse.box_fit_plain(_lanes(inp, [lane]),
+                                              x0[lane:lane + 1], **kw)
+        for got, want in zip((*alone, a_evals), (*batch, b_evals)):
+            assert torch.equal(got[0], want[lane])
+
+
+def test_box_fit_counts_each_lanes_evaluations():
+    # a lane's evaluations in a batch (several trials per call) are the
+    # value-and-grad calls the solver makes when it fits that lane alone,
+    # one trial per call
+    rng = np.random.default_rng(11)
+    S, n, m = 8, 24, 4
+    y = _panel(rng, S, n, m)
+    y[0] += rng.normal(0.0, 10.0, size=n)
+    inp = hw_sse.prepare(torch.from_numpy(y), m, "additive")
+    x0 = torch.full((S, 3), 0.2, dtype=torch.float64)
+    _, evaluations = hw_sse.box_fit_plain(inp, x0, max_iter=40)
+    for lane in (0, 3):
+        stats = {}
+        minimize_box(hw_sse.evaluator(_lanes(inp, [lane]),
+                                      hw_sse._packed_plain),
+                     x0[lane:lane + 1], 0.0, 1.0, tol=1e-10, max_iter=40,
+                     trials_per_call=1, stats=stats)
+        assert int(evaluations[lane]) == stats["calls"]
+        assert torch.equal(stats["evaluations"],
+                           torch.tensor([stats["calls"]], dtype=torch.int32))
+
+
+def test_fit_on_cpu_runs_the_plain_box_fit(monkeypatch):
+    rng = np.random.default_rng(12)
+    y = _panel(rng, 8, 30, 4)
+    routed = []
+    plain = hw_sse.box_fit_plain
+
+    def spy(*args, **kwargs):
+        routed.append(args[0].y.device.type)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(hw_sse, "box_fit_plain", spy)
+    launches = (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches)
+    stats = {}
+    got = hw.fit(y, 4, max_iter=60, device="cpu", stats=stats)
+    assert routed == ["cpu"]
+    assert (hw_sse.box_fit.launches, hw_sse.value_and_grad.launches) \
+        == launches                               # no kernel on the CPU
+    assert stats["evaluations"].shape == (8,)
+    assert stats["iterations"] == int(got.diagnostics.n_iter.max())
+    assert "box_fit_launches" not in stats
+
+    # the engine reports each chunk's counts from the same solver
+    res = engine.FitEngine().stream_fit(y, "holt_winters", chunk_size=4,
+                                        period=4, device="cpu")
+    assert routed == ["cpu"] * 3
+    chunks = [{}, {}]
+    for part, st in zip((y[:4], y[4:]), chunks):
+        hw.fit(part, 4, device="cpu", stats=st)
+    assert res.stats["box_fit_launches"] == [0, 0]
+    assert res.stats["lane_evaluations"] == [
+        int(st["evaluations"].sum()) for st in chunks]
+    assert res.stats["box_iterations"] == [st["iterations"]
+                                           for st in chunks]
+    assert res.stats["value_and_grad_calls"] == [st["calls"]
+                                                 for st in chunks]
