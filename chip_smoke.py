@@ -17,26 +17,41 @@ Phases, one JSON line each:
    float64 on the CPU, at the main path's chunk shape.
 4. ``main_path``: ``FitEngine().stream_fit`` of a 1,048,576 x 128
    float32 ARIMA(2,1,2) panel in 131072-series chunks on the card, the
-   kernel's launches counted over exactly that run; then 4096 of its lanes
-   refitted on the CPU in float64 and compared.
-5. ``timing``: CUDA-event times of the kernel and of its plain version,
-   the kernel's bound, and one LM iteration split into kernel and rest.
-6. ``css_cost_vs_plain``: ``ops.arma_ne.css_cost`` (the cost-only kernel)
-   against ``css_cost_plain``, dense and ragged, at the ARIMA chunk shape.
-7. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the Holt-Winters
+   LM-fit kernel's and the single-pass kernel's launches counted over
+   exactly that run (one LM-fit launch per chunk, no single pass); then
+   4096 of its lanes refitted on the CPU in float64 and compared; then
+   one warm chunk's steps timed apart with CUDA events (H2D,
+   differencing, Hannan-Rissanen init, the LM-fit kernel, quarantine and
+   model build, D2H).
+5. ``timing``: CUDA-event times of the single-pass kernel and of its
+   plain version, its bound, and the LM-fit kernel's time a chunk.
+6. ``lm_fit_vs_route``: on the first 131072-lane ARIMA chunk, the LM-fit
+   kernel (``ops.arma_ne.fit_css_lm``, a thread a lane; block sizes
+   64/128/256) against the batched LM over the single-pass kernel (``fit_css_lm_route``, one launch per iteration,
+   its launches counted over that run): both times, per-lane agreement,
+   the lanes' passes, the kernel's bounds, its warp efficiency, its
+   slowest lane fitted alone, registers and spills of every
+   instantiation; then the kernel against ``fit_css_lm_plain`` on the
+   card on the chunk's first 256 lanes.
+7. ``css_cost_vs_plain``: ``ops.arma_ne.css_cost`` (the cost-only kernel)
+   against ``css_cost_plain``, dense and ragged, at the ARIMA chunk shape,
+   for AR orders in registers and one past them (the runtime-p form).
+8. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the Holt-Winters
    kernel) against ``value_and_grad_plain`` in float32 on the card and in
    float64 on the CPU: additive period 12 dense and ragged,
    multiplicative period 12, and period 52 (the generic form).
-8. ``hw_path``: ``FitEngine().stream_fit(panel, "holt_winters",
+9. ``hw_path``: ``FitEngine().stream_fit(panel, "holt_winters",
    period=12, model_type="additive")`` over a 1,048,576 x 120 float32
    panel (``bench_suite.py``'s monthly recipe) in 131072-series chunks,
    the box-fit kernel's launches counted over exactly that run (one per
    chunk, and no single-pass launch); ``log_likelihood_css`` of one ARIMA
    chunk's fitted models on the card (the cost-only kernel on a path);
    the float64 CPU refit compared by objective.
-9. ``hw_timing``: CUDA-event times of the single-pass Holt-Winters kernel
-   and the cost-only ARMA kernel, their plain versions and their bounds.
-10. ``hw_fit_vs_solver``: on the first 131072-lane Holt-Winters chunk,
+10. ``hw_timing``: CUDA-event times of the single-pass Holt-Winters
+   kernel and the cost-only ARMA kernel (three orders: two with the AR
+   order in registers, one in the runtime-p form), their plain versions
+   and their bounds.
+11. ``hw_fit_vs_solver``: on the first 131072-lane Holt-Winters chunk,
    the box-fit kernel (``ops.hw_sse.box_fit``, block sizes 64/128/256)
    against the batched solver over the single-pass kernel
    (``minimize_box(hw_sse.evaluator(inp))``, one launch per trial, its
@@ -45,7 +60,9 @@ Phases, one JSON line each:
    and its slowest lane fitted alone; then the kernel against
    ``box_fit_plain`` on the card on the chunk's first 256 lanes.
 
-Then one line of per-kernel numbers and, last, the result line.  Any
+Then one line of per-kernel numbers (``launches`` counted over the main
+paths' runs; for a kernel that only a comparison route launches,
+``route_launches`` beside it) and, last, the result line.  Any
 failed check raises, so the script exits non-zero and prints no result
 line; without CUDA it exits 1 before doing anything.
 """
@@ -93,6 +110,9 @@ AGREE = ((1e-3, 0.40), (5e-3, 0.90))
 # cost-only kernel vs plain: relative sse error.  The same float32 sums
 # as NE_TOL's over <= 127 steps, so the same bound
 CSS_TOL = 1e-4
+# orders of the cost-only kernel that hw_timing times: the main path's,
+# the largest AR order in registers, one past them (the runtime-p form)
+CSS_TIMED = ((2, 2, 1), (5, 0, 1), (8, 1, 1))
 
 # Holt-Winters kernel vs plain: sse relative to itself, each gradient
 # entry relative to the larger of its lane's largest and its SSE.  Float32
@@ -136,6 +156,22 @@ HW_SOLVER_SHARE = (0.95, 0.95)
 HW_PLAIN_MARGIN = 0.1
 HW_PLAIN_LANES = 256     # lanes of the plain box fit on the card
 HW_FUN_RTOL = 1e-5
+
+# LM-fit kernel vs the batched LM over the single-pass kernel, per lane:
+# the same pass and the LM loop's arithmetic in the loop's order, so
+# lanes may part only where a contraction or a reduction rounds
+# otherwise.  Shares of lanes with the same iteration count, and with an
+# objective within 1e-5 relative (tests/test_torch_cuda.py holds the same
+# floors)
+LM_ROUTE_SHARE = (0.95, 0.95)
+# ... and vs the plain LM (float32 on the card): the plain pass rounds
+# otherwise on every step (no FMA), so float32 fits part from it near
+# their end, where the accept and stop tests turn on the last bits of f.
+# The route parts from it the same way, so the kernel is held to it: its
+# shares at most LM_PLAIN_MARGIN below the route's
+LM_PLAIN_MARGIN = 0.1
+LM_PLAIN_LANES = 256     # lanes of the plain LM on the card
+LM_FUN_RTOL = 1e-5
 
 # the card's CSS log likelihood vs float64 on invertible converged lanes:
 # a float32 sum of <= 127 squares is good to ~1e-6 relative and the log
@@ -287,17 +323,20 @@ def phase_main_path(panel, dev, n_refit=N_REFIT, chunk=CHUNK):
     # warm-up: library load, CUDA/cuBLAS handles (not counted)
     engine.stream_fit(panel[:4096], "arima", p=2, d=1, q=2,
                       chunk_size=4096, device=dev)
+    arma_ne.fit_css_lm.launches = 0
     arma_ne.normal_equations.launches = 0
     res = engine.stream_fit(panel, "arima", p=2, d=1, q=2,
                             chunk_size=chunk, device=dev, collect=True)
-    launches = arma_ne.normal_equations.launches
+    launches = arma_ne.fit_css_lm.launches
+    ne_launches = arma_ne.normal_equations.launches
     iters = res.stats["lm_iterations"]
     check(not res.chunk_failures,
           f"chunk failures: {[f['error'] for f in res.chunk_failures]}")
-    check(launches > 0, "the main path never launched the ARMA kernel")
-    check(launches == sum(i + 1 for i in iters),
-          f"kernel launches {launches} != sum of (LM iterations + 1) "
-          f"{sum(i + 1 for i in iters)}")
+    check(launches > 0, "the main path never launched the LM-fit kernel")
+    check(launches == len(iters) == sum(res.stats["lm_fit_launches"]),
+          f"LM-fit kernel launches {launches} != LM chunks {len(iters)}")
+    check(ne_launches == 0, f"the ARIMA fit launched the single-pass "
+                            f"kernel {ne_launches} times")
     coefs = torch.cat([m.coefficients for m in res.models]).numpy()
     conv = torch.cat([m.diagnostics.converged for m in res.models]).numpy()
     check(coefs.shape == (panel.shape[0], 5), f"coefficients {coefs.shape}")
@@ -321,15 +360,91 @@ def phase_main_path(panel, dev, n_refit=N_REFIT, chunk=CHUNK):
     return {"phase": "main_path", "n_series": res.n_series,
             "n_obs": panel.shape[1], "chunk_size": chunk,
             "n_chunks": res.n_chunks, "wall_s": res.wall_s,
+            "chunk_ms": res.wall_s * 1e3 / res.n_chunks,
             "series_per_s": res.rate, "converged_pct": converged_pct,
             "lm_iterations_per_chunk": iters,
-            "normal_equations_launches": launches,
+            "lm_fit_launches": launches,
+            "normal_equations_launches": ne_launches,
             "refit_lanes": n_refit, "refit_cpu_f64_s": refit_s,
             "refit_both_converged": float(np.mean(both)),
             "refit_agree_share": agree,
             "refit_agree_floor": {f"{t:g}": f for t, f in AGREE},
-            "refit_median_abs_diff": float(np.median(dx))}, launches, \
-        res.models[0]
+            "refit_median_abs_diff": float(np.median(dx)),
+            "chunk_setup": arima_chunk_steps(panel[chunk:2 * chunk], dev)}, \
+        launches, res.models[0]
+
+
+def arima_chunk_steps(part: np.ndarray, dev):
+    """CUDA-event times (ms) of the steps of one warm ARIMA(2,1,2) chunk
+    fit as ``stream_fit`` runs it: the H2D copy from pinned memory; the
+    NaN scan and differencing; the Hannan-Rissanen init; the LM fit (one
+    LM-fit kernel launch, the panel's transpose included); quarantine and
+    model build; the D2H copy of the model (``collect``).  The steps are
+    marked by wrapping the functions ``models.arima`` calls, so the fit
+    runs its own code; time between two steps goes to ``other``.  Beside
+    them, host-clock times of the engine's host-side staging of a chunk:
+    its NaN scan and its copy into a pinned buffer."""
+    import torch
+
+    from spark_timeseries_tpu_torch import engine
+    from spark_timeseries_tpu_torch.models import arima
+
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def marked(name, fn):
+        def call(*args, **kw):
+            mark(f"{name}<")
+            out = fn(*args, **kw)
+            mark(f"{name}>")
+            return out
+        return call
+
+    names = ("differences_of_order_d", "hannan_rissanen_init", "fit_css_lm")
+    saved = {n: getattr(arima, n) for n in names}
+    host = torch.empty(part.shape, dtype=torch.float32).pin_memory()
+    t0 = time.perf_counter()
+    bool(np.isnan(part).any())
+    t1 = time.perf_counter()
+    host.numpy()[...] = part
+    t2 = time.perf_counter()
+    statics = engine._statics("arima", dict(p=2, d=1, q=2))
+    try:
+        for n in names:
+            setattr(arima, n, marked(n, saved[n]))
+        torch.cuda.synchronize()
+        mark("start")
+        values = host.to(dev, non_blocking=True)
+        mark("h2d")
+        model = engine._fit_values("arima", statics, values)
+        mark("fit")
+        engine._map_tensors(model, lambda t: t.cpu())
+        mark("d2h")
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(arima, n, saved[n])
+
+    def ms(a, b):
+        return marks[a].elapsed_time(marks[b])
+
+    steps = {"h2d": ms("start", "h2d"),
+             "nan_scan_and_differencing": ms("h2d",
+                                             "differences_of_order_d>"),
+             "hannan_rissanen_init": ms("hannan_rissanen_init<",
+                                        "hannan_rissanen_init>"),
+             "lm_fit": ms("fit_css_lm<", "fit_css_lm>"),
+             "quarantine_and_model": ms("fit_css_lm>", "fit"),
+             "d2h": ms("fit", "d2h")}
+    total = ms("start", "d2h")
+    steps["other"] = total - sum(steps.values())
+    steps["total"] = total
+    steps["host_nan_scan"] = (t1 - t0) * 1e3
+    steps["host_pinned_copy"] = (t2 - t1) * 1e3
+    return steps
 
 
 def _event_ms(fn, reps: int):
@@ -351,10 +466,21 @@ def _event_ms(fn, reps: int):
     return float(np.median(times))
 
 
-def phase_timing(panel, seed, dev):
+def first_chunk_init(panel, dev, chunk=CHUNK):
+    """The first ARIMA chunk as the LM fit sees it (differenced once, on
+    the card) and its Hannan-Rissanen init."""
     import torch
 
     from spark_timeseries_tpu_torch.models import arima
+
+    y_d = torch.from_numpy(
+        np.ascontiguousarray(np.diff(panel[:chunk], axis=1))).to(dev)
+    return y_d, arima.hannan_rissanen_init(2, 2, y_d, True)
+
+
+def phase_timing(panel, seed, dev, lm_chunk):
+    import torch
+
     from spark_timeseries_tpu_torch.ops import arma_ne
 
     name, (p, q, icpt), y, params, _ = ne_cases(panel, seed)[0]
@@ -368,29 +494,179 @@ def phase_timing(panel, seed, dev):
         lambda: arma_ne._packed_plain(prm_t, y_t, None, p, q, icpt), 3)
     bound_s, bound_by, n_bytes, flops = ne_bound_s(S, n_obs, p, q, icpt,
                                                    False)
-
-    # one LM fit of the chunk from its Hannan-Rissanen init
-    init = arima.hannan_rissanen_init(p, q, y_d, True)
-    torch.cuda.synchronize()
-    launches0 = arma_ne.normal_equations.launches
-    t0 = time.perf_counter()
-    _, _, _, it_lanes = arma_ne.fit_css_lm(init, y_d, p, q, icpt)
-    torch.cuda.synchronize()
-    lm_s = time.perf_counter() - t0
-    n_launch = arma_ne.normal_equations.launches - launches0
-    iterations = int(it_lanes.max())
-    per_iter_ms = lm_s * 1e3 / max(iterations, 1)
-    kernel_per_iter_ms = kernel_ms * n_launch / max(iterations, 1)
+    # the LM-fit kernel on the chunk from its Hannan-Rissanen init
+    lm_y, lm_init = lm_chunk
+    lm_ms = _event_ms(lambda: arma_ne.fit_css_lm(lm_init, lm_y, p, q, icpt),
+                      5)
     return {"phase": "timing", "case": name, "S": S, "n_obs": n_obs,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_us": bound_s * 1e6, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
             "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
-            "lm_iterations": iterations, "lm_kernel_launches": n_launch,
-            "lm_fit_ms": lm_s * 1e3,
-            "lm_iteration_ms": per_iter_ms,
-            "lm_iteration_kernel_ms": kernel_per_iter_ms,
-            "lm_iteration_rest_ms": per_iter_ms - kernel_per_iter_ms}
+            "lm_fit_ms_a_chunk": lm_ms}
+
+
+def lm_fit_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int,
+                   passes: int):
+    """Least time of the LM fit of S dense lanes that needed ``passes``
+    normal-equations passes in all: the pass's flop a lane-step over the
+    fp32 rate, and y and x0 read once and x, fun, converged and n_iter
+    written once over the HBM rate; the larger wins."""
+    k = icpt + p + q
+    n_bytes = 4 * S * (n_obs + k) + S * (4 * k + 4 + 1 + 4)
+    flops = ne_flops_per_step(p, q, icpt, False) * (n_obs - max(p, q)) \
+        * passes
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, flops
+
+
+def _lm_agreement(got, want):
+    """Per-lane shares: the same iteration count, ``fun`` within
+    ``LM_FUN_RTOL`` relative (NaN matching NaN), the same converged
+    flag."""
+    import torch
+
+    return {"n_iter_equal": float((got[3] == want[3]).double().mean()),
+            "fun_within_1e-5": float(torch.isclose(
+                got[1].double(), want[1].double(), rtol=LM_FUN_RTOL,
+                atol=0.0, equal_nan=True).double().mean()),
+            "converged_equal": float((got[2] == want[2]).double().mean())}
+
+
+def _max_abs_x(got, want, lanes=None):
+    """Largest |x - x_ref| over ``lanes`` (all when None; a NaN on both
+    sides counts 0, on one side inf), or None."""
+    import torch
+
+    a, b = got[0], want[0]
+    dx = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, (a - b).abs())
+    dx = torch.nan_to_num(dx, nan=float("inf")).amax(dim=1)
+    if lanes is not None:
+        dx = dx[lanes]
+    return float(dx.max()) if dx.numel() else None
+
+
+def phase_lm_fit_vs_route(lm_chunk, ne_kernel_ms, dev,
+                          plain_lanes=LM_PLAIN_LANES):
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    y_d, init = lm_chunk
+    S, n_obs = y_d.shape
+    p, q, icpt = 2, 2, 1
+    args = (init, y_d, p, q, icpt, 1e-6, 50, None, None)
+
+    # the LM-fit kernel at three block sizes
+    sizes = []
+    for threads in (64, 128, 256):
+        cfg = arma_ne.lm_fit_config(S, n_obs, p, q, icpt, False, dev,
+                                    threads)
+        ms = _event_ms(lambda: arma_ne._lm_launch(*args, threads=threads), 5)
+        sizes.append({**cfg._asdict(), "ms": ms,
+                      "occupancy": cfg.blocks_per_sm * threads / 2048})
+    lm_ms = next(r["ms"] for r in sizes
+                 if r["threads"] == arma_ne.LM_FIT_THREADS)
+    got = arma_ne.fit_css_lm(init, y_d, p, q, icpt)
+
+    # the batched LM over the single-pass kernel, one launch per iteration
+    arma_ne.normal_equations.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route = arma_ne.fit_css_lm_route(init, y_d, p, q, icpt)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    ne_launches = arma_ne.normal_equations.launches
+    iterations = int(route[3].max())
+    check(ne_launches == iterations + 1,
+          f"arma_ne launches {ne_launches} != the route's iterations + 1")
+    per_iter_ms = route_s * 1e3 / max(iterations, 1)
+    kernel_per_iter_ms = ne_kernel_ms * ne_launches / max(iterations, 1)
+    vs_route = _lm_agreement(got, route)
+    same = got[3] == route[3]
+
+    passes = (1 + got[3]).double()
+    total = int(passes.sum())
+    bound_s, bound_by, n_bytes, flops = lm_fit_bound_s(S, n_obs, p, q, icpt,
+                                                       total)
+    # the slowest lane alone: one thread, its serial chain
+    worst = int(got[3].argmax())
+    lane = slice(worst, worst + 1)
+    worst_ms = _event_ms(lambda: arma_ne.fit_css_lm(init[lane], y_d[lane],
+                                                    p, q, icpt), 5)
+    # registers and spills of every instantiation (a lane per thread at
+    # the default block size)
+    regs = {}
+    for pp in range(4):
+        for qq in range(4):
+            for ic, rg in ((0, False), (0, True), (1, False), (1, True)):
+                if pp + qq + ic:
+                    cfg = arma_ne.lm_fit_config(S, n_obs, pp, qq, ic, rg,
+                                                dev)
+                    regs[f"{pp},{qq},{ic}{',ragged' if rg else ''}"] = [
+                        cfg.registers, cfg.local_bytes]
+
+    # the plain LM on the card, on the chunk's first lanes
+    k = slice(0, plain_lanes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = arma_ne.fit_css_lm_plain(init[k], y_d[k], p, q, icpt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_k = [t[k] for t in got]
+    vs_plain = _lm_agreement(got_k, plain)
+    route_vs_plain = _lm_agreement([t[k] for t in route], plain)
+    row = {"phase": "lm_fit_vs_route", "S": S, "n_obs": n_obs,
+           "order": [p, q, icpt], "lm_fit_ms": lm_ms,
+           "threads": arma_ne.LM_FIT_THREADS, "block_sizes": sizes,
+           "route_ms": route_s * 1e3, "route_arma_ne_launches": ne_launches,
+           "route_iterations": iterations,
+           "route_iteration_ms": per_iter_ms,
+           "route_iteration_kernel_ms": kernel_per_iter_ms,
+           "route_iteration_rest_ms": per_iter_ms - kernel_per_iter_ms,
+           "speedup": route_s * 1e3 / lm_ms,
+           "vs_route": vs_route, "vs_route_floor": LM_ROUTE_SHARE,
+           "vs_route_max_abs_x_same_iter": _max_abs_x(got, route, same),
+           "vs_route_max_abs_x": _max_abs_x(got, route),
+           "lane_passes": {
+               "sum": total, "mean": float(passes.mean()),
+               "median": float(passes.median()),
+               "p99": float(torch.quantile(passes, 0.99)),
+               "max": int(passes.max())},
+           "converged_pct": 100.0 * float(got[2].double().mean()),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "bytes": n_bytes, "flops": flops,
+           "bytes_bound_ms": n_bytes / PEAK_BYTES_S * 1e3,
+           "share_of_bound": bound_s * 1e3 / lm_ms,
+           "warp_efficiency": _warp_efficiency(1 + got[3]),
+           "slowest_lane_alone_ms": worst_ms,
+           "slowest_lane_passes": int(passes.max()),
+           "slowest_lane_step_ns": worst_ms * 1e6 / (int(passes.max())
+                                                     * (n_obs - 2)),
+           "registers_and_spill_bytes": regs,
+           "registers_max": max(r for r, _ in regs.values()),
+           "spill_bytes_max": max(b for _, b in regs.values()),
+           "plain_lanes": plain_lanes, "plain_ms": plain_ms,
+           "vs_plain": vs_plain, "route_vs_plain": route_vs_plain,
+           "vs_plain_margin": LM_PLAIN_MARGIN,
+           "vs_plain_max_abs_x_same_iter_converged": _max_abs_x(
+               got_k, plain, (got_k[3] == plain[3]) & got_k[2] & plain[2]),
+           "vs_plain_max_abs_x_same_iter": _max_abs_x(
+               got_k, plain, got_k[3] == plain[3]),
+           "vs_plain_max_abs_x": _max_abs_x(got_k, plain)}
+    emit(row)     # before the checks, so a failed check leaves its numbers
+    for key, floor in zip(("n_iter_equal", "fun_within_1e-5"),
+                          LM_ROUTE_SHARE):
+        check(vs_route[key] >= floor,
+              f"LM-fit kernel vs route: {key} share {vs_route[key]:.4f} "
+              f"< {floor}")
+        floor = route_vs_plain[key] - LM_PLAIN_MARGIN
+        check(vs_plain[key] >= floor,
+              f"LM-fit kernel vs plain: {key} share {vs_plain[key]:.4f} "
+              f"< the route's {route_vs_plain[key]:.4f} - "
+              f"{LM_PLAIN_MARGIN}")
+    return row
 
 
 def synthetic_hw_panel(n_series: int, n_obs: int, period: int,
@@ -445,10 +721,14 @@ def css_cases(panel: np.ndarray, seed: int):
     S = chunk.shape[0]
     nv = rng.integers(40, diffed.shape[1] + 1, S).astype(np.float32)
     cases = []
+    # AR orders in registers (p <= 5), and one past them (runtime p)
     for name, (p, q, icpt), y, ragged in (
             ("arima(2,1,2)+c", (2, 2, 1), diffed, False),
             ("arima(2,1,2)+c ragged", (2, 2, 1), diffed, True),
-            ("arima(5,1,0)+c", (5, 0, 1), diffed, False)):
+            ("arima(5,1,0)+c", (5, 0, 1), diffed, False),
+            ("arima(4,1,3) ragged", (4, 3, 0), diffed, True),
+            ("arima(1,1,5)+c", (1, 5, 1), diffed, False),
+            ("arima(8,1,1)+c runtime p", (8, 1, 1), diffed, False)):
         params = (0.1 * rng.normal(size=(S, icpt + p + q))).astype(
             np.float32)
         cases.append((name, (p, q, icpt), y, params,
@@ -711,28 +991,33 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
     plain_ms = _event_ms(lambda: hw_sse._packed_plain(prm_t, inp), 3)
     bound_s, bound_by, n_bytes, flops = hw_bound_s(S, n - m, m)
 
-    # the cost-only ARMA kernel at the ARIMA chunk shape
-    c_name, (p, q, icpt), cy, cparams, _ = css_cases(arima_panel, seed)[0]
-    cy_t = torch.from_numpy(cy).to(dev).T.contiguous()
-    cprm_t = torch.from_numpy(cparams).to(dev).T.contiguous()
-    css_ms = _event_ms(
-        lambda: arma_ne._css_launch(cprm_t, cy_t, None, p, q, icpt), 20)
-    css_plain_ms = _event_ms(
-        lambda: arma_ne._packed_plain(cprm_t, cy_t, None, p, q, icpt,
-                                      grad=False), 3)
-    c_bound_s, c_bound_by, c_bytes, c_flops = css_bound_s(
-        cy.shape[0], cy.shape[1], p, q, icpt)
+    # the cost-only ARMA kernel at the ARIMA chunk shape: the main path's
+    # order and the largest AR order in registers, then one past them
+    css = []
+    for c_name, (p, q, icpt), cy, cparams, nv in css_cases(arima_panel,
+                                                         seed):
+        if nv is not None or (p, q, icpt) not in CSS_TIMED:
+            continue
+        cy_t = torch.from_numpy(cy).to(dev).T.contiguous()
+        cprm_t = torch.from_numpy(cparams).to(dev).T.contiguous()
+        css_ms = _event_ms(
+            lambda: arma_ne._css_launch(cprm_t, cy_t, None, p, q, icpt), 20)
+        css_plain_ms = _event_ms(
+            lambda: arma_ne._packed_plain(cprm_t, cy_t, None, p, q, icpt,
+                                          grad=False), 3)
+        c_bound_s, c_bound_by, c_bytes, c_flops = css_bound_s(
+            cy.shape[0], cy.shape[1], p, q, icpt)
+        css.append({"case": c_name, "S": cy.shape[0], "n_obs": cy.shape[1],
+                    "kernel_ms": css_ms, "plain_ms": css_plain_ms,
+                    "bound_us": c_bound_s * 1e6, "bound_by": c_bound_by,
+                    "bytes": c_bytes, "flops": c_flops,
+                    "share_of_bound": c_bound_s * 1e3 / css_ms})
     return {"phase": "hw_timing", "case": name, "S": S, "n_obs": n,
             "period": m, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_us": bound_s * 1e6, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
             "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
-            "css_case": c_name, "css_S": cy.shape[0],
-            "css_n_obs": cy.shape[1], "css_kernel_ms": css_ms,
-            "css_plain_ms": css_plain_ms, "css_bound_us": c_bound_s * 1e6,
-            "css_bound_by": c_bound_by, "css_bytes": c_bytes,
-            "css_flops": c_flops,
-            "css_share_of_bound": c_bound_s * 1e3 / css_ms}
+            "css": css}
 
 
 def box_fit_bound_s(S: int, n_steps: int, m: int, evaluations: int):
@@ -929,6 +1214,7 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     arma_ne._kernel_fn()
     arma_ne._css_kernel_fn()
+    arma_ne._lm_fns()
     hw_sse._kernel_fn()
     hw_sse._box_fns()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -955,11 +1241,15 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
     rows, max_abs = phase_kernel_vs_plain(panel, args.seed, dev)
     emit({"phase": "kernel_vs_plain", "cases": rows})
 
-    main_row, launches, arima_model = phase_main_path(panel, dev)
+    main_row, lm_launches, arima_model = phase_main_path(panel, dev)
     emit(main_row)
 
-    timing = phase_timing(panel, args.seed, dev)
+    lm_chunk = first_chunk_init(panel, dev)
+    timing = phase_timing(panel, args.seed, dev, lm_chunk)
     emit(timing)
+
+    lm_row = phase_lm_fit_vs_route(lm_chunk, timing["kernel_ms"], dev)
+    del lm_chunk
 
     css_rows, css_max_abs = phase_css_cost_vs_plain(panel, args.seed, dev)
     emit({"phase": "css_cost_vs_plain", "cases": css_rows})
@@ -976,11 +1266,26 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
 
     fit_row = phase_hw_fit_vs_solver(hw_panel, hw_timing["kernel_ms"], dev)
 
+    css = hw_timing["css"][0]       # the main path's order, (2,1,2)+c
     emit({"kernels": [{
+        "name": "arma_lm_fit", "route": "cuda",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
+        "replaces_solver": "spark_timeseries_tpu/ops/pallas_arma.py:463 "
+                           "(fit_css_lm)",
+        "launches": lm_launches,
+        # lanes stopped by the iteration cap end anywhere along a ridge
+        "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
+        "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
+        "plain_lanes": lm_row["plain_lanes"],
+        "bound_ms": lm_row["bound_ms"], "bound_by": lm_row["bound_by"],
+        "library_ms": None}, {
         "name": "arma_ne", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
-        "launches": launches, "max_abs_err": max_abs,
+        "launches": main_row["normal_equations_launches"],
+        "route_launches": lm_row["route_arma_ne_launches"],
+        "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_us"] / 1e3,
         "bound_by": timing["bound_by"], "library_ms": None}, {
@@ -988,14 +1293,14 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
         "replaces": "docs/experiments/arma_pallas.py:67",
         "launches": css_launches, "max_abs_err": css_max_abs,
-        "ms": hw_timing["css_kernel_ms"],
-        "plain_ms": hw_timing["css_plain_ms"],
-        "bound_ms": hw_timing["css_bound_us"] / 1e3,
-        "bound_by": hw_timing["css_bound_by"], "library_ms": None}, {
+        "ms": css["kernel_ms"], "plain_ms": css["plain_ms"],
+        "bound_ms": css["bound_us"] / 1e3,
+        "bound_by": css["bound_by"], "library_ms": None}, {
         "name": "hw_sse", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
-        "launches": fit_row["solver_route_hw_sse_launches"],
+        "launches": hw_row["hw_sse_launches"],
+        "route_launches": fit_row["solver_route_hw_sse_launches"],
         "max_abs_err": hw_max_abs,
         "ms": hw_timing["kernel_ms"], "plain_ms": hw_timing["plain_ms"],
         "bound_ms": hw_timing["bound_us"] / 1e3,

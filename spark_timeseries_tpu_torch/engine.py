@@ -88,7 +88,7 @@ def _fit_values(family: str, statics: tuple, values: torch.Tensor,
                 warn: bool = False, stats: Optional[dict] = None):
     """One batched fit of ``values`` on its own device.  NaN-padded lanes
     are left-aligned and fitted against their valid windows; NaN inside a
-    window raises.  ``stats`` receives the Holt-Winters solver's counts."""
+    window raises.  ``stats`` receives the solver's counts."""
     from .models import arima, autoregression, holt_winters
 
     if family == "holt_winters":
@@ -102,7 +102,7 @@ def _fit_values(family: str, statics: tuple, values: torch.Tensor,
         p, d, q, icpt, method, max_iter = statics
         return arima.fit(p, d, q, values, include_intercept=icpt,
                          method=method, max_iter=max_iter, warn=warn,
-                         n_valid=n_valid, device=values.device)
+                         n_valid=n_valid, device=values.device, stats=stats)
     max_lag, no_icpt = statics
     return autoregression.fit(values, max_lag, no_intercept=no_icpt,
                               n_valid=n_valid)
@@ -138,10 +138,11 @@ class StreamResult(NamedTuple):
 
     ``models`` is None unless ``collect=True`` (then per-chunk host models
     in series order, padding lanes sliced off).  ``stats`` holds
-    ``chunk_size``, ``lm_iterations`` (the LM loop's iterations per fitted
-    arima chunk; the ARMA kernel runs once more than that per chunk),
-    for holt_winters per fitted chunk ``box_iterations`` (the chunk's most
-    iterations of a lane), ``lane_evaluations`` (the value-and-grad passes
+    ``chunk_size``, per fitted arima chunk that runs the LM fit
+    ``lm_iterations`` (the most iterations of a lane) and
+    ``lm_fit_launches`` (launches of the LM-fit kernel: 1 on CUDA, 0 on
+    the CPU), for holt_winters per fitted chunk ``box_iterations`` (the
+    chunk's most iterations of a lane), ``lane_evaluations`` (the value-and-grad passes
     its lanes needed, summed) and ``box_fit_launches`` (1 per chunk on
     CUDA, 0 on the CPU), and on the CPU ``value_and_grad_calls`` (the
     plain solver's calls; the card's fit makes none), then
@@ -294,6 +295,7 @@ class FitEngine:
         failures: List[Dict[str, Any]] = []
         collected: Dict[int, Tuple[int, Any]] = {}
         lm_iterations: List[int] = []
+        lm_fit_launches: List[int] = []
         hw_stats: Dict[str, List[int]] = {
             "box_iterations": [], "lane_evaluations": [],
             "box_fit_launches": []}
@@ -359,6 +361,7 @@ class FitEngine:
                 conv += counts[0]
                 if lm_path:
                     lm_iterations.append(counts[1])
+                    lm_fit_launches.append(solver.get("lm_fit_launches", 0))
                 if family == "holt_winters":
                     hw_stats["box_iterations"].append(counts[1])
                     hw_stats["lane_evaluations"].append(counts[2])
@@ -380,6 +383,7 @@ class FitEngine:
 
         stats: Dict[str, Any] = {"chunk_size": chunk,
                                  "lm_iterations": lm_iterations,
+                                 "lm_fit_launches": lm_fit_launches,
                                  "device": str(dev)}
         if family == "holt_winters":
             stats.update(hw_stats)

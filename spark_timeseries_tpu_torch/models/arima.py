@@ -349,16 +349,16 @@ def fit(p: int, d: int, q: int, ts,
         user_init_params=None, warn: bool = True,
         max_iter: Optional[int] = None, retry=None,
         n_valid=None, objective: str = "css",
-        device=None) -> ARIMAModel:
+        device=None, stats: Optional[dict] = None) -> ARIMAModel:
     """Fit an ARIMA(p, d, q) by conditional-sum-of-squares maximum
     likelihood with the batched Levenberg-Marquardt solver.
 
     ``ts`` may be ``(n,)`` or ``(n_series, n)`` (array-like or tensor);
     the whole panel fits in one batched solve on ``device`` (``None``
     means CUDA, which runs float32 and raises without a card; pass
-    ``device="cpu"`` for the CPU, float32 or float64).  Each LM iteration
-    builds the normal equations with ``ops.arma_ne`` — the CUDA kernel on
-    the card.
+    ``device="cpu"`` for the CPU, float32 or float64).  The LM fit is
+    ``ops.arma_ne.fit_css_lm``: on the card one launch of its CUDA kernel
+    runs every lane's whole fit.
 
     ``q == 0`` (without ``user_init_params``) is the AR fast path: a
     direct OLS, every finite lane converged in 0 iterations.  NaN-padded
@@ -372,6 +372,10 @@ def fit(p: int, d: int, q: int, ts,
     as in the JAX package's LM solver.  ``diagnostics.fun`` is the
     residual sum of squares on the LM path and the negative CSS log
     likelihood on the AR fast path, as in the JAX package.
+
+    ``stats`` (a dict), when the fit runs the LM solver, receives
+    ``lm_fit_launches``: the LM-fit kernel's launches (1 on CUDA, 0 on the
+    CPU).
 
     Not ported yet (raise ``NotImplementedError``): ``method`` css-cgd
     and css-bobyqa, ``retry``, and ``objective="exact"``.
@@ -475,6 +479,8 @@ def fit(p: int, d: int, q: int, ts,
         init.reshape(-1, dim), diffed.reshape(-1, diffed.shape[-1]), p, q,
         icpt, tol=tol, max_iter=mi,
         n_valid=None if nv is None else nv.reshape(-1))
+    if stats is not None:
+        stats["lm_fit_launches"] = 1 if x.is_cuda else 0
     res = MinimizeResult(x.reshape(*lanes, dim), f.reshape(lanes),
                          conv.reshape(lanes), n_iter.reshape(lanes))
 

@@ -1,27 +1,36 @@
-"""Fused ARMA normal equations and the batched LM solver around them
-(counterpart of ``spark_timeseries_tpu/ops/pallas_arma.py``).
+"""Fused ARMA normal equations and the CSS Levenberg-Marquardt fit around
+them (counterpart of ``spark_timeseries_tpu/ops/pallas_arma.py``).
 
 Every Levenberg-Marquardt iteration of the ARIMA CSS fit needs, per lane,
-``(JᵀJ, Jᵀr, sse)`` of the one-step residuals.  On a CUDA tensor
-:func:`normal_equations` launches the hand-written kernel
-``csrc/arma_ne.cu`` (the port of the Pallas kernel
-``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``); on a CPU tensor
-it runs :func:`normal_equations_plain`, the same arithmetic written as a
-Python loop over time steps on the lane batch.  There is no fallback
-between the two: a kernel that fails to build or launch raises.
+``(JᵀJ, Jᵀr, sse)`` of the one-step residuals.  Three entry points run
+that pass, each a hand-written kernel of ``csrc/arma_ne.cu`` on a CUDA
+tensor and a plain PyTorch version on a CPU tensor, with no fallback
+between the two (a kernel that fails to build or launch raises):
 
-The kernel takes the panel time-major (``(n_obs, S)``, so a warp's loads
-at one step are contiguous); :func:`fit_css_lm` transposes the panel once
-before its loop, as the Pallas solver blocks it once up front.  What
-bounds the kernel on the H100 is written in the source note of
-``csrc/arma_ne.cu``.
+- :func:`normal_equations`, one pass (``arma_ne_kernel``, the port of the
+  Pallas kernel ``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``;
+  plain: :func:`normal_equations_plain`, the same arithmetic written as a
+  Python loop over time steps on the lane batch);
+- :func:`fit_css_lm`, the whole LM fit of a panel (``arma_lm_fit_kernel``:
+  one launch that runs every lane's solver state machine on the card;
+  plain: :func:`fit_css_lm_plain`, the batched LM loop over the plain
+  pass).  :func:`fit_css_lm_route` runs the same batched loop over
+  :func:`normal_equations`, one kernel launch per iteration: the route the
+  LM-fit kernel is held against.  The ARIMA fit runs :func:`fit_css_lm`;
+- :func:`css_cost`, the CSS cost alone (``arma_css_kernel``; plain:
+  :func:`css_cost_plain`).
+
+The kernels take the panel time-major (``(n_obs, S)``, so a warp's loads
+at one step are contiguous); the fits transpose the panel once, as the
+Pallas solver blocks it once up front.  What bounds the kernels on the
+H100 is written in the source note of ``csrc/arma_ne.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -311,40 +320,52 @@ def css_cost_plain(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
                      y, p, q, icpt, n_valid)
 
 
-def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
-               icpt: int, tol: float = 1e-6, max_iter: int = 50,
-               mask: Optional[torch.Tensor] = None,
-               n_valid: Optional[torch.Tensor] = None):
-    """Panel-batched Levenberg-Marquardt on the CSS residuals, the normal
-    equations from :func:`normal_equations`' dispatch (the kernel on
-    CUDA).  A line-for-line port of the state machine of
-    ``pallas_arma.fit_css_lm``: Marquardt-scaled damping, trial-point
-    normal equations kept on accept, the pinned exit testing the
-    pre-update λ, per-lane ``done`` with finished lanes frozen.
 
-    ``x0 (S, k)``, ``y (S, n)``; returns ``(x, fun, converged, n_iter)``
-    with per-lane shapes.  The loop test ``~all(done) & it < max_iter``
-    reads one bool from the device per iteration; the kernel is launched
-    once up front and once per iteration."""
+# ---------------------------------------------------------------------------
+# the CSS Levenberg-Marquardt fit (the port of pallas_arma.fit_css_lm)
+# ---------------------------------------------------------------------------
+
+# threads a block of the LM-fit kernel (PERF.md: on the H100, 128 and 256
+# ran the 131072-lane chunk within 2 % of each other, 64 1-15 % slower)
+LM_FIT_THREADS = 128
+
+
+def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
+    """Validated ``(x0, mask, n_valid)`` of an LM fit, cast to ``y``'s
+    dtype and with ``x0`` masked."""
     S, k = x0.shape
     S_y, n_obs = y.shape
     if S != S_y:
         raise ValueError(
             f"x0 has {S} lanes but the panel has {S_y} series (the "
             f"candidate-grid form is not ported yet)")
+    if k != icpt + p + q or (mask is not None and mask.shape != (S, k)) \
+            or (n_valid is not None and n_valid.shape != (S,)):
+        raise ValueError(
+            f"shape mismatch: x0 {tuple(x0.shape)} (expected "
+            f"{(S, icpt + p + q)}), mask "
+            f"{None if mask is None else tuple(mask.shape)}, n_valid "
+            f"{None if n_valid is None else tuple(n_valid.shape)}")
     _check_window(n_obs, p, q)
     x0 = x0.to(y.dtype)
     if mask is not None:
         mask = mask.to(y.dtype)
         x0 = x0 * mask
-    y_t = y.T.contiguous()                  # (n_obs, S), once per fit
     nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    return x0, mask, nv
+
+
+def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid):
+    """The batched LM loop with the normal equations from ``packed_fn``."""
+    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
+    S, k = x0.shape
+    y_t = y.T.contiguous()                  # (n_obs, S), once per fit
     eye = torch.eye(k, dtype=y.dtype, device=y.device)
 
     def ne(x):
         if mask is not None:
             x = x * mask
-        res = _unpack(_packed(x.T.contiguous(), y_t, nv, p, q, icpt), k)
+        res = _unpack(packed_fn(x.T.contiguous(), y_t, nv, p, q, icpt), k)
         return _masked_ne(*res, mask) if mask is not None else res
 
     x = x0
@@ -382,3 +403,125 @@ def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
         done = done | (newly & active)
         it += 1
     return x, f, done, it_lanes
+
+
+def fit_css_lm_plain(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
+                     icpt: int, tol: float = 1e-6, max_iter: int = 50,
+                     mask: Optional[torch.Tensor] = None,
+                     n_valid: Optional[torch.Tensor] = None):
+    """:func:`fit_css_lm` as plain tensor ops, on any device and float
+    dtype — the version the kernel is held against: the batched LM loop
+    over :func:`normal_equations_plain`'s pass."""
+    return _lm_loop(_packed_plain, x0, y, p, q, icpt, tol, max_iter, mask,
+                    n_valid)
+
+
+def fit_css_lm_route(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
+                     icpt: int, tol: float = 1e-6, max_iter: int = 50,
+                     mask: Optional[torch.Tensor] = None,
+                     n_valid: Optional[torch.Tensor] = None):
+    """The same batched LM loop over :func:`normal_equations`' dispatch:
+    on CUDA one ``arma_ne`` kernel launch up front and one per iteration,
+    with the damped solves and updates as tensor ops and one host sync
+    per iteration for the loop test.  The comparison route of the LM-fit
+    kernel; on the CPU it equals :func:`fit_css_lm_plain`."""
+    return _lm_loop(_packed, x0, y, p, q, icpt, tol, max_iter, mask,
+                    n_valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_fns():
+    lib = _build.library("arma_ne")
+    config = lib.arma_lm_fit_config
+    config.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    config.restype = ctypes.c_int
+    launch = lib.arma_lm_fit_launch
+    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return config, launch
+
+
+class LmFitConfig(NamedTuple):
+    """The LM-fit kernel's launch (a thread a lane): threads a block,
+    blocks, resident blocks per SM, SMs, registers and spill bytes a
+    thread."""
+    threads: int
+    blocks: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def lm_fit_config(S: int, n_obs: int, p: int, q: int, icpt: int,
+                  ragged: bool, device: torch.device,
+                  threads: int = LM_FIT_THREADS) -> LmFitConfig:
+    """How :func:`fit_css_lm` launches ``S`` lanes on ``device``'s card."""
+    config, _ = _lm_fns()
+    cfg = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = config(S, n_obs, p, q, icpt, int(ragged), threads, cfg)
+    if rc != 0:
+        raise RuntimeError(
+            f"arma_lm_fit configuration failed for ARMA({p},{q}) "
+            f"icpt={icpt} S={S} threads={threads}: "
+            + ("unsupported arguments" if rc < 0 else f"CUDA error {rc}"))
+    return LmFitConfig(threads, *cfg)
+
+
+def _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+               threads: int = LM_FIT_THREADS):
+    """Launch the LM-fit kernel on the current stream with ``threads`` a
+    block (not synchronised); returns ``(x, fun, converged, n_iter)``."""
+    check_kernel_order(p, q, icpt)
+    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
+    S, k = x0.shape
+    n_obs = y.shape[1]
+    x0_t = x0.T.contiguous()
+    y_t = y.T.contiguous()
+    mask_t = None if mask is None else mask.T.contiguous()
+    _build.check_inputs([y_t, x0_t] + [t for t in (mask_t, nv)
+                                       if t is not None], "ARMA LM fit")
+    dev = y.device
+    x = torch.empty((k, S), dtype=torch.float32, device=dev)
+    fun = torch.empty((S,), dtype=torch.float32, device=dev)
+    converged = torch.empty((S,), dtype=torch.bool, device=dev)
+    n_iter = torch.empty((S,), dtype=torch.int32, device=dev)
+    _, launch = _lm_fns()
+    _build.launch(launch, dev, x0_t.data_ptr(), y_t.data_ptr(),
+                  0 if nv is None else nv.data_ptr(),
+                  0 if mask_t is None else mask_t.data_ptr(), x.data_ptr(),
+                  fun.data_ptr(), converged.data_ptr(), n_iter.data_ptr(), S,
+                  n_obs, p, q, icpt, float(tol), int(max_iter), threads,
+                  what=f"arma_lm_fit kernel launch failed for ARMA({p},{q}) "
+                       f"icpt={icpt} S={S} n_obs={n_obs} threads={threads}")
+    fit_css_lm.launches += 1
+    return x.T, fun, converged, n_iter
+
+
+def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
+               icpt: int, tol: float = 1e-6, max_iter: int = 50,
+               mask: Optional[torch.Tensor] = None,
+               n_valid: Optional[torch.Tensor] = None):
+    """Panel-batched Levenberg-Marquardt on the CSS residuals: per lane
+    the state machine of ``pallas_arma.fit_css_lm`` (Marquardt-scaled
+    damping, trial-point normal equations kept on accept, the pinned exit
+    testing the pre-update λ, finished lanes frozen, at most ``max_iter``
+    iterations).
+
+    ``x0 (S, k)``, ``y (S, n)``; returns ``(x, fun, converged, n_iter)``
+    with per-lane shapes.  ``mask (S, k)`` of 0/1 freezes parameter slots
+    (the objective ``r(x ∘ mask)``); ``n_valid (S,)`` restricts each lane
+    to its left-aligned valid window.
+
+    A CUDA tensor launches the LM-fit kernel of ``csrc/arma_ne.cu`` once
+    for the whole fit (float32, ``p, q <= 3``; anything else raises) and
+    adds one to ``fit_css_lm.launches``; a CPU tensor runs
+    :func:`fit_css_lm_plain`."""
+    if y.is_cuda:
+        return _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)
+    return fit_css_lm_plain(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)
+
+
+fit_css_lm.launches = 0

@@ -3,10 +3,13 @@
 ``normal_equations_plain`` (the CUDA kernel's plain twin, what a CPU
 tensor runs) is held against ``arima._arma_normal_eqs`` at float64 and
 against the Pallas kernel in interpret mode at float32;
-``fit_css_lm`` against the Pallas LM solver and the XLA LM route;
-``css_cost_plain`` (the cost-only kernel's plain twin) against the JAX
-residuals and the archived Pallas ``_css_kernel`` in interpret mode.  The
-CUDA kernels themselves run only on a card (``tests/test_torch_cuda.py``).
+``fit_css_lm`` against the Pallas LM solver and the XLA LM route, over
+every order the LM-fit kernel instantiates; ``fit_css_lm_plain`` (the
+LM-fit kernel's plain twin) lane by lane, since the kernel runs each lane
+alone; ``css_cost_plain`` (the cost-only kernel's plain twin) against the
+JAX residuals and the archived Pallas ``_css_kernel`` in interpret mode.
+The CUDA kernels themselves run only on a card
+(``tests/test_torch_cuda.py``).
 """
 
 import importlib.util
@@ -21,7 +24,8 @@ import torch
 from spark_timeseries_tpu.models import arima as jarima
 from spark_timeseries_tpu.ops import pallas_arma
 from spark_timeseries_tpu.ops.optimize import minimize_least_squares
-from spark_timeseries_tpu_torch.models.arima import ARIMAModel
+from spark_timeseries_tpu_torch.models.arima import (ARIMAModel,
+                                                      hannan_rissanen_init)
 from spark_timeseries_tpu_torch.ops import arma_ne
 
 torch.set_num_threads(1)
@@ -120,12 +124,18 @@ def test_fit_css_lm_matches_pallas_solver_and_xla_route():
     assert np.mean(rel < 1e-3) >= 0.95
 
     # float64: against the XLA LM route arima.fit takes on the CPU
+    _check_f64_lm_against_xla(init, y, p, q, 1)
+
+
+def _check_f64_lm_against_xla(init, y, p, q, icpt):
+    """The port's LM (on the CPU: the plain loop) against the JAX
+    package's LM over ``_arma_normal_eqs``, both in float64."""
     x64, f64, done64, it64 = arma_ne.fit_css_lm(
-        torch.from_numpy(init), torch.from_numpy(y), p, q, 1, tol=1e-10)
+        torch.from_numpy(init), torch.from_numpy(y), p, q, icpt, tol=1e-10)
     res = minimize_least_squares(
         None, jnp.asarray(init), jnp.asarray(y), max_iter=50,
         normal_eqs_fn=lambda prm, yy: jarima._arma_normal_eqs(
-            prm, yy, p, q, 1))
+            prm, yy, p, q, icpt))
     # identical decisions at float64 (the solvers differ only in which x
     # the step-size exit is scaled by, a 1e-10-relative test)
     assert np.mean(done64.numpy() == np.asarray(res.converged)) >= 0.95
@@ -137,10 +147,118 @@ def test_fit_css_lm_matches_pallas_solver_and_xla_route():
     # the objective is compared where the MA part is invertible: a lane
     # that runs off to a non-invertible point reaches SSEs of 1e100+,
     # where a 1e-8 move of x changes the SSE by orders of magnitude
-    sane = same & ARIMAModel(p, 0, q, x64).is_invertible()
+    sane = same & ARIMAModel(p, 0, q, x64, bool(icpt)).is_invertible()
     assert sane.mean() > 0.3
     np.testing.assert_allclose(f64.numpy()[sane], np.asarray(res.fun)[sane],
                                rtol=1e-9)
+
+
+def _arma_panel(rng, S, n, phi, theta, c):
+    """ARMA(len(phi), len(theta)) draws with intercept ``c``."""
+    e = rng.normal(size=(S, n + 16))
+    y = np.zeros_like(e)
+    for t in range(3, e.shape[1]):
+        y[:, t] = c + e[:, t]
+        for j, ph in enumerate(phi):
+            y[:, t] += ph * y[:, t - j - 1]
+        for m, th in enumerate(theta):
+            y[:, t] += th * e[:, t - m - 1]
+    return y[:, 16:]
+
+
+# orders the LM-fit kernel instantiates beyond (2, 2) with intercept: the
+# smallest, pure MA and pure AR of the largest order, the largest.  The
+# (3, 3) draws have AR and MA roots far apart (no near-common factor), so
+# the fit is identified and the float64 decisions stay away from the
+# step-size exit, where the two solvers differ
+@pytest.mark.parametrize("p,q,icpt,phi,theta", [
+    (1, 1, 0, (0.5,), (0.3,)),
+    (0, 3, 1, (), (0.4, 0.2, 0.1)),
+    (3, 0, 1, (0.3, 0.2, 0.1), ()),
+    (3, 3, 1, (0.6, -0.4, 0.25), (-0.5, 0.35, 0.3))])
+def test_fit_css_lm_matches_xla_lm_over_orders(p, q, icpt, phi, theta):
+    rng = np.random.default_rng(9)
+    y = _arma_panel(rng, 64, 96, phi, theta, float(icpt))
+    init = np.asarray(jarima.hannan_rissanen_init(p, q, jnp.asarray(y),
+                                                  bool(icpt)))
+    _check_f64_lm_against_xla(init, y, p, q, icpt)
+
+
+def _lm_case(mode, dtype):
+    """A small panel in ``mode`` whose lanes stop at different iterations
+    (starts ever further from the Hannan-Rissanen init; some reach the
+    cap of 40): x0, y, mask, n_valid."""
+    rng = np.random.default_rng(10)
+    S, n = 8, 48
+    y = _panel(rng, S, n)
+    mask = nv = None
+    if mode == "ragged":
+        nv = rng.integers(20, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+        nv = torch.from_numpy(nv)
+    if mode == "masked":
+        mask = torch.from_numpy(
+            (rng.uniform(size=(S, 5)) > 0.3).astype(np.float64)).to(dtype)
+    y = torch.from_numpy(y).to(dtype)
+    x0 = hannan_rissanen_init(2, 2, y, True, n_valid=nv) + torch.from_numpy(
+        rng.normal(size=(S, 5)) * np.linspace(0, 0.6, S)[:, None]).to(dtype)
+    return x0, y, mask, nv
+
+
+@pytest.mark.parametrize("mode", ["dense", "ragged", "masked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fit_css_lm_plain_lanes_are_independent(dtype, mode):
+    # the LM-fit kernel runs each lane's fit alone, which computes the
+    # batched loop's function only if a lane's result does not depend on
+    # the others: it must not, bit for bit
+    x0, y, mask, nv = _lm_case(mode, dtype)
+    tol = 1e-10 if dtype == torch.float64 else 1e-6
+    kw = dict(tol=tol, max_iter=40)
+    full = arma_ne.fit_css_lm_plain(x0, y, 2, 2, 1, mask=mask, n_valid=nv,
+                                    **kw)
+    assert len(set(full[3].tolist())) > 3           # lanes part early
+    for s in range(y.shape[0]):
+        one = slice(s, s + 1)
+        alone = arma_ne.fit_css_lm_plain(
+            x0[one], y[one], 2, 2, 1, mask=None if mask is None
+            else mask[one], n_valid=None if nv is None else nv[one], **kw)
+        for got, want in zip(alone, full):
+            assert torch.equal(got, want[one])
+
+
+def test_fit_css_lm_route_equals_plain_on_cpu():
+    x0, y, _, nv = _lm_case("ragged", torch.float32)
+    before = (arma_ne.fit_css_lm.launches,
+              arma_ne.normal_equations.launches)
+    plain = arma_ne.fit_css_lm_plain(x0, y, 2, 2, 1, n_valid=nv)
+    route = arma_ne.fit_css_lm_route(x0, y, 2, 2, 1, n_valid=nv)
+    got = arma_ne.fit_css_lm(x0, y, 2, 2, 1, n_valid=nv)
+    # no kernel here
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == before
+    for a, b, c in zip(route, got, plain):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    with pytest.raises(ValueError, match="lanes"):
+        arma_ne.fit_css_lm(x0[:3], y, 2, 2, 1)
+
+
+@pytest.mark.parametrize("bad", ["x0 narrow", "x0 wide", "mask", "n_valid"])
+def test_fit_css_lm_rejects_mismatched_shapes(bad):
+    # the same checks guard the LM-fit kernel, which would read past a
+    # buffer of the wrong shape
+    x0, y, _, nv = _lm_case("ragged", torch.float32)
+    kw = dict(n_valid=nv)
+    if bad == "x0 narrow":
+        x0 = x0[:, :4]
+    if bad == "x0 wide":
+        x0 = torch.cat([x0, x0[:, :1]], dim=1)
+    if bad == "mask":
+        kw["mask"] = torch.ones_like(x0[:, :4])
+    if bad == "n_valid":
+        kw["n_valid"] = nv[:5]
+    for fit in (arma_ne.fit_css_lm, arma_ne.fit_css_lm_route):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            fit(x0, y, 2, 2, 1, **kw)
 
 
 def test_cpu_tensor_runs_the_plain_version():
@@ -177,10 +295,16 @@ def _load_arma_pallas():
     return mod
 
 
+# (4, 2, 1) and (5, 3, 0): AR orders the cost-only kernel holds in
+# registers beyond the normal equations' p <= 3; (7, 1, 1): past them, its
+# runtime-p form
 @pytest.mark.parametrize("p,q,icpt,ragged", [(2, 2, 1, False),
                                              (2, 2, 1, True),
                                              (5, 0, 1, False),
-                                             (1, 5, 0, True)])
+                                             (1, 5, 0, True),
+                                             (4, 2, 1, True),
+                                             (5, 3, 0, False),
+                                             (7, 1, 1, True)])
 def test_css_cost_plain_matches_jax_residuals(p, q, icpt, ragged):
     rng = np.random.default_rng(5)
     S, n = 40, 64

@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: the CUDA kernels (ARMA normal equations,
-CSS cost, Holt-Winters SSE value and gradient, Holt-Winters box fit)
-against their plain versions, and the fits and the streaming engine on
-CUDA against the same calls on the CPU.
+ARMA LM fit, CSS cost, Holt-Winters SSE value and gradient, Holt-Winters
+box fit) against their plain versions, and the fits and the streaming
+engine on CUDA against the same calls on the CPU.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -69,11 +69,11 @@ def test_kernel_matches_plain(cuda, p, q, icpt, ragged):
 def test_fit_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(5)
     y = np.cumsum(_panel(rng, 2048, 96), axis=1).astype(np.float32)
-    before = arma_ne.normal_equations.launches
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
     got = arima.fit(2, 1, 2, y, warn=False, device=cuda)
-    launches = arma_ne.normal_equations.launches - before
-    # once before the LM loop, once per iteration
-    assert launches == int(got.diagnostics.n_iter.max()) + 1
+    # the whole LM fit is one LM-fit kernel launch, and no single pass
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == (before[0] + 1, before[1])
     want = arima.fit(2, 1, 2, y, warn=False, device="cpu")
     conv = got.diagnostics.converged.cpu().numpy()
     w_conv = want.diagnostics.converged.numpy()
@@ -104,6 +104,188 @@ def test_stream_fit_on_cuda_matches_cpu(cuda):
     both = conv & w_conv
     dx = np.abs(coefs - w_coefs).max(axis=1)[both]
     assert np.mean(dx < 5e-3) >= 0.9
+
+
+# The LM-fit kernel runs arma_ne_kernel's pass and the batched LM loop's
+# arithmetic in the loop's order, so against that loop over
+# arma_ne_kernel (fit_css_lm_route) it may part only where a contraction
+# or a reduction rounds otherwise: at least LM_ROUTE_SHARE of lanes must
+# take the same iterations and end within 1e-5 of the same objective.
+# The plain pass rounds otherwise on every step (no FMA), so in float32
+# lanes part from it near the end of their fit, where the accept and
+# stop tests turn on the last bits of f; the route parts from it the same
+# way, so the kernel is held to the route: its shares against the plain
+# fit at most LM_PLAIN_MARGIN below the route's.
+LM_ROUTE_SHARE = 0.95
+LM_PLAIN_MARGIN = 0.1
+LM_PLAIN_LANES = 64
+LM_ORDERS = [(p, q, icpt) for p in range(4) for q in range(4)
+             for icpt in (0, 1) if p + q + icpt]
+
+
+def _assert_bitwise(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _lm_agreement(got, want):
+    """Shares of lanes with the same iteration count, with ``fun`` within
+    1e-5 relative (NaN matching NaN), and with the same converged flag."""
+    _, fun, conv, n_iter = got
+    same = (n_iter == want[3]).double().mean()
+    close = torch.isclose(fun.double(), want[1].double(), rtol=1e-5,
+                          atol=0.0, equal_nan=True).double().mean()
+    return (float(same), float(close),
+            float((conv == want[2]).double().mean()))
+
+
+def _lm_case(cuda, p, q, icpt, mode="dense", S=1000, n=90, seed=16):
+    rng = np.random.default_rng(seed)
+    y = _panel(rng, S, n)
+    k = icpt + p + q
+    x0 = torch.from_numpy((0.1 * rng.normal(size=(S, k))).astype(
+        np.float32)).to(cuda)
+    mask = nv = None
+    if mode == "ragged":
+        nv = rng.integers(20, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+        nv = torch.from_numpy(nv).to(cuda)
+    if mode == "masked":
+        mask = torch.from_numpy((rng.uniform(size=(S, k)) > 0.3).astype(
+            np.float32)).to(cuda)
+    return x0, torch.from_numpy(y.astype(np.float32)).to(cuda), mask, nv
+
+
+def _check_lm_against_route(cuda, p, q, icpt, mode, plain_lanes=0,
+                            **kw):
+    x0, y, mask, nv = _lm_case(cuda, p, q, icpt, mode)
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    got = arma_ne.fit_css_lm(x0, y, p, q, icpt, mask=mask, n_valid=nv, **kw)
+    torch.cuda.synchronize()
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == (before[0] + 1, before[1])
+    route = arma_ne.fit_css_lm_route(x0, y, p, q, icpt, mask=mask,
+                                     n_valid=nv, **kw)
+    shares = _lm_agreement(got, route)
+    print(f"ARMA({p},{q}) icpt={icpt} {mode} vs route {shares}")
+    assert min(shares[:2]) >= LM_ROUTE_SHARE
+    same = got[3] == route[3]
+    assert bool((got[2] == route[2])[same].all())
+    if mask is not None:         # frozen slots never move
+        assert bool((got[0][mask == 0] == 0).all())
+    if plain_lanes:
+        k = slice(0, plain_lanes)
+        plain = arma_ne.fit_css_lm_plain(
+            x0[k], y[k], p, q, icpt, mask=None if mask is None else mask[k],
+            n_valid=None if nv is None else nv[k], **kw)
+        g_shares = _lm_agreement([t[k] for t in got], plain)
+        r_shares = _lm_agreement([t[k] for t in route], plain)
+        print(f"ARMA({p},{q}) icpt={icpt} {mode} vs plain {g_shares}, "
+              f"route vs plain {r_shares}")
+        for g_share, r_share in zip(g_shares, r_shares):
+            assert g_share >= r_share - LM_PLAIN_MARGIN
+    return got, route
+
+
+@pytest.mark.parametrize("p,q,icpt", LM_ORDERS)
+def test_lm_fit_kernel_matches_route(cuda, p, q, icpt):
+    _check_lm_against_route(cuda, p, q, icpt, "dense")
+
+
+@pytest.mark.parametrize("mode", ["dense", "ragged", "masked"])
+@pytest.mark.parametrize("p,q,icpt", [(2, 2, 1), (3, 3, 1), (1, 0, 0)])
+def test_lm_fit_kernel_matches_route_and_plain(cuda, p, q, icpt, mode):
+    _check_lm_against_route(cuda, p, q, icpt, mode,
+                            plain_lanes=LM_PLAIN_LANES)
+
+
+def test_lm_fit_kernel_iteration_cap(cuda):
+    got, _ = _check_lm_against_route(cuda, 2, 2, 1, "dense", max_iter=3)
+    assert int(got[3].max()) == 3
+    x0, y, _, _ = _lm_case(cuda, 2, 2, 1)
+    x, fun, conv, n_iter = arma_ne.fit_css_lm(x0, y, 2, 2, 1, max_iter=0)
+    # no iterations: the start, evaluated once
+    assert bool((n_iter == 0).all()) and not bool(conv.any())
+    _assert_bitwise(x, x0)
+    _, _, sse = arma_ne.normal_equations(x0, y, 2, 2, 1)
+    _assert_bitwise(fun, sse)
+
+
+def test_lm_fit_kernel_grid_shapes(cuda):
+    # more lanes than the card holds resident threads, and a count that
+    # is no multiple of a block: every block size gives every lane the
+    # same result, which a lane fitted alone matches
+    S = 132 * 2048 + 37
+    x0, y, _, nv = _lm_case(cuda, 2, 2, 1, "ragged", S=S, n=40)
+    args = (x0, y, 2, 2, 1, 1e-6, 50, None, nv)
+    cfg = arma_ne.lm_fit_config(S, 40, 2, 2, 1, True, cuda, 64)
+    assert cfg.blocks * cfg.threads >= S > (cfg.blocks - 1) * cfg.threads
+    assert cfg.blocks > cfg.blocks_per_sm * cfg.sms
+    small = arma_ne._lm_launch(*args, threads=64)
+    large = arma_ne._lm_launch(*args, threads=256)
+    for a, b in zip(small, large):
+        _assert_bitwise(a, b)
+    last = slice(S - 1, S)
+    alone = arma_ne.fit_css_lm(x0[last], y[last], 2, 2, 1, n_valid=nv[last])
+    for a, b in zip(alone, small):
+        _assert_bitwise(a, b[last])
+
+
+def test_lm_fit_kernel_rejects(cuda):
+    x0, y, _, nv = _lm_case(cuda, 2, 2, 1, "ragged", S=64)
+    before = arma_ne.fit_css_lm.launches
+    with pytest.raises(ValueError, match="float32"):
+        arma_ne.fit_css_lm(x0.double(), y.double(), 2, 2, 1)
+    with pytest.raises(ValueError, match="p, q <= 3"):
+        arma_ne.fit_css_lm(x0.new_zeros((64, 6)), y, 4, 1, 1)
+    with pytest.raises(ValueError, match="lanes"):
+        arma_ne.fit_css_lm(x0[:32], y, 2, 2, 1)
+    # a parameter vector, mask or n_valid of the wrong shape never reaches
+    # the kernel, which would read past it
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0[:, :4], y, 2, 2, 1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0.new_zeros((64, 6)), y, 2, 2, 1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1, mask=torch.ones_like(x0[:, :4]))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1, n_valid=nv[:32])
+    assert arma_ne.fit_css_lm.launches == before
+
+
+def test_stream_fit_launches_lm_fit_once_per_chunk(cuda):
+    rng = np.random.default_rng(17)
+    y = np.cumsum(_panel(rng, 700, 64), axis=1).astype(np.float32)
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    res = FitEngine().stream_fit(y, "arima", chunk_size=256, p=2, d=1, q=2,
+                                 device=cuda)
+    assert not res.chunk_failures and res.n_chunks == 3
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == (before[0] + 3, before[1])
+    assert res.stats["lm_fit_launches"] == [1, 1, 1]
+    assert len(res.stats["lm_iterations"]) == 3
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_css_cost_kernel_every_order(cuda, ragged):
+    # every (P, Q) the cost-only kernel holds in registers, and two AR
+    # orders past them (its runtime-p form)
+    rng = np.random.default_rng(18)
+    S, n = 1000, 90
+    y = torch.from_numpy(_panel(rng, S, n).astype(np.float32)).to(cuda)
+    nv = torch.from_numpy(rng.integers(20, n + 1, size=S)).to(cuda) \
+        if ragged else None
+    orders = [(p, q) for p in range(6) for q in range(6)] + [(7, 1), (9, 4)]
+    for i, (p, q) in enumerate(orders):
+        icpt = 1 if p + q == 0 else i % 2
+        params = torch.from_numpy((0.1 * rng.normal(
+            size=(S, icpt + p + q))).astype(np.float32)).to(cuda)
+        before = arma_ne.css_cost.launches
+        got = arma_ne.css_cost(params, y, p, q, icpt, n_valid=nv)
+        want = arma_ne.css_cost_plain(params, y, p, q, icpt, n_valid=nv)
+        torch.cuda.synchronize()
+        assert arma_ne.css_cost.launches == before + 1
+        # float32 sums over ~90 steps
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
 
 
 def _hw_panel(rng, S, n, m):

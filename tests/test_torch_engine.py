@@ -50,6 +50,7 @@ def test_stream_fit_matches_jax_engine():
     # one LM loop per chunk, each at most the cap
     assert len(got.stats["lm_iterations"]) == 3
     assert max(got.stats["lm_iterations"]) <= 50
+    assert got.stats["lm_fit_launches"] == [0, 0, 0]    # no kernel here
     assert got.n_converged == want.n_converged
     coefs = np.concatenate([m.coefficients.numpy() for m in got.models])
     j_coefs = np.concatenate([np.asarray(m.coefficients)
