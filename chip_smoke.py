@@ -59,6 +59,23 @@ Phases, one JSON line each:
    lanes' evaluations, the kernel's operation bound, its warp efficiency
    and its slowest lane fitted alone; then the kernel against
    ``box_fit_plain`` on the card on the chunk's first 256 lanes.
+12. ``auto_fit_path``: ``models.arima.auto_fit_panel(panel, max_p=5,
+   max_d=2, max_q=5)`` on a 131072 x 128 float32 panel
+   (``synthetic_arima_panel`` at seed 3, the JAX package's auto-fit bench
+   panel at one chunk's size), once warm: its screen and refine must be
+   exactly two LM-fit launches in grid mode and no single pass; CUDA-event
+   times of KPSS, the HR init, the screen and the refine; the orders
+   histogram, the share of each d, the share of winners whose screen hit
+   its cap; the orders and coefficients of the first 256 series against a
+   float64 CPU run of the same function (a spawned process started after
+   the build).
+13. ``auto_grid_vs_route``: the LM-fit kernel in grid mode at the
+   screen's full inputs (36 x 131072 lanes over the unrepeated panel),
+   timed, with its op bound from the lanes' passes, its registers and
+   spills, warp efficiency and slowest lane alone; on the lanes of the
+   first 4096 series against ``fit_css_lm_route`` (the panel repeated 36
+   times, one ``arma_ne`` launch per iteration), and on those of the
+   first 64 against ``fit_css_lm_plain`` in float32 on the card.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs; for a kernel that only a comparison route launches,
@@ -179,6 +196,24 @@ LM_FUN_RTOL = 1e-5
 LL_TOL = 1e-5
 HW_CONVERGED_FLOOR = 90.0
 
+# the batched auto-ARIMA: the default grid (36 candidates) on the JAX
+# package's auto-fit bench panel (bench.py:190, bench_suite.py:390) at
+# one chunk's size
+AUTO_N_SERIES = 131072
+AUTO_SEED = 3
+AUTO_GRID = dict(max_p=5, max_d=2, max_q=5)
+AUTO_N_REF = 256          # series refitted on the CPU in float64
+# float32 on the card against float64 on the CPU: close AICs may rank
+# otherwise, and float32 coefficients sit ~1e-4-1e-3 from the float64
+# optimum along flat directions (the JAX package's own float32 and float64
+# auto-fits of this panel chose the same (p, d, q) on 98.4 % of series,
+# with a median max |Δcoef| of 9e-5 where they did).  A wrong kernel or
+# gather moves far more series
+AUTO_ORDERS_FLOOR = 0.90
+AUTO_COEF_MEDIAN = 1e-3
+AUTO_ROUTE_SERIES = 4096  # series whose 36 lanes the route refits
+AUTO_PLAIN_SERIES = 64    # series whose 36 lanes the plain LM refits
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -268,7 +303,8 @@ def ne_cases(panel: np.ndarray, seed: int):
             ("arima(2,1,2)+c", (2, 2, 1), diffed, False),
             ("arima(2,1,2)+c ragged", (2, 2, 1), diffed, True),
             ("arima(1,0,0)", (1, 0, 0), chunk, False),
-            ("arima(3,0,2)+c", (3, 2, 1), chunk, False)):
+            ("arima(3,0,2)+c", (3, 2, 1), chunk, False),
+            ("arima(5,1,5)+c", (5, 5, 1), diffed, False)):
         k = icpt + p + q
         params = (0.1 * rng.normal(size=(S, k))).astype(np.float32)
         cases.append((name, (p, q, icpt), y, params,
@@ -507,15 +543,27 @@ def phase_timing(panel, seed, dev, lm_chunk):
 
 
 def lm_fit_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int,
-                   passes: int):
-    """Least time of the LM fit of S dense lanes that needed ``passes``
-    normal-equations passes in all: the pass's flop a lane-step over the
-    fp32 rate, and y and x0 read once and x, fun, converged and n_iter
-    written once over the HBM rate; the larger wins."""
+                   passes, S_y=None, mask=None):
+    """Least time of the LM fit of S dense lanes over an ``S_y``-series
+    panel (default ``S``): the pass's flop a lane-step over the fp32 rate,
+    and y, x0 (and the mask) read once and x, fun, converged and n_iter
+    written once over the HBM rate; the larger wins.  ``passes`` is the
+    number of normal-equations passes in all, or with ``mask (S, k)`` each
+    lane's ``(S,)``: a masked lane needs only the flop of its own order
+    (its set intercept, AR and MA slots), since its masked columns are
+    multiplied by 0.  Returns ``(seconds, bound_by, bytes, flops)``."""
     k = icpt + p + q
-    n_bytes = 4 * S * (n_obs + k) + S * (4 * k + 4 + 1 + 4)
-    flops = ne_flops_per_step(p, q, icpt, False) * (n_obs - max(p, q)) \
-        * passes
+    n_bytes = 4 * ((S if S_y is None else S_y) * n_obs + S * k
+                   * (1 if mask is None else 2)) + S * (4 * k + 4 + 1 + 4)
+    steps = n_obs - max(p, q)
+    if mask is None:
+        flops = ne_flops_per_step(p, q, icpt, False) * steps * passes
+    else:
+        on = (mask != 0).long()
+        lane_flops = ne_flops_per_step(on[:, icpt:icpt + p].sum(1),
+                                       on[:, icpt + p:].sum(1),
+                                       on[:, :icpt].sum(1), False)
+        flops = int((lane_flops * passes.long()).sum()) * steps
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), n_bytes, flops
@@ -598,8 +646,8 @@ def phase_lm_fit_vs_route(lm_chunk, ne_kernel_ms, dev,
     # registers and spills of every instantiation (a lane per thread at
     # the default block size)
     regs = {}
-    for pp in range(4):
-        for qq in range(4):
+    for pp in range(6):
+        for qq in range(6):
             for ic, rg in ((0, False), (0, True), (1, False), (1, True)):
                 if pp + qq + ic:
                     cfg = arma_ne.lm_fit_config(S, n_obs, pp, qq, ic, rg,
@@ -1178,6 +1226,278 @@ def phase_hw_fit_vs_solver(hw_panel, sse_kernel_ms, dev, chunk=CHUNK,
     return row
 
 
+def _auto_ref_part(values: np.ndarray):
+    """The float64 CPU run of ``auto_fit_panel`` the card's orders are
+    held against (in a spawned process)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    fit = arima.auto_fit_panel(values, device="cpu", **AUTO_GRID)
+    return {"orders": fit.orders, "coefficients": fit.coefficients,
+            "aic": fit.aic, "seconds": time.perf_counter() - t0}
+
+
+def start_auto_ref(auto_panel: np.ndarray):
+    """Start the float64 CPU auto-fit of the first ``AUTO_N_REF`` series
+    in a spawned process; returns ``(pool, pending)``."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    pending = pool.apply_async(
+        _auto_ref_part, (auto_panel[:AUTO_N_REF].astype(np.float64),))
+    return pool, pending
+
+
+def phase_auto_fit_path(auto_panel, auto_ref, dev):
+    """The batched auto-ARIMA on the card, its stages timed apart by
+    wrapping the functions ``models.arima`` calls (the KPSS tests, the
+    two LM stages); the first LM call's inputs (the screen's) are kept
+    for ``auto_grid_vs_route``."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    # warm-up: the grid's kernels, allocator, cuBLAS (not counted)
+    arima.auto_fit_panel(auto_panel[:4096], device=dev, **AUTO_GRID)
+    marks, screen_args = [], []
+    real_kpss, real_lm = arima.kpsstest, arima.fit_css_lm
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def kpss(*args, **kw):
+        mark("kpss<")
+        out = real_kpss(*args, **kw)
+        mark("kpss>")
+        return out
+
+    def lm(*args, **kw):
+        if not screen_args:
+            screen_args.append((args, kw))
+        mark("lm<")
+        out = real_lm(*args, **kw)
+        mark("lm>")
+        return out
+
+    stats = {}
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    arima.kpsstest, arima.fit_css_lm = kpss, lm
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        fit = arima.auto_fit_panel(auto_panel, device=dev, stats=stats,
+                                   **AUTO_GRID)
+        mark("end")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        arima.kpsstest, arima.fit_css_lm = real_kpss, real_lm
+    launches = arma_ne.fit_css_lm.launches
+    ne_launches = arma_ne.normal_equations.launches
+    check(launches == 2 == stats["lm_fit_launches"],
+          f"auto_fit_panel launched the LM-fit kernel {launches} times, "
+          f"not twice (screen, refine)")
+    check(ne_launches == 0, f"auto_fit_panel launched the single-pass "
+                            f"kernel {ne_launches} times")
+    x0, y = screen_args[0][0][:2]
+    C = (AUTO_GRID["max_p"] + 1) * (AUTO_GRID["max_q"] + 1)
+    k = 1 + AUTO_GRID["max_p"] + AUTO_GRID["max_q"]
+    check(tuple(x0.shape) == (C * auto_panel.shape[0], k)
+          and tuple(y.shape) == auto_panel.shape,
+          f"the screen ran x0 {tuple(x0.shape)} over y {tuple(y.shape)}")
+
+    ev = dict((n, e) for n, e in marks if n in ("start", "end"))
+    kp = [e for n, e in marks if n.startswith("kpss")]
+    lm_ev = [e for n, e in marks if n.startswith("lm")]
+    steps = {"kpss": kp[0].elapsed_time(kp[-1]),
+             "hr_init": kp[-1].elapsed_time(lm_ev[0]),
+             "screen": lm_ev[0].elapsed_time(lm_ev[1]),
+             "refine": lm_ev[2].elapsed_time(lm_ev[3]),
+             "total": ev["start"].elapsed_time(ev["end"])}
+    steps["other"] = steps["total"] - sum(
+        steps[k] for k in ("kpss", "hr_init", "screen", "refine"))
+
+    orders = fit.orders
+    check(orders.shape == (auto_panel.shape[0], 3)
+          and fit.coefficients.shape == (auto_panel.shape[0], k),
+          f"orders {orders.shape}, coefficients {fit.coefficients.shape}")
+    finite = np.isfinite(fit.aic)
+    check(bool(np.isfinite(fit.coefficients[finite]).all()),
+          "non-finite coefficients on series with a finite AIC")
+    check(float(np.mean(finite)) >= 0.99,
+          f"only {np.mean(finite):.4f} of series got an admissible model")
+    hist = {}
+    for (p, _, q), c in zip(*np.unique(orders, axis=0, return_counts=True)):
+        hist[f"{p},{q}"] = hist.get(f"{p},{q}", 0) + int(c)
+    d_share = {str(d): float(np.mean(orders[:, 1] == d))
+               for d in range(AUTO_GRID["max_d"] + 1)}
+
+    # the float64 CPU run of the first series
+    pool, pending = auto_ref
+    t0 = time.perf_counter()
+    ref = pending.get(timeout=900)
+    waited = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    k = AUTO_N_REF
+    same = np.all(orders[:k] == ref["orders"], axis=1)
+    dcoef = np.abs(fit.coefficients[:k] - ref["coefficients"]).max(axis=1)
+    share = float(np.mean(same))
+    median = float(np.median(dcoef[same])) if same.any() else float("inf")
+    row = {"phase": "auto_fit_path", "n_series": auto_panel.shape[0],
+           "n_obs": auto_panel.shape[1], "seed": AUTO_SEED,
+           "grid": AUTO_GRID, "candidates": C, "wall_s": wall,
+           "series_per_s": auto_panel.shape[0] / wall,
+           "arma_lm_fit_launches": launches,
+           "arma_ne_launches": ne_launches, "steps_ms": steps,
+           "orders_pq_histogram": hist, "d_share": d_share,
+           "screen_capped_share": stats["screen_capped"],
+           "admissible_share": float(np.mean(finite)),
+           "ref_series": k, "ref_cpu_f64_s": ref["seconds"],
+           "ref_waited_s": waited,
+           "ref_orders_equal_share": share,
+           "ref_orders_floor": AUTO_ORDERS_FLOOR,
+           "ref_d_equal_share": float(np.mean(orders[:k, 1]
+                                              == ref["orders"][:, 1])),
+           "ref_median_max_abs_coef_diff": median,
+           "ref_p90_max_abs_coef_diff": float(np.quantile(dcoef[same], 0.9))
+           if same.any() else None,
+           "ref_coef_median_limit": AUTO_COEF_MEDIAN}
+    emit(row)     # before the checks, so a failed check leaves its numbers
+    check(share >= AUTO_ORDERS_FLOOR,
+          f"only {share:.3f} of {k} series chose the float64 CPU run's "
+          f"orders (floor {AUTO_ORDERS_FLOOR})")
+    check(median < AUTO_COEF_MEDIAN,
+          f"median max |Δcoef| {median:.3g} against the float64 CPU run "
+          f">= {AUTO_COEF_MEDIAN:g}")
+    return row, launches, screen_args[0]
+
+
+def phase_auto_grid_vs_route(screen, dev):
+    """The LM-fit kernel in grid mode at the screen's inputs: timed at
+    full size, and held against the route and the plain LM on the lanes
+    of the panel's first series."""
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    (x0, y, p, q, icpt), kw = screen[0][:5], screen[1]
+    mask, nv = kw["mask"], kw["n_valid"]
+    tol, iters = kw["tol"], kw["max_iter"]
+    S_y, n_obs = y.shape
+    S, k = x0.shape
+    C = S // S_y
+
+    def run(x, m, yy):
+        return arma_ne.fit_css_lm(x, yy, p, q, icpt, tol=tol,
+                                  max_iter=iters, mask=m, n_valid=nv)
+
+    ms = _event_ms(lambda: run(x0, mask, y), 3)
+    got = run(x0, mask, y)
+    cfg = arma_ne.lm_fit_config(S, n_obs, p, q, icpt, nv is not None, dev)
+    passes = (1 + got[3]).double()
+    total = int(passes.sum())
+    bound_s, bound_by, n_bytes, flops = lm_fit_bound_s(
+        S, n_obs, p, q, icpt, passes, S_y=S_y, mask=mask)
+    # every lane charged the padded order's step, as the kernel runs it
+    padded_s, _, _, padded_flops = lm_fit_bound_s(
+        S, n_obs, p, q, icpt, total, S_y=S_y)
+    padded_s = max(padded_s, n_bytes / PEAK_BYTES_S)
+    worst = int(got[3].argmax())
+    wl, ws = slice(worst, worst + 1), worst % S_y
+    worst_ms = _event_ms(lambda: arma_ne.fit_css_lm(
+        x0[wl], y[ws:ws + 1], p, q, icpt, tol=tol, max_iter=iters,
+        mask=mask[wl]), 3)
+
+    def lanes_of(n_series):
+        return (torch.arange(C, device=dev)[:, None] * S_y
+                + torch.arange(n_series, device=dev)).reshape(-1)
+
+    # the route, on the 36 lanes of each of the first AUTO_ROUTE_SERIES
+    r_lanes = lanes_of(AUTO_ROUTE_SERIES)
+    r_y = y[:AUTO_ROUTE_SERIES]
+    r_got = run(x0[r_lanes], mask[r_lanes], r_y)
+    arma_ne.normal_equations.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route = arma_ne.fit_css_lm_route(x0[r_lanes], r_y, p, q, icpt, tol=tol,
+                                     max_iter=iters, mask=mask[r_lanes])
+    torch.cuda.synchronize()
+    route_ms = (time.perf_counter() - t0) * 1e3
+    route_launches = arma_ne.normal_equations.launches
+    vs_route = _lm_agreement(r_got, route)
+    full_vs_sliced = all(torch.equal(torch.nan_to_num(a[r_lanes]),
+                                     torch.nan_to_num(b))
+                         for a, b in zip(got, r_got))
+
+    # the plain LM, float32 on the card, on the first AUTO_PLAIN_SERIES
+    pl = lanes_of(AUTO_PLAIN_SERIES)
+    p_idx = torch.searchsorted(r_lanes, pl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = arma_ne.fit_css_lm_plain(x0[pl], y[:AUTO_PLAIN_SERIES], p, q,
+                                     icpt, tol=tol, max_iter=iters,
+                                     mask=mask[pl])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_pl = [t[p_idx] for t in r_got]
+    vs_plain = _lm_agreement(got_pl, plain)
+    route_vs_plain = _lm_agreement([t[p_idx] for t in route], plain)
+    row = {"phase": "auto_grid_vs_route", "order": [p, q, icpt],
+           "lanes": S, "series": S_y, "candidates": C, "n_obs": n_obs,
+           "max_iter": iters, "tol": tol, "kernel_ms": ms,
+           "config": cfg._asdict(),
+           "lane_passes": {
+               "sum": total, "mean": float(passes.mean()),
+               "median": float(passes.median()),
+               "max": int(passes.max())},
+           "converged_share": float(got[2].double().mean()),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "bytes": n_bytes, "flops": flops,
+           "bytes_bound_ms": n_bytes / PEAK_BYTES_S * 1e3,
+           "share_of_bound": bound_s * 1e3 / ms,
+           "padded_bound_ms": padded_s * 1e3, "padded_flops": padded_flops,
+           "warp_efficiency": _warp_efficiency(
+               torch.nn.functional.pad(1 + got[3], (0, (-S) % 32))),
+           "slowest_lane_alone_ms": worst_ms,
+           "slowest_lane_passes": int(passes.max()),
+           "route_series": AUTO_ROUTE_SERIES, "route_lanes": len(r_lanes),
+           "route_ms": route_ms, "route_arma_ne_launches": route_launches,
+           "full_grid_equals_sliced_grid": full_vs_sliced,
+           "vs_route": vs_route, "vs_route_floor": LM_ROUTE_SHARE,
+           "vs_route_max_abs_x": _max_abs_x(r_got, route),
+           "plain_series": AUTO_PLAIN_SERIES, "plain_lanes": len(pl),
+           "plain_ms": plain_ms, "vs_plain": vs_plain,
+           "route_vs_plain": route_vs_plain,
+           "vs_plain_margin": LM_PLAIN_MARGIN,
+           "vs_plain_max_abs_x_same_iter_converged": _max_abs_x(
+               got_pl, plain, (got_pl[3] == plain[3]) & got_pl[2]
+               & plain[2])}
+    emit(row)     # before the checks, so a failed check leaves its numbers
+    check(full_vs_sliced, "the grid's lanes fitted with the whole panel "
+                          "differ from the same lanes over its first "
+                          "series")
+    for key, floor in zip(("n_iter_equal", "fun_within_1e-5"),
+                          LM_ROUTE_SHARE):
+        check(vs_route[key] >= floor,
+              f"grid LM-fit kernel vs route: {key} share "
+              f"{vs_route[key]:.4f} < {floor}")
+        floor = route_vs_plain[key] - LM_PLAIN_MARGIN
+        check(vs_plain[key] >= floor,
+              f"grid LM-fit kernel vs plain: {key} share "
+              f"{vs_plain[key]:.4f} < the route's {route_vs_plain[key]:.4f}"
+              f" - {LM_PLAIN_MARGIN}")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1223,14 +1543,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     hw_panel = synthetic_hw_panel(N_SERIES, HW_N_OBS, HW_PERIOD, args.seed)
     refit = start_hw_refit(hw_panel)
+    auto_panel = synthetic_arima_panel(AUTO_N_SERIES, N_OBS, AUTO_SEED)
+    auto_ref = start_auto_ref(auto_panel)
     try:
-        return _run(args, dev, smi, hw_panel, refit, t0)
+        return _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
+                    t0)
     finally:
-        refit[0].terminate()
-        refit[0].join()
+        for pool, _ in (refit, auto_ref):
+            pool.terminate()
+            pool.join()
 
 
-def _run(args, dev, smi, hw_panel, refit, t0) -> int:
+def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
+         t0) -> int:
     import torch
 
     panel = synthetic_arima_panel(N_SERIES, N_OBS, args.seed)
@@ -1266,10 +1591,15 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
 
     fit_row = phase_hw_fit_vs_solver(hw_panel, hw_timing["kernel_ms"], dev)
 
+    auto_row, grid_launches, screen = phase_auto_fit_path(auto_panel,
+                                                          auto_ref, dev)
+    grid_row = phase_auto_grid_vs_route(screen, dev)
+    del screen
+
     css = hw_timing["css"][0]       # the main path's order, (2,1,2)+c
     emit({"kernels": [{
         "name": "arma_lm_fit", "route": "cuda",
-        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "replaces_solver": "spark_timeseries_tpu/ops/pallas_arma.py:463 "
                            "(fit_css_lm)",
@@ -1281,7 +1611,7 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
         "bound_ms": lm_row["bound_ms"], "bound_by": lm_row["bound_by"],
         "library_ms": None}, {
         "name": "arma_ne", "route": "cuda",
-        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "launches": main_row["normal_equations_launches"],
         "route_launches": lm_row["route_arma_ne_launches"],
@@ -1313,6 +1643,17 @@ def _run(args, dev, smi, hw_panel, refit, t0) -> int:
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],
         "bound_ms": fit_row["bound_ms"], "bound_by": fit_row["bound_by"],
+        "library_ms": None}, {
+        "name": "arma_lm_fit_grid", "route": "cuda",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
+        "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229 "
+                    "(y_blocks grid, :351)",
+        "launches": grid_launches,
+        "max_abs_err": grid_row["vs_plain_max_abs_x_same_iter_converged"],
+        "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
+        "plain_lanes": grid_row["plain_lanes"],
+        "bound_ms": grid_row["bound_ms"], "bound_by": grid_row["bound_by"],
+        "padded_bound_ms": grid_row["padded_bound_ms"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,14 +2,17 @@
 
 The JAX package beside this one is the reference; this package computes
 the same functions on tensors, with the JAX package's Pallas kernels as
-hand-written CUDA kernels (``csrc/arma_ne.cu``: the ARMA normal
-equations and the CSS cost; ``csrc/hw_sse.cu``: the Holt-Winters SSE
-value and gradient).  It imports neither ``jax`` nor
+hand-written CUDA kernels (``csrc/arma_ne.cu`` with ``arma_ne.cuh`` and
+its ``arma_ne.orders*.cu``: the ARMA normal equations, the whole CSS
+Levenberg-Marquardt fit, per series or over a candidate grid, and the
+CSS cost; ``csrc/hw_sse.cu``: the Holt-Winters SSE value and gradient,
+and the whole Holt-Winters box fit).  It imports neither ``jax`` nor
 ``spark_timeseries_tpu``.
 
 Ported so far: the batched ARIMA(p, d, q) CSS fit (``models.arima.fit``,
-``method="css-lm"``), the batched Holt-Winters fit
-(``models.holt_winters.fit``) and the streaming fit engine
+``method="css-lm"``), the batched automatic ARIMA order selection
+(``models.arima.auto_fit_panel``, with ``stats.kpsstest``), the batched
+Holt-Winters fit (``models.holt_winters.fit``) and the streaming fit engine
 (``engine.FitEngine.fit`` / ``stream_fit``, families ``arima``, ``ar``
 and ``holt_winters``) with the ops they need.
 

@@ -1,6 +1,10 @@
 """Builds the port's CUDA sources and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into
+Library ``<name>`` is ``csrc/<name>.cu`` with its parts
+``csrc/<name>.<part>.cu`` (a large set of kernel instantiations spread
+over several translation units): each source compiles with nvcc for
+``sm_90a`` to an object, one nvcc process per source, all started
+together, and the objects link into
 ``build/torch_kernels/<name>-<hash>.so`` at the repository root, where
 ``<hash>`` covers every file under ``csrc/`` and the flags, so an edited
 source rebuilds.  The shared libraries have a plain C interface: the
@@ -29,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,32 +66,55 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest()}.so"
 
 
-def _sources() -> List[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+def _sources() -> Dict[str, List[Path]]:
+    """Library name -> its sources (``<name>.cu`` and its parts)."""
+    libs: Dict[str, List[Path]] = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        libs.setdefault(path.name.split(".")[0], []).append(path)
+    return libs
+
+
+def _run(cmds) -> List[str]:
+    """Run the commands together; the logs of those that failed."""
+    procs = [(what, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+             for what, cmd in cmds]
+    failed = []
+    for what, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{what} (nvcc exit {proc.returncode}):\n{log}")
+    return failed
 
 
 def build_all() -> List[Path]:
-    """Compile every ``csrc/*.cu`` that has no current library, one nvcc
-    process per source, all started together; returns the libraries.
-    Raises with the compiler's output when a build fails."""
+    """Build every library that has no current build: one nvcc process
+    per source, all started together, then one link per library; returns
+    the libraries.  Raises with the compiler's output when a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in _sources():
-        so = _target(name)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, so, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, so)
+    # temporary names end in the suffix nvcc reads a file's kind from
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    todo = {name: srcs for name, srcs in _sources().items()
+            if not _target(name).exists()}
+    objs = {name: [_target(name).with_suffix(f".{src.stem}.{tag}.o")
+                   for src in srcs] for name, srcs in todo.items()}
+    failed = _run((src.name, [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)])
+                  for name, srcs in todo.items()
+                  for src, obj in zip(srcs, objs[name]))
+    if not failed:
+        failed = _run((f"link {name}", [
+            nvcc, NVCC_FLAGS[0], "-shared", "-o",
+            str(_target(name).with_suffix(f".{tag}.so")),
+            *map(str, objs[name])]) for name in todo)
+    for name in todo:
+        for obj in objs[name]:
+            obj.unlink(missing_ok=True)
+        tmp = _target(name).with_suffix(f".{tag}.so")
+        if not failed:
+            os.replace(tmp, _target(name))
+        tmp.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return [_target(name) for name in _sources()]

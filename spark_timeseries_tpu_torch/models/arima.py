@@ -4,9 +4,11 @@
 Ported so far: the conditional-sum-of-squares fit with the batched
 Levenberg-Marquardt solver (``method="css-lm"``, ``objective="css"``),
 the AR fast path, ragged (NaN-padded) panels, short-lane quarantine,
-forecasting, the CSS log likelihood and the stationarity/invertibility
-root checks.  The LM solve's normal equations come from
-``ops.arma_ne`` — on CUDA, the hand-written kernel.
+forecasting, the CSS log likelihood, the stationarity/invertibility
+root checks, and the batched automatic order selection
+:func:`auto_fit_panel` (KPSS d-selection, the whole (p, q) candidate
+grid fitted at once, AIC argmin).  The LM solves come from
+``ops.arma_ne.fit_css_lm`` — on CUDA, the hand-written LM-fit kernel.
 
 Coefficients are laid out ``[intercept?, AR..., MA...]`` as in the JAX
 package, panels series-major ``(n_series, n_obs)``.
@@ -25,12 +27,13 @@ from .._device import as_tensor, resolve_device
 from ..ops.arma_ne import (check_kernel_order, css_cost, fit_css_lm,
                            normal_equations_plain)
 from ..ops.lag import lag_matvec, lag_stack
-from ..ops.linalg import ols_gram
+from ..ops.linalg import ols_gram, spd_solve
 from ..ops.optimize import MinimizeResult
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from ..ops.univariate import (differences_of_order_d,
                               inverse_differences_of_order_d)
+from ..stats import KPSS_CONSTANT_CRITICAL_VALUES, kpsstest
 from . import autoregression
 from .base import FitDiagnostics, diagnostics_from
 
@@ -495,3 +498,326 @@ def fit(p: int, d: int, q: int, ts,
                        diagnostics=diag._replace(converged=conv_mask))
     _warn_stationarity_invertibility(model, warn)
     return model
+
+
+# ---------------------------------------------------------------------------
+# automatic order selection over a panel (ref ARIMA.scala:280-375, batched)
+# ---------------------------------------------------------------------------
+
+KPSS_SIGNIFICANCE = 0.05
+
+# screening budget of auto_fit_panel's candidate grid: selection only needs
+# the AICs separated, and each series' winner is then refined at the
+# remaining budget on S lanes instead of C·S
+SCREEN_MAX_ITER = 25
+
+
+def _step_down_stationary(phi: torch.Tensor, orders: torch.Tensor
+                          ) -> torch.Tensor:
+    """Batched stationarity by the Levinson step-down (Schur-Cohn) test:
+    the AR polynomial ``1 - φ₁z - ... - φ_p z^p`` has all roots outside
+    the unit circle iff every reflection coefficient lies in (-1, 1).
+
+    ``phi (..., max_p)`` padded AR coefficients, ``orders (...)`` each
+    lane's actual order (coefficients beyond it are ignored)."""
+    max_p = phi.shape[-1]
+    ok = torch.ones(torch.broadcast_shapes(phi.shape[:-1], orders.shape),
+                    dtype=torch.bool, device=phi.device)
+    if max_p == 0:
+        return ok
+    idx = torch.arange(max_p, device=phi.device)
+    a = torch.where(idx < orders[..., None], phi, torch.zeros((),
+                                                              dtype=phi.dtype,
+                                                              device=phi.device))
+    for m in range(max_p, 0, -1):
+        k = a[..., m - 1]
+        active = orders >= m
+        ok = ok & (~active | (torch.abs(k) < 1.0))
+        # (1-k)(1+k) instead of 1-k²: near-unit-root lanes keep their
+        # leading digits in float32, where the squared form cancels
+        denom = (1.0 - k) * (1.0 + k)
+        safe = torch.where(torch.abs(denom) < 1e-12,
+                           torch.ones((), dtype=a.dtype, device=a.device),
+                           denom)
+        lower = (a[..., :m - 1] + k[..., None] * a[..., :m - 1].flip(-1)) \
+            / safe[..., None]
+        a = torch.cat([torch.where(active[..., None], lower, a[..., :m - 1]),
+                       torch.zeros_like(a[..., m - 1:])], dim=-1)
+    return ok
+
+
+class PanelARIMAFit(NamedTuple):
+    """Per-series automatic order selection over a panel, in the JAX
+    package's layout: ``orders (n_series, 3)`` holds (p, d, q);
+    ``coefficients (n_series, 1 + max_p + max_q)`` float64, zero-padded
+    — slot 0 the intercept (zero when that series' ``d > 1``), slots
+    ``1..max_p`` the AR terms, then the MA terms; ``aic (n_series,)``.
+    ``device`` is where :meth:`model_for` puts a model (float32 on CUDA,
+    float64 on the CPU)."""
+    orders: np.ndarray
+    coefficients: np.ndarray
+    aic: np.ndarray
+    max_p: int
+    device: torch.device = torch.device("cuda")
+
+    def model_for(self, i: int) -> ARIMAModel:
+        """Series ``i``'s fit as a standalone model."""
+        p, d, q = (int(v) for v in self.orders[i])
+        icpt = d <= 1
+        coefs = []
+        if icpt:
+            coefs.append(self.coefficients[i, :1])
+        coefs.append(self.coefficients[i, 1:1 + p])
+        coefs.append(self.coefficients[i, 1 + self.max_p:1 + self.max_p + q])
+        dtype = torch.float32 if self.device.type == "cuda" \
+            else torch.float64
+        return ARIMAModel(p, d, q, torch.as_tensor(
+            np.concatenate(coefs), dtype=dtype, device=self.device), icpt)
+
+
+def _auto_fit_panel_kernel(values: torch.Tensor, masks_base: torch.Tensor,
+                           pq: torch.Tensor, crit: float, max_p: int,
+                           max_q: int, max_d: int, max_iter: int,
+                           screen_iter: int,
+                           n_valid: Optional[torch.Tensor] = None):
+    """The whole batched search on ``values (S, n)``'s device: KPSS
+    d-selection over the stack of size-preserving differences (the
+    per-series d a gather index), the per-series intercept mask, the
+    Hannan-Rissanen init of the padded ``[c, AR(max_p), MA(max_q)]``
+    parameterization (shared normal equations, one masked SPD solve per
+    candidate), the masked LM SCREEN of every (candidate, series) lane at
+    ``screen_iter`` iterations, the admissibility screen (step-down
+    stationarity and invertibility) and AIC argmin, then the REFINE of
+    each series' winner at the remaining budget, kept only while finite
+    and admissible.  Each LM stage is one ``ops.arma_ne.fit_css_lm``
+    call: on CUDA one LM-fit kernel launch over ``x0 (C·S, k)`` and the
+    unrepeated panel.
+
+    ``masks_base (C, k)`` sets slot 0 (intercept) for every candidate;
+    it is zeroed per series whose d > 1.  ``n_valid (S,)`` restricts each
+    lane to its left-aligned valid window.  Returns ``(orders (S, 3),
+    coefs (S, k), aic (S,), d_ok (S,), screen_capped (S,), lm_calls)``,
+    the last the number of LM stages run."""
+    dtype = values.dtype
+    dev = values.device
+    S, n = values.shape
+    k = 1 + max_p + max_q
+    C = masks_base.shape[0]
+
+    diffs = torch.stack([differences_of_order_d(values, dd)
+                         for dd in range(max_d + 1)])          # (D, S, n)
+    # n_valid is d-invariant: the size-preserving diff keeps the first d
+    # entries raw, so every lane's window length survives differencing
+    stats = torch.stack([kpsstest(diffs[dd], "c", n_valid=n_valid)[0]
+                         for dd in range(max_d + 1)])          # (D, S)
+    passes = stats < crit
+    d_ok = passes.any(dim=0)
+    d_per = torch.argmax(passes.to(torch.uint8), dim=0)        # (S,)
+    diffed = torch.take_along_dim(diffs, d_per[None, :, None],
+                                  dim=0)[0]                    # (S, n)
+    icpt = d_per <= 1
+
+    one = torch.ones((), dtype=dtype, device=dev)
+    masks = masks_base[:, None, :].expand(C, S, k) * torch.where(
+        (torch.arange(k, device=dev) == 0)[None, None, :],
+        icpt.to(dtype)[None, :, None], one)                    # (C, S, k)
+
+    # Hannan-Rissanen on the padded orders, m = max(max_p, max_q) + 1
+    # shared by every candidate: AR(m) errors, then one masked OLS per
+    # candidate from shared normal equations
+    m = max(max_p, max_q) + 1
+    mx = max(max_p, max_q)
+    ar = autoregression.fit(diffed, m, n_valid=n_valid)
+    est = lag_matvec(diffed, ar.coefficients, m) + ar.c[..., None]
+    y_trunc = diffed[..., m:]
+    errors = y_trunc - est
+    n_rows = y_trunc.shape[-1] - mx
+    Xs = torch.cat([values.new_ones((S, 1, n_rows)),
+                    _lag_stack_or_empty(y_trunc, max_p)[..., -n_rows:],
+                    _lag_stack_or_empty(errors, max_q)[..., -n_rows:]],
+                   dim=-2)
+    target = y_trunc[..., mx:]
+    Xs_w = Xs
+    if n_valid is not None:
+        # rows whose target index falls past the valid window weigh 0
+        w_hr = step_weights(n_rows, n_valid[..., None], offset=m + mx,
+                            dtype=dtype)                       # (S, n_rows)
+        Xs_w = Xs * w_hr[:, None, :]
+    N = torch.einsum("skn,sln->skl", Xs_w, Xs)                 # (S, k, k)
+    b = torch.einsum("skn,sn->sk", Xs_w, target)
+    # (M N M + (I - M)) β = M b: SPD, so the unrolled Cholesky applies
+    Mn = masks[..., :, None] * N[None] * masks[..., None, :]
+    ident = torch.eye(k, dtype=dtype, device=dev) \
+        * (1.0 - masks)[..., :, None]
+    init = spd_solve(Mn + ident, masks * b[None])              # (C, S, k)
+    del Mn, ident
+
+    tol = 1e-10 if dtype == torch.float64 else 1e-6
+    lm_calls = 0
+
+    def grid_lm(x0, mask, iters):
+        nonlocal lm_calls
+        lm_calls += 1
+        lead = x0.shape[:-1]
+        x, f, conv, n_it = fit_css_lm(
+            x0.reshape(-1, k), diffed, max_p, max_q, 1, tol=tol,
+            max_iter=iters, mask=mask.reshape(-1, k), n_valid=n_valid)
+        return MinimizeResult(x.reshape(*lead, k), f.reshape(lead),
+                              conv.reshape(lead), n_it.reshape(lead))
+
+    res = grid_lm(init, masks, screen_iter)
+    lane_ok = torch.isfinite(res.x).all(dim=-1, keepdim=True)
+    params = torch.where(lane_ok, res.x, init) * masks
+
+    # CSS likelihood in closed form from the LM's own objective
+    n_eff = float(n) if n_valid is None \
+        else torch.clamp(n_valid.to(dtype), min=1.0)           # (S,)
+    neg_ll = 0.5 * n_eff * (torch.log(2.0 * math.pi * res.fun / n_eff)
+                            + 1.0)
+    n_params = (pq[:, 0] + pq[:, 1])[:, None] \
+        + icpt[None, :].to(pq.dtype)                           # (C, S)
+    aic = 2.0 * neg_ll + 2.0 * n_params.to(dtype)
+    ok = torch.isfinite(params).all(dim=-1) & torch.isfinite(aic)
+    ok &= n_params > 0                           # empty candidate: no terms
+    ok &= _step_down_stationary(params[..., 1:1 + max_p], pq[:, :1])
+    # MA invertibility: the same criterion applied to -θ
+    ok &= _step_down_stationary(-params[..., 1 + max_p:], pq[:, 1:])
+    inf = torch.full((), math.inf, dtype=dtype, device=dev)
+    aic = torch.where(ok, aic, inf)
+
+    best = torch.argmin(aic, dim=0)                            # (S,)
+    sel = torch.arange(S, device=dev)
+    chosen_aic = aic[best, sel]
+    failed = ~torch.isfinite(chosen_aic)
+    # winners whose screen stage hit the reduced iteration cap
+    screen_capped = (~res.converged)[best, sel] & ~failed
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    coefs = torch.where(failed[:, None], zero, params[best, sel])
+    izero = torch.zeros((), dtype=pq.dtype, device=dev)
+    orders = torch.stack([torch.where(failed, izero, pq[best, 0]),
+                          d_per.to(pq.dtype),
+                          torch.where(failed, izero, pq[best, 1])], dim=-1)
+
+    refine_iter = max_iter - screen_iter
+    if refine_iter > 0:
+        best_masks = masks[best, sel]                          # (S, k)
+        res_r = grid_lm(coefs, best_masks, refine_iter)
+        refined = res_r.x * best_masks
+        keep = torch.isfinite(refined).all(dim=-1)
+        keep &= _step_down_stationary(refined[:, 1:1 + max_p], orders[:, 0])
+        keep &= _step_down_stationary(-refined[:, 1 + max_p:], orders[:, 2])
+        keep &= ~failed
+        neg_ll_r = 0.5 * n_eff * (
+            torch.log(2.0 * math.pi * res_r.fun / n_eff) + 1.0)
+        aic_r = 2.0 * neg_ll_r + 2.0 * (
+            orders[:, 0] + orders[:, 2] + icpt.to(pq.dtype)).to(dtype)
+        keep &= torch.isfinite(aic_r)
+        coefs = torch.where(keep[:, None], refined, coefs)
+        chosen_aic = torch.where(keep, aic_r, chosen_aic)
+    return orders, coefs, chosen_aic, d_ok, screen_capped, lm_calls
+
+
+def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
+                   max_iter: Optional[int] = None,
+                   screen_max_iter: Optional[int] = None, device=None,
+                   stats: Optional[dict] = None) -> PanelARIMAFit:
+    """Batched automatic ARIMA over a panel ``values (n_series, n)``
+    (array-like or tensor): the whole (p, q) candidate grid over padded
+    ``[c, AR(max_p), MA(max_q)]`` parameters (inactive slots masked) is
+    fitted for all series at once, non-stationary, non-invertible and
+    non-finite fits get +inf AIC, and each series takes its argmin.  d is
+    chosen per series by batched KPSS (the lowest order whose statistic
+    is under the 5 % critical value).
+
+    ``max_iter`` (default :data:`LM_MAX_ITER`) is the per-lane LM budget
+    of screen plus refine; ``screen_max_iter`` (default
+    :data:`SCREEN_MAX_ITER`) bounds the grid screen, and each series'
+    winner is then refined at the rest.  Every candidate's CSS drops the
+    common ``t < max(max_p, max_q)`` window, so AICs compare on one
+    sample.
+
+    Runs on ``device`` (``None`` means CUDA, float32, where the screen
+    and the refine are one LM-fit kernel launch each over the unrepeated
+    panel; ``device="cpu"`` runs the plain LM, float32 or float64).
+    NaN-padded panels fit each lane's valid window; lanes too short for
+    the grid get NaN coefficients, +inf aic and orders (0, 0, 0).  A
+    series whose d cannot be chosen raises ``ValueError`` (unless
+    ``max_d == 0``).  ``stats`` (a dict) receives ``lm_fit_launches`` (2
+    on CUDA, 0 on the CPU) and ``screen_capped`` (the share of winners
+    whose screen hit its cap).  Returns a :class:`PanelARIMAFit` of
+    numpy arrays, as the JAX package's."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_kernel_order(max_p, max_q, 1)
+    values = as_tensor(values, dev)
+    values, obs_len = ragged_view(values)
+    if max_iter is None:
+        max_iter = LM_MAX_ITER
+    screen_iter = min(SCREEN_MAX_ITER if screen_max_iter is None
+                      else screen_max_iter, max_iter)
+
+    width = 1 + max_p + max_q
+    pq = [(p, q) for p in range(max_p + 1) for q in range(max_q + 1)]
+    masks = np.zeros((len(pq), width))
+    masks[:, 0] = 1.0        # zeroed per series when its d > 1
+    for ci, (p, q) in enumerate(pq):
+        masks[ci, 1:1 + p] = 1.0
+        masks[ci, 1 + max_p:1 + max_p + q] = 1.0
+
+    crit = KPSS_CONSTANT_CRITICAL_VALUES[KPSS_SIGNIFICANCE]
+    # lanes whose window cannot hold the padded-order HR init quarantine
+    # rather than poison the panel or raise
+    short = None
+    if obs_len is not None:
+        mx = max(max_p, max_q)
+        short = short_lanes(obs_len, 2 * mx + 3 + max_p + max_q,
+                            f"auto_fit_panel (max_p={max_p}, max_q={max_q})"
+                            f" Hannan-Rissanen initialization")
+    orders, coefs, aic, d_ok, screen_capped, lm_calls = \
+        _auto_fit_panel_kernel(
+            values, torch.as_tensor(masks, dtype=values.dtype, device=dev),
+            torch.as_tensor(pq, dtype=torch.int32, device=dev), crit, max_p,
+            max_q, max_d, max_iter, screen_iter, obs_len)
+
+    short_np = None if short is None else short.cpu().numpy()
+    capped = screen_capped.cpu().numpy()
+    if short_np is not None:
+        capped = capped[~short_np]
+    capped_frac = float(np.mean(capped)) if capped.size else 0.0
+    if stats is not None:
+        stats["lm_fit_launches"] = lm_calls if dev.type == "cuda" else 0
+        stats["screen_capped"] = capped_frac
+    # the reduced screen budget can change order selection on
+    # slow-converging panels; say so when it plausibly did
+    if screen_iter < max_iter and capped_frac > 0.5:
+        warnings.warn(
+            f"auto_fit_panel: {capped_frac:.0%} of winning lanes hit the "
+            f"screen-stage iteration cap ({screen_iter}); order selection "
+            f"may differ from a full-budget grid — pass "
+            f"screen_max_iter=max_iter to restore one", stacklevel=2)
+
+    d_ok = d_ok.cpu().numpy()
+    if short_np is not None:
+        d_ok = d_ok | short_np      # short lanes quarantine, never raise
+    if not d_ok.all() and max_d > 0:
+        # max_d == 0 pins d: a KPSS rejection is then a finite-sample
+        # false positive on an already-differenced series, not a failure
+        raise ValueError(
+            f"stationarity not achieved with differencing order <= {max_d} "
+            f"for {int(np.sum(~d_ok))} series")
+
+    out_aic = aic.cpu().numpy()
+    out_orders = orders.cpu().numpy().astype(np.int64)
+    out_coefs = coefs.cpu().numpy().astype(np.float64)
+    if short_np is not None and short_np.any():
+        out_aic = np.where(short_np, np.inf, out_aic)
+        out_coefs = np.where(short_np[:, None], np.nan, out_coefs)
+        out_orders = np.where(short_np[:, None], 0, out_orders)
+    n_failed = int(np.sum(~np.isfinite(out_aic))
+                   - (short_np.sum() if short_np is not None else 0))
+    if n_failed:
+        warnings.warn(
+            f"auto_fit_panel: no admissible ARMA candidate for {n_failed} "
+            f"series; their aic is +inf and coefficients are zero",
+            stacklevel=2)
+    return PanelARIMAFit(out_orders, out_coefs, out_aic, max_p, dev)

@@ -7,10 +7,11 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
-from .arima import ARIMAModel
+from .arima import ARIMAModel, PanelARIMAFit
 from .autoregression import ARModel
 from .base import FitDiagnostics
 from .holt_winters import HoltWintersModel
@@ -43,6 +44,27 @@ def arima_from_numpy(p: int, d: int, q: int, coefficients,
                          f"{coefs.shape[-1]}")
     return ARIMAModel(int(p), int(d), int(q), coefs, bool(has_intercept),
                       _diagnostics(diagnostics, dev))
+
+
+def panel_arima_fit_from_numpy(orders, coefficients, aic, max_p: int,
+                               device=None) -> PanelARIMAFit:
+    """The port's :class:`PanelARIMAFit` from an auto-fit's numpy
+    ``orders (n_series, 3)``, ``coefficients (n_series, 1 + max_p +
+    max_q)`` and ``aic (n_series,)`` (the JAX package's layout);
+    :meth:`~PanelARIMAFit.model_for` then builds models on ``device``."""
+    orders = np.asarray(orders, dtype=np.int64)
+    coefficients = np.asarray(coefficients, dtype=np.float64)
+    aic = np.asarray(aic)
+    if orders.ndim != 2 or orders.shape[1] != 3 \
+            or coefficients.shape[0] != orders.shape[0] \
+            or aic.shape != orders.shape[:1] \
+            or coefficients.shape[1] <= max_p:
+        raise ValueError(
+            f"expected orders (n, 3), coefficients (n, 1 + max_p + max_q) "
+            f"and aic (n,); got {orders.shape}, {coefficients.shape}, "
+            f"{aic.shape} with max_p={max_p}")
+    return PanelARIMAFit(orders, coefficients, aic, int(max_p),
+                         resolve_device(device))
 
 
 def autoregression_from_numpy(c, coefficients,

@@ -11,7 +11,8 @@ between the two (a kernel that fails to build or launch raises):
   Pallas kernel ``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``;
   plain: :func:`normal_equations_plain`, the same arithmetic written as a
   Python loop over time steps on the lane batch);
-- :func:`fit_css_lm`, the whole LM fit of a panel (``arma_lm_fit_kernel``:
+- :func:`fit_css_lm`, the whole LM fit of a panel, or of a candidate
+  grid ``x0 (C·S, k)`` over one ``(S, n)`` panel (``arma_lm_fit_kernel``:
   one launch that runs every lane's solver state machine on the card;
   plain: :func:`fit_css_lm_plain`, the batched LM loop over the plain
   pass).  :func:`fit_css_lm_route` runs the same batched loop over
@@ -22,8 +23,11 @@ between the two (a kernel that fails to build or launch raises):
 
 The kernels take the panel time-major (``(n_obs, S)``, so a warp's loads
 at one step are contiguous); the fits transpose the panel once, as the
-Pallas solver blocks it once up front.  What bounds the kernels on the
-H100 is written in the source note of ``csrc/arma_ne.cu``.
+Pallas solver blocks it once up front.  The normal-equations and LM-fit
+kernels are instantiated for ``p, q <= 5`` with and without intercept
+(``csrc/arma_ne.cuh``, spread over ``csrc/arma_ne.orders*.cu``).  What
+bounds the kernels on the H100 is written in the source note of
+``csrc/arma_ne.cu``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch
 from .. import _build
 from .linalg import spd_solve
 
-KERNEL_MAX_ORDER = 3      # p, q <= 3 are instantiated in csrc/arma_ne.cu
+KERNEL_MAX_ORDER = 5      # p, q <= 5, with and without intercept, are
+                          # instantiated (csrc/arma_ne.orders*.cu)
 
 
 def _triu_pairs(k: int):
@@ -50,11 +55,14 @@ def n_outputs(k: int) -> int:
 
 
 def check_kernel_order(p: int, q: int, icpt: int) -> None:
-    """Raise unless the CUDA kernel has an instantiation for the order."""
+    """Raise unless the CUDA kernels (the normal equations and the LM
+    fit) have an instantiation for the order: every ``p, q <=``
+    :data:`KERNEL_MAX_ORDER`, with and without intercept."""
     if not (0 <= p <= KERNEL_MAX_ORDER and 0 <= q <= KERNEL_MAX_ORDER):
         raise ValueError(
-            f"the CUDA ARMA kernel supports p, q <= {KERNEL_MAX_ORDER}, got "
-            f"ARMA({p},{q}); larger orders are not ported yet")
+            f"the CUDA ARMA kernels take p, q <= {KERNEL_MAX_ORDER} (with "
+            f"or without intercept), got ARMA({p},{q}); larger orders are "
+            f"not instantiated")
     if icpt + p + q == 0:
         raise ValueError("the ARMA kernel needs at least one parameter")
 
@@ -221,7 +229,7 @@ def normal_equations(params: torch.Tensor, y: torch.Tensor,
     """Batched fused ``(JᵀJ (S, k, k), Jᵀr (S, k), sse (S,))`` of the ARMA
     CSS residuals; ``params (S, k)``, ``y (S, n)``.
 
-    A CUDA tensor launches the kernel (float32, ``p, q <= 3``; anything
+    A CUDA tensor launches the kernel (float32, ``p, q <= 5``; anything
     else raises) and adds one to ``normal_equations.launches``; a CPU
     tensor runs :func:`normal_equations_plain`.  ``mask (S, k)`` gives the
     masked objective ``r(x ∘ mask)``; ``n_valid (S,)`` restricts each lane
@@ -332,20 +340,22 @@ LM_FIT_THREADS = 128
 
 def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
     """Validated ``(x0, mask, n_valid)`` of an LM fit, cast to ``y``'s
-    dtype and with ``x0`` masked."""
+    dtype and with ``x0`` masked.  ``x0`` and ``mask`` have ``C·S`` lanes
+    (candidate-major) over the ``S`` series of ``y`` and ``n_valid``."""
     S, k = x0.shape
     S_y, n_obs = y.shape
-    if S != S_y:
+    if S_y == 0 or S % S_y:
         raise ValueError(
-            f"x0 has {S} lanes but the panel has {S_y} series (the "
-            f"candidate-grid form is not ported yet)")
+            f"x0 lane count {S} is not a multiple of the panel's {S_y} "
+            f"series (a candidate grid has C·S lanes, candidate-major)")
     if k != icpt + p + q or (mask is not None and mask.shape != (S, k)) \
-            or (n_valid is not None and n_valid.shape != (S,)):
+            or (n_valid is not None and n_valid.shape != (S_y,)):
         raise ValueError(
             f"shape mismatch: x0 {tuple(x0.shape)} (expected "
             f"{(S, icpt + p + q)}), mask "
             f"{None if mask is None else tuple(mask.shape)}, n_valid "
-            f"{None if n_valid is None else tuple(n_valid.shape)}")
+            f"{None if n_valid is None else tuple(n_valid.shape)} "
+            f"(expected {(S_y,)})")
     _check_window(n_obs, p, q)
     x0 = x0.to(y.dtype)
     if mask is not None:
@@ -356,9 +366,14 @@ def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
 
 
 def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid):
-    """The batched LM loop with the normal equations from ``packed_fn``."""
+    """The batched LM loop with the normal equations from ``packed_fn``;
+    a candidate grid gathers the panel to one copy per candidate."""
     x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
     S, k = x0.shape
+    C = S // y.shape[0]
+    if C > 1:
+        y = y.repeat(C, 1)
+        nv = None if nv is None else nv.repeat(C)
     y_t = y.T.contiguous()                  # (n_obs, S), once per fit
     eye = torch.eye(k, dtype=y.dtype, device=y.device)
 
@@ -436,7 +451,7 @@ def _lm_fns():
     config.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     config.restype = ctypes.c_int
     launch = lib.arma_lm_fit_launch
-    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     return config, launch
@@ -477,7 +492,7 @@ def _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
     check_kernel_order(p, q, icpt)
     x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
     S, k = x0.shape
-    n_obs = y.shape[1]
+    S_y, n_obs = y.shape
     x0_t = x0.T.contiguous()
     y_t = y.T.contiguous()
     mask_t = None if mask is None else mask.T.contiguous()
@@ -493,9 +508,10 @@ def _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
                   0 if nv is None else nv.data_ptr(),
                   0 if mask_t is None else mask_t.data_ptr(), x.data_ptr(),
                   fun.data_ptr(), converged.data_ptr(), n_iter.data_ptr(), S,
-                  n_obs, p, q, icpt, float(tol), int(max_iter), threads,
+                  S_y, n_obs, p, q, icpt, float(tol), int(max_iter), threads,
                   what=f"arma_lm_fit kernel launch failed for ARMA({p},{q}) "
-                       f"icpt={icpt} S={S} n_obs={n_obs} threads={threads}")
+                       f"icpt={icpt} S={S} S_y={S_y} n_obs={n_obs} "
+                       f"threads={threads}")
     fit_css_lm.launches += 1
     return x.T, fun, converged, n_iter
 
@@ -515,10 +531,17 @@ def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
     (the objective ``r(x ∘ mask)``); ``n_valid (S,)`` restricts each lane
     to its left-aligned valid window.
 
+    ``x0`` and ``mask`` may carry ``C·S`` lanes, candidate-major, over
+    the ``S`` series of ``y`` and ``n_valid`` (the auto-fit grid's shape,
+    ``pallas_arma.fit_css_lm``'s ``y_blocks`` form): lane ``i`` fits
+    series ``i % S``.  A lane count that is not a multiple of ``S``
+    raises.
+
     A CUDA tensor launches the LM-fit kernel of ``csrc/arma_ne.cu`` once
-    for the whole fit (float32, ``p, q <= 3``; anything else raises) and
-    adds one to ``fit_css_lm.launches``; a CPU tensor runs
-    :func:`fit_css_lm_plain`."""
+    for the whole fit, grid or not, over the one unrepeated panel
+    (float32, ``p, q <= 5``; anything else raises) and adds one to
+    ``fit_css_lm.launches``; a CPU tensor runs :func:`fit_css_lm_plain`,
+    which gathers the panel to one copy per candidate."""
     if y.is_cuda:
         return _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)
     return fit_css_lm_plain(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)

@@ -193,8 +193,8 @@ def test_cuda_requests_the_kernel_cannot_take_raise(monkeypatch):
     y = _arima_panel(np.random.default_rng(7), 4, 40)
     with pytest.raises(ValueError, match="float32"):
         arima.fit(2, 1, 2, y, warn=False, device="cuda")
-    with pytest.raises(ValueError, match="p, q <= 3"):
-        arima.fit(4, 1, 1, y.astype(np.float32), warn=False, device="cuda")
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arima.fit(6, 1, 1, y.astype(np.float32), warn=False, device="cuda")
 
 
 def test_unported_options_raise():

@@ -277,11 +277,13 @@ def test_cpu_tensor_runs_the_plain_version():
 
 def test_kernel_order_check():
     arma_ne.check_kernel_order(3, 3, 1)
+    arma_ne.check_kernel_order(5, 5, 1)
+    arma_ne.check_kernel_order(4, 5, 0)
     arma_ne.check_kernel_order(0, 0, 1)
-    with pytest.raises(ValueError, match="p, q <= 3"):
-        arma_ne.check_kernel_order(4, 1, 1)
-    with pytest.raises(ValueError, match="p, q <= 3"):
-        arma_ne.check_kernel_order(1, 5, 0)
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.check_kernel_order(6, 1, 1)
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.check_kernel_order(1, 6, 0)
     with pytest.raises(ValueError, match="at least one"):
         arma_ne.check_kernel_order(0, 0, 0)
 

@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: the CUDA kernels (ARMA normal equations,
-ARMA LM fit, CSS cost, Holt-Winters SSE value and gradient, Holt-Winters
-box fit) against their plain versions, and the fits and the streaming
+ARMA LM fit, per series and over a candidate grid, CSS cost, Holt-Winters
+SSE value and gradient, Holt-Winters box fit) against their plain
+versions, and the fits (``auto_fit_panel`` among them) and the streaming
 engine on CUDA against the same calls on the CPU.
 
 Every test here needs a card and skips without one.  The file imports
@@ -61,8 +62,8 @@ def test_kernel_matches_plain(cuda, p, q, icpt, ragged):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
     with pytest.raises(ValueError, match="float32"):
         arma_ne.normal_equations(params.double(), y.double(), p, q, icpt)
-    with pytest.raises(ValueError, match="p, q <= 3"):
-        arma_ne.normal_equations(params.new_zeros((S, icpt + 5)), y, 4, 1,
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.normal_equations(params.new_zeros((S, icpt + 7)), y, 6, 1,
                                  icpt)
 
 
@@ -235,8 +236,8 @@ def test_lm_fit_kernel_rejects(cuda):
     before = arma_ne.fit_css_lm.launches
     with pytest.raises(ValueError, match="float32"):
         arma_ne.fit_css_lm(x0.double(), y.double(), 2, 2, 1)
-    with pytest.raises(ValueError, match="p, q <= 3"):
-        arma_ne.fit_css_lm(x0.new_zeros((64, 6)), y, 4, 1, 1)
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.fit_css_lm(x0.new_zeros((64, 8)), y, 6, 1, 1)
     with pytest.raises(ValueError, match="lanes"):
         arma_ne.fit_css_lm(x0[:32], y, 2, 2, 1)
     # a parameter vector, mask or n_valid of the wrong shape never reaches
@@ -263,6 +264,150 @@ def test_stream_fit_launches_lm_fit_once_per_chunk(cuda):
             arma_ne.normal_equations.launches) == (before[0] + 3, before[1])
     assert res.stats["lm_fit_launches"] == [1, 1, 1]
     assert len(res.stats["lm_iterations"]) == 3
+
+
+# The candidate grid: x0 (C·S, k) over one (S, n) panel, lane i fitting
+# series i % S (the auto-fit's screen).  The route and the plain LM
+# gather the panel to C copies; the kernel reads the one panel.
+GRID_ORDERS = [(p, q) for p in range(6) for q in range(6)]
+
+
+def _grid_case(cuda, p, q, icpt, ragged, C=3, S=400, n=90, seed=18):
+    rng = np.random.default_rng(seed + 7 * p + q)
+    y = _panel(rng, S, n)
+    k = icpt + p + q
+    mask = (rng.uniform(size=(C * S, k)) > 0.25).astype(np.float32)
+    x0 = (0.1 * rng.normal(size=(C * S, k))).astype(np.float32) * mask
+    nv = None
+    if ragged:
+        nv = rng.integers(30, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+        nv = torch.from_numpy(nv).to(cuda)
+    return (torch.from_numpy(x0).to(cuda),
+            torch.from_numpy(y.astype(np.float32)).to(cuda),
+            torch.from_numpy(mask).to(cuda), nv)
+
+
+def _check_grid(cuda, p, q, icpt, ragged, plain_series=0, **kw):
+    x0, y, mask, nv = _grid_case(cuda, p, q, icpt, ragged)
+    S, C = y.shape[0], x0.shape[0] // y.shape[0]
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    got = arma_ne.fit_css_lm(x0, y, p, q, icpt, mask=mask, n_valid=nv, **kw)
+    torch.cuda.synchronize()
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == (before[0] + 1, before[1])
+    route = arma_ne.fit_css_lm_route(x0, y, p, q, icpt, mask=mask,
+                                     n_valid=nv, **kw)
+    shares = _lm_agreement(got, route)
+    print(f"grid ARMA({p},{q}) icpt={icpt} ragged={ragged} vs route "
+          f"{shares}")
+    assert min(shares[:2]) >= LM_ROUTE_SHARE
+    assert bool((got[0][mask == 0] == 0).all())     # frozen slots stay
+    if plain_series:
+        # the first plain_series series of every candidate
+        lanes = (torch.arange(C, device=cuda)[:, None] * S
+                 + torch.arange(plain_series, device=cuda)).reshape(-1)
+        plain = arma_ne.fit_css_lm_plain(
+            x0.view(C, S, -1)[:, :plain_series].reshape(len(lanes), -1),
+            y[:plain_series], p, q, icpt,
+            mask=mask.view(C, S, -1)[:, :plain_series].reshape(
+                len(lanes), -1),
+            n_valid=None if nv is None else nv[:plain_series], **kw)
+        g_shares = _lm_agreement([t[lanes] for t in got], plain)
+        r_shares = _lm_agreement([t[lanes] for t in route], plain)
+        print(f"grid ARMA({p},{q}) icpt={icpt} ragged={ragged} vs plain "
+              f"{g_shares}, route vs plain {r_shares}")
+        for g_share, r_share in zip(g_shares, r_shares):
+            assert g_share >= r_share - LM_PLAIN_MARGIN
+    return x0, y, mask, nv, got
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("p,q", GRID_ORDERS)
+def test_lm_fit_grid_matches_route(cuda, p, q, ragged):
+    _check_grid(cuda, p, q, 1, ragged)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("p,q,icpt", [(5, 5, 1), (4, 5, 0), (5, 2, 0),
+                                      (1, 5, 1)])
+def test_lm_fit_grid_matches_route_and_plain(cuda, p, q, icpt, ragged):
+    _check_grid(cuda, p, q, icpt, ragged, plain_series=24, max_iter=25)
+
+
+def test_lm_fit_grid_candidates_equal_dense_calls(cuda):
+    # S_y == S is the per-series fit: each candidate's run of the grid
+    # equals a dense call on that candidate's lanes alone, bit for bit
+    x0, y, mask, nv, got = _check_grid(cuda, 5, 5, 1, True)
+    S = y.shape[0]
+    for c in range(x0.shape[0] // S):
+        sl = slice(c * S, (c + 1) * S)
+        alone = arma_ne.fit_css_lm(x0[sl], y, 5, 5, 1, mask=mask[sl],
+                                   n_valid=nv)
+        for a, b in zip(got, alone):
+            _assert_bitwise(a[sl], b)
+    cfg = arma_ne.lm_fit_config(x0.shape[0], y.shape[1], 5, 5, 1, True,
+                                cuda)
+    assert cfg.blocks * cfg.threads >= x0.shape[0] > (cfg.blocks - 1) \
+        * cfg.threads
+
+
+def test_lm_fit_grid_rejects(cuda):
+    x0, y, mask, nv = _grid_case(cuda, 2, 2, 1, True)
+    before = arma_ne.fit_css_lm.launches
+    with pytest.raises(ValueError, match="not a multiple"):
+        arma_ne.fit_css_lm(x0[:-1], y, 2, 2, 1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1, mask=mask[:400])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1,
+                           n_valid=nv.repeat(x0.shape[0] // 400))
+    # an order past the instantiated ones raises; nothing falls back
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.fit_css_lm(x0.new_zeros((1200, 8)), y, 6, 1, 0)
+    with pytest.raises(ValueError, match="p, q <= 5"):
+        arma_ne.fit_css_lm(x0.new_zeros((1200, 7)), y, 0, 6, 1)
+    assert arma_ne.fit_css_lm.launches == before
+
+
+def test_auto_fit_panel_on_cuda(cuda):
+    # the screen and the refine: two LM-fit launches in grid mode, no
+    # single pass; orders as the float32 fit on the CPU chooses them
+    rng = np.random.default_rng(19)
+    y = np.cumsum(_panel(rng, 512, 96), axis=1).astype(np.float32)
+    y[:128] = np.diff(y[:128], axis=1, prepend=0.0)
+    y[-3:, :50] = np.nan                     # ragged, one lane too short
+    y[-1, 60:] = np.nan
+    calls = []
+    real = arima.fit_css_lm
+
+    def counted(x0, yy, *args, **kw):
+        calls.append((tuple(x0.shape), tuple(yy.shape)))
+        return real(x0, yy, *args, **kw)
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    stats = {}
+    arima.fit_css_lm = counted
+    try:
+        with pytest.warns(UserWarning, match="shorter than"):
+            got = arima.auto_fit_panel(y, device=cuda, stats=stats)
+    finally:
+        arima.fit_css_lm = real
+    assert (arma_ne.fit_css_lm.launches,
+            arma_ne.normal_equations.launches) == (before[0] + 2, before[1])
+    assert stats["lm_fit_launches"] == 2
+    # the screen over 36 candidates x 512 series and the refine, both
+    # against the unrepeated (512, 96) panel
+    assert calls == [((36 * 512, 11), (512, 96)), ((512, 11), (512, 96))]
+    with pytest.warns(UserWarning, match="shorter than"):
+        want = arima.auto_fit_panel(y, device="cpu")
+    assert got.orders[-1].tolist() == [0, 0, 0] and got.aic[-1] == np.inf
+    same = np.all(got.orders == want.orders, axis=1)
+    # float32 on both sides; the kernel contracts into FMAs where the
+    # plain pass does not, so close AICs may rank otherwise on a few
+    # series
+    print(f"auto_fit_panel on CUDA vs CPU: equal orders {same.mean():.3f}")
+    assert same.mean() >= 0.9
+    assert np.all(got.orders[:, 1] == want.orders[:, 1])
 
 
 @pytest.mark.parametrize("ragged", [False, True])
