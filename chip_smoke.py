@@ -62,20 +62,29 @@ Phases, one JSON line each:
 12. ``auto_fit_path``: ``models.arima.auto_fit_panel(panel, max_p=5,
    max_d=2, max_q=5)`` on a 131072 x 128 float32 panel
    (``synthetic_arima_panel`` at seed 3, the JAX package's auto-fit bench
-   panel at one chunk's size), once warm: its screen and refine must be
-   exactly two LM-fit launches in grid mode and no single pass; CUDA-event
-   times of KPSS, the HR init, the screen and the refine; the orders
+   panel at one chunk's size), once warm: its screen must be exactly one
+   LM-fit launch per candidate (C = 36) and its refine one, C + 1 in all,
+   and no single pass; CUDA-event times of KPSS, the HR init, the screen
+   (the span of its call, its launches on side streams joined back) and
+   the refine; the orders
    histogram, the share of each d, the share of winners whose screen hit
    its cap; the orders and coefficients of the first 256 series against a
    float64 CPU run of the same function (a spawned process started after
    the build).
 13. ``auto_grid_vs_route``: the LM-fit kernel in grid mode at the
-   screen's full inputs (36 x 131072 lanes over the unrepeated panel),
-   timed, with its op bound from the lanes' passes, its registers and
-   spills, warp efficiency and slowest lane alone; on the lanes of the
-   first 4096 series against ``fit_css_lm_route`` (the panel repeated 36
-   times, one ``arma_ne`` launch per iteration), and on those of the
-   first 64 against ``fit_css_lm_plain`` in float32 on the card.
+   screen's full inputs (36 x 131072 lanes over the unrepeated panel):
+   the screen's launch per candidate at its own order and the padded
+   single launch at (5,5,1), timed in turns and held against each other
+   (equal ``n_iter`` and ``fun`` shares, max |Δx|), the screen's time
+   beside the sum of each candidate's launch timed alone (with that
+   candidate's op bound, residency, registers and spills); each lane
+   whose x differs between the two traced to the first iteration where
+   they part and the padded normal equations at the point before and at
+   the trial point; the op
+   bound from the lanes' passes, warp efficiency and slowest lane alone; on the lanes of the first 4096
+   series against ``fit_css_lm_route`` (the panel repeated 36 times, one
+   ``arma_ne`` launch per iteration), and on those of the first 64
+   against ``fit_css_lm_plain`` in float32 on the card.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs; for a kernel that only a comparison route launches,
@@ -213,6 +222,7 @@ AUTO_ORDERS_FLOOR = 0.90
 AUTO_COEF_MEDIAN = 1e-3
 AUTO_ROUTE_SERIES = 4096  # series whose 36 lanes the route refits
 AUTO_PLAIN_SERIES = 64    # series whose 36 lanes the plain LM refits
+GRID_TRACE_LANES = 64     # lanes of the screen traced where x differs
 
 
 def emit(obj) -> None:
@@ -1170,10 +1180,10 @@ def phase_hw_fit_vs_solver(hw_panel, sse_kernel_ms, dev, chunk=CHUNK,
     plain, plain_evals = hw_sse.box_fit_plain(head, x0[:k], **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got_k = hw_sse.MinimizeResult(*(t[:k] for t in got))
+    got_k = hw_sse.MinimizeResult(*(t[:k] for t in got[:4]))
     vs_plain = _box_agreement(got_k, plain, evals[:k], plain_evals)
     route_vs_plain = _box_agreement(
-        hw_sse.MinimizeResult(*(t[:k] for t in route)), plain,
+        hw_sse.MinimizeResult(*(t[:k] for t in route[:4])), plain,
         stats["evaluations"][:k], plain_evals)
     same = got_k.n_iter == plain.n_iter
     dx = (got_k.x - plain.x).abs().amax(dim=1)
@@ -1302,14 +1312,15 @@ def phase_auto_fit_path(auto_panel, auto_ref, dev):
         arima.kpsstest, arima.fit_css_lm = real_kpss, real_lm
     launches = arma_ne.fit_css_lm.launches
     ne_launches = arma_ne.normal_equations.launches
-    check(launches == 2 == stats["lm_fit_launches"],
-          f"auto_fit_panel launched the LM-fit kernel {launches} times, "
-          f"not twice (screen, refine)")
+    C = (AUTO_GRID["max_p"] + 1) * (AUTO_GRID["max_q"] + 1)
+    k = 1 + AUTO_GRID["max_p"] + AUTO_GRID["max_q"]
+    check(launches == C + 1 == stats["lm_fit_launches"],
+          f"auto_fit_panel launched the LM-fit kernel {launches} times "
+          f"(stats: {stats['lm_fit_launches']}), not C + 1 = {C + 1} (a "
+          f"screen launch per candidate, the refine)")
     check(ne_launches == 0, f"auto_fit_panel launched the single-pass "
                             f"kernel {ne_launches} times")
     x0, y = screen_args[0][0][:2]
-    C = (AUTO_GRID["max_p"] + 1) * (AUTO_GRID["max_q"] + 1)
-    k = 1 + AUTO_GRID["max_p"] + AUTO_GRID["max_q"]
     check(tuple(x0.shape) == (C * auto_panel.shape[0], k)
           and tuple(y.shape) == auto_panel.shape,
           f"the screen ran x0 {tuple(x0.shape)} over y {tuple(y.shape)}")
@@ -1381,55 +1392,192 @@ def phase_auto_fit_path(auto_panel, auto_ref, dev):
     return row, launches, screen_args[0]
 
 
+def _by_value(a, b):
+    """Per-lane equality of ``a`` and ``b`` (NaN matching NaN)."""
+    import torch
+
+    eq = a == b
+    if a.is_floating_point():
+        eq |= torch.isnan(a) & torch.isnan(b)
+    return eq if eq.dim() == 1 else eq.all(dim=1)
+
+
+def _trace_x_differs(lanes, x0, y, p, q, icpt, tol, max_iter, mask, nv,
+                     orders):
+    """Each of ``lanes``, whose x differs between the per-candidate screen
+    and the padded launch, fitted alone both ways with ``max_iter``
+    stepped up until the two part: the first iteration where they do,
+    which side took its trial step there, and the padded normal equations
+    from the single-pass kernel (the LM-fit kernel's own pass) at the
+    point before and at the trial point.  The padded launch post-scales
+    an unowned slot's entries by 0, so an entry that overflowed becomes
+    inf * 0 = NaN: at the point before, the NaN enters the Cholesky
+    factor and the back substitution spreads it over every slot of the
+    step, so the trial is NaN; at the trial point, its test ``ok``
+    fails.  Either way the padded launch refuses a trial that the
+    candidate's own order, which never forms those entries, judges on
+    its owned terms."""
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    S_y = y.shape[0]
+    out = []
+    for lane in lanes:
+        c, s = divmod(int(lane), S_y)
+        own = arma_ne._order_mask([orders[c]], 1, 1, p, q, icpt, y.dtype,
+                                  y.device)
+        xl, m_own = x0[lane:lane + 1], mask[lane:lane + 1] * own
+        yl = y[s:s + 1]
+        nvl = None if nv is None else nv[s:s + 1]
+
+        def fits(n):
+            kw = dict(tol=tol, max_iter=n, n_valid=nvl)
+            return (arma_ne.fit_css_lm(xl, yl, p, q, icpt, mask=m_own,
+                                       grid_orders=[orders[c]], **kw),
+                    arma_ne.fit_css_lm(xl, yl, p, q, icpt, mask=m_own, **kw))
+
+        prev, row = fits(0), None
+        for n in range(1, max_iter + 1):
+            cur = fits(n)
+            if not bool(_by_value(cur[0][0], cur[1][0])):
+                took = [not bool(_by_value(a[0], b[0]))
+                        for a, b in zip(cur, prev)]
+                row = {"lane": int(lane), "order": list(orders[c]),
+                       "first_differing_iter": n,
+                       "per_candidate_took": took[0], "padded_took": took[1],
+                       "state_before_equal": all(
+                           bool(_by_value(a, b).all())
+                           for a, b in zip(prev[0], prev[1])),
+                       "fun_before": float(prev[0][1][0]),
+                       "fun_trial": float(cur[0 if took[0] else 1][1][0])}
+                o = m_own[0] > 0
+                points = (("before", prev[0][0]),
+                          ("trial", cur[0 if took[0] else 1][0]))
+                for name, xp in points:
+                    jtj, jtr, sse = arma_ne.normal_equations(
+                        xp * m_own, yl, p, q, icpt, n_valid=nvl)
+                    owned = torch.cat([jtj[0][o][:, o].reshape(-1),
+                                       jtr[0][o], sse])
+                    unowned = torch.cat([jtj[0][~o].reshape(-1),
+                                         jtr[0][~o]])
+                    row[f"owned_finite_{name}"] = bool(
+                        torch.isfinite(owned).all())
+                    row[f"owned_max_abs_{name}"] = float(owned.abs().max())
+                    row[f"unowned_nonfinite_{name}"] = int(
+                        (~torch.isfinite(unowned)).sum())
+                    row[f"unowned_max_abs_{name}"] = float(
+                        unowned.abs().max())
+                row["explained"] = (
+                    took[0] and not took[1] and row["state_before_equal"]
+                    and row["owned_finite_before"]
+                    and row["owned_finite_trial"]
+                    and row["unowned_nonfinite_before"]
+                    + row["unowned_nonfinite_trial"] > 0)
+                break
+            prev = cur
+        out.append(row or {"lane": int(lane), "explained": False,
+                           "first_differing_iter": None})
+    return out
+
+
 def phase_auto_grid_vs_route(screen, dev):
-    """The LM-fit kernel in grid mode at the screen's inputs: timed at
-    full size, and held against the route and the plain LM on the lanes
-    of the panel's first series."""
+    """The LM-fit kernel in grid mode at the screen's inputs: one launch
+    per candidate at its own order (the screen as ``auto_fit_panel`` runs
+    it) and the padded single launch, timed in turns at full size and held
+    against each other; each candidate's launch timed alone, with its
+    residency and bound; the per-candidate screen against the route and
+    the plain LM on the lanes of the panel's first series."""
     import torch
 
     from spark_timeseries_tpu_torch.ops import arma_ne
 
     (x0, y, p, q, icpt), kw = screen[0][:5], screen[1]
-    mask, nv = kw["mask"], kw["n_valid"]
+    mask, nv, orders = kw["mask"], kw["n_valid"], kw["grid_orders"]
     tol, iters = kw["tol"], kw["max_iter"]
     S_y, n_obs = y.shape
     S, k = x0.shape
     C = S // S_y
+    check(orders is not None and len(orders) == C,
+          f"the screen passed grid_orders {orders} for {C} candidates")
+    ragged = nv is not None
 
-    def run(x, m, yy):
+    def run(x, m, yy, grid=True):
         return arma_ne.fit_css_lm(x, yy, p, q, icpt, tol=tol,
-                                  max_iter=iters, mask=m, n_valid=nv)
+                                  max_iter=iters, mask=m, n_valid=nv,
+                                  grid_orders=orders if grid else None)
 
-    ms = _event_ms(lambda: run(x0, mask, y), 3)
+    # padded, per candidate, per candidate, padded
+    turns = [_event_ms(lambda: run(x0, mask, y, grid), 3)
+             for grid in (False, True, True, False)]
+    padded_ms, ms = float(np.mean(turns[::3])), float(np.mean(turns[1:3]))
     got = run(x0, mask, y)
-    cfg = arma_ne.lm_fit_config(S, n_obs, p, q, icpt, nv is not None, dev)
+    padded = run(x0, mask, y, grid=False)
+    vs_padded = _lm_agreement(got, padded)
+    # equal by value on every output (NaN matching NaN; a zero's sign may
+    # differ in the slots a candidate does not own)
+    same = [_by_value(a, b) for a, b in zip(got, padded)]
+    by_value = same[0] & same[1] & same[2] & same[3]
+    finite = torch.isfinite(padded[0]).all(dim=1) & torch.isfinite(padded[1])
+    # a lane that diverges: the padded form's masked slots make
+    # 0 * inf = NaN where the candidate's own order keeps inf
+    inf_vs_nan = torch.isinf(got[1]) & torch.isnan(padded[1])
+    x_differs = ~same[0]
+    other = ~by_value & ~x_differs & ~(inf_vs_nan & same[2] & same[3])
+    traced = _trace_x_differs(
+        torch.nonzero(x_differs).flatten()[:GRID_TRACE_LANES].tolist(), x0,
+        y, p, q, icpt, tol, iters, mask, nv, orders)
+
     passes = (1 + got[3]).double()
     total = int(passes.sum())
     bound_s, bound_by, n_bytes, flops = lm_fit_bound_s(
         S, n_obs, p, q, icpt, passes, S_y=S_y, mask=mask)
-    # every lane charged the padded order's step, as the kernel runs it
+    # every lane charged the padded order's step, as the padded launch
+    # runs it
     padded_s, _, _, padded_flops = lm_fit_bound_s(
-        S, n_obs, p, q, icpt, total, S_y=S_y)
+        S, n_obs, p, q, icpt, int((1 + padded[3]).sum()), S_y=S_y)
     padded_s = max(padded_s, n_bytes / PEAK_BYTES_S)
+
+    # each candidate's launch alone, at its own order, as a grid of one
+    candidates = []
+    for c, (pc, qc) in enumerate(orders):
+        blk = slice(c * S_y, (c + 1) * S_y)
+        c_ms = _event_ms(lambda: arma_ne.fit_css_lm(
+            x0[blk], y, p, q, icpt, tol=tol, max_iter=iters, mask=mask[blk],
+            n_valid=nv, grid_orders=[(pc, qc)]), 3)
+        cfg = arma_ne.lm_fit_config(S_y, n_obs, pc, qc, icpt, ragged, dev)
+        c_s, _, _, c_flops = lm_fit_bound_s(S_y, n_obs, p, q, icpt,
+                                            passes[blk], mask=mask[blk])
+        candidates.append({
+            "order": [pc, qc], "ms": c_ms, "bound_ms": c_s * 1e3,
+            "flops": c_flops, "lane_passes_mean": float(passes[blk].mean()),
+            "lane_passes_max": int(passes[blk].max()),
+            "blocks_per_sm": cfg.blocks_per_sm, "registers": cfg.registers,
+            "local_bytes": cfg.local_bytes})
     worst = int(got[3].argmax())
     wl, ws = slice(worst, worst + 1), worst % S_y
     worst_ms = _event_ms(lambda: arma_ne.fit_css_lm(
         x0[wl], y[ws:ws + 1], p, q, icpt, tol=tol, max_iter=iters,
-        mask=mask[wl]), 3)
+        mask=mask[wl], n_valid=None if nv is None else nv[ws:ws + 1],
+        grid_orders=[orders[worst // S_y]]), 3)
 
     def lanes_of(n_series):
         return (torch.arange(C, device=dev)[:, None] * S_y
                 + torch.arange(n_series, device=dev)).reshape(-1)
 
-    # the route, on the 36 lanes of each of the first AUTO_ROUTE_SERIES
+    # the route, on the C lanes of each of the first AUTO_ROUTE_SERIES
     r_lanes = lanes_of(AUTO_ROUTE_SERIES)
     r_y = y[:AUTO_ROUTE_SERIES]
-    r_got = run(x0[r_lanes], mask[r_lanes], r_y)
+    r_nv = None if nv is None else nv[:AUTO_ROUTE_SERIES]
+    r_got = arma_ne.fit_css_lm(x0[r_lanes], r_y, p, q, icpt, tol=tol,
+                               max_iter=iters, mask=mask[r_lanes],
+                               n_valid=r_nv, grid_orders=orders)
     arma_ne.normal_equations.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     route = arma_ne.fit_css_lm_route(x0[r_lanes], r_y, p, q, icpt, tol=tol,
-                                     max_iter=iters, mask=mask[r_lanes])
+                                     max_iter=iters, mask=mask[r_lanes],
+                                     n_valid=r_nv, grid_orders=orders)
     torch.cuda.synchronize()
     route_ms = (time.perf_counter() - t0) * 1e3
     route_launches = arma_ne.normal_equations.launches
@@ -1443,9 +1591,11 @@ def phase_auto_grid_vs_route(screen, dev):
     p_idx = torch.searchsorted(r_lanes, pl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = arma_ne.fit_css_lm_plain(x0[pl], y[:AUTO_PLAIN_SERIES], p, q,
-                                     icpt, tol=tol, max_iter=iters,
-                                     mask=mask[pl])
+    plain = arma_ne.fit_css_lm_plain(
+        x0[pl], y[:AUTO_PLAIN_SERIES], p, q, icpt, tol=tol, max_iter=iters,
+        mask=mask[pl],
+        n_valid=None if nv is None else nv[:AUTO_PLAIN_SERIES],
+        grid_orders=orders)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     got_pl = [t[p_idx] for t in r_got]
@@ -1454,7 +1604,13 @@ def phase_auto_grid_vs_route(screen, dev):
     row = {"phase": "auto_grid_vs_route", "order": [p, q, icpt],
            "lanes": S, "series": S_y, "candidates": C, "n_obs": n_obs,
            "max_iter": iters, "tol": tol, "kernel_ms": ms,
-           "config": cfg._asdict(),
+           "padded_launch_ms": padded_ms, "turns_ms": {
+               "padded": turns[::3], "per_candidate": turns[1:3]},
+           "side_streams": arma_ne.LM_GRID_STREAMS,
+           "candidates_alone_ms_sum": sum(c["ms"] for c in candidates),
+           "per_candidate": candidates,
+           "padded_config": arma_ne.lm_fit_config(
+               S, n_obs, p, q, icpt, ragged, dev)._asdict(),
            "lane_passes": {
                "sum": total, "mean": float(passes.mean()),
                "median": float(passes.median()),
@@ -1464,7 +1620,23 @@ def phase_auto_grid_vs_route(screen, dev):
            "bytes": n_bytes, "flops": flops,
            "bytes_bound_ms": n_bytes / PEAK_BYTES_S * 1e3,
            "share_of_bound": bound_s * 1e3 / ms,
+           "padded_share_of_bound": bound_s * 1e3 / padded_ms,
            "padded_bound_ms": padded_s * 1e3, "padded_flops": padded_flops,
+           "vs_padded": vs_padded, "vs_padded_floor": LM_ROUTE_SHARE,
+           "vs_padded_max_abs_x": _max_abs_x(got, padded),
+           "vs_padded_equal_by_value": float(by_value.double().mean()),
+           "vs_padded_equal_by_value_finite": float(
+               by_value[finite].double().mean()) if finite.any() else None,
+           "padded_finite_share": float(finite.double().mean()),
+           "vs_padded_fun_inf_vs_nan_share": float(
+               inf_vs_nan.double().mean()),
+           "vs_padded_inf_vs_nan_lanes": int(inf_vs_nan.sum()),
+           "vs_padded_inf_vs_nan_x_equal_lanes": int(
+               (inf_vs_nan & same[0]).sum()),
+           "vs_padded_x_differs_share": float(x_differs.double().mean()),
+           "vs_padded_x_differs_lanes": int(x_differs.sum()),
+           "vs_padded_x_differs_traced": traced,
+           "vs_padded_other_differs_lanes": int(other.sum()),
            "warp_efficiency": _warp_efficiency(
                torch.nn.functional.pad(1 + got[3], (0, (-S) % 32))),
            "slowest_lane_alone_ms": worst_ms,
@@ -1485,8 +1657,23 @@ def phase_auto_grid_vs_route(screen, dev):
     check(full_vs_sliced, "the grid's lanes fitted with the whole panel "
                           "differ from the same lanes over its first "
                           "series")
+    # every lane where the per-candidate screen and the padded launch part
+    # is one of the two kinds the masked slots' arithmetic explains
+    check(int(other.sum()) == 0,
+          f"per-candidate screen vs the padded launch: {int(other.sum())} "
+          f"lanes differ otherwise than by an inf fun against NaN or a "
+          f"trial refused for an overflow in an unowned slot")
+    check(len(traced) == int(x_differs.sum())
+          and all(t["explained"] for t in traced),
+          f"per-candidate screen vs the padded launch: of "
+          f"{int(x_differs.sum())} lanes whose x differs, "
+          f"{sum(t['explained'] for t in traced)} traced to a trial the "
+          f"padded launch refused for an overflow in an unowned slot")
     for key, floor in zip(("n_iter_equal", "fun_within_1e-5"),
                           LM_ROUTE_SHARE):
+        check(vs_padded[key] >= floor,
+              f"per-candidate screen vs the padded launch: {key} share "
+              f"{vs_padded[key]:.4f} < {floor}")
         check(vs_route[key] >= floor,
               f"grid LM-fit kernel vs route: {key} share "
               f"{vs_route[key]:.4f} < {floor}")
@@ -1653,6 +1840,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
         "plain_lanes": grid_row["plain_lanes"],
         "bound_ms": grid_row["bound_ms"], "bound_by": grid_row["bound_by"],
+        "padded_launch_ms": grid_row["padded_launch_ms"],
         "padded_bound_ms": grid_row["padded_bound_ms"],
         "library_ms": None}]})
     print(smi, flush=True)

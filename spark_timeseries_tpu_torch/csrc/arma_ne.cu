@@ -53,37 +53,54 @@
 // arithmetic around the pass is written in the batched loop's order
 // with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn, so no
 // FMA contraction moves an accept or stop decision away from that loop
-// over arma_ne_kernel.  An optional (k, S) mask of 0/1 freezes parameter
-// slots, as in the loop: the pass runs at x * mask and its JtJ and Jtr
-// are post-scaled.  Outputs x (k, S), fun (the sse), converged, n_iter;
-// a lane ran 1 + n_iter passes.
+// over arma_ne_kernel; the pass fuses each product into its sum
+// explicitly (__fmaf_rn; see ne_pass), so that its rounding does not
+// depend on the instantiation either.  An optional (k, S) mask of 0/1
+// freezes parameter slots, as in the loop: the pass runs at x * mask and
+// its JtJ and Jtr are post-scaled.  Outputs x (k, S), fun (the sse),
+// converged, n_iter; a lane ran 1 + n_iter passes.
 //
 // The candidate grid (the Pallas kernel's y_blocks mode, which pairs
 // parameter block i with panel block i % y_blocks): S = C * S_y lanes,
 // candidate-major, over one (n_obs, S_y) panel; lane i reads y column and
-// n_valid entry i % S_y and its own column i of x0, mask and the outputs.
-// S_y == S is the per-series fit, the same kernel.  No lane padding is
-// needed (the TPU padded each candidate's run to its 1024-lane blocks).
-// A warp holds 32 consecutive series of one candidate, so its y loads stay
-// coalesced.  The resident lanes (~2 blocks of 128 an SM at (5,5,1), ~34k
-// lanes) are a fraction of one candidate's run at S_y = 131072, so the
-// y columns a pass re-reads (~17 MB for them at n_obs = 128) stay in the
-// 50 MB L2, while each candidate's sweep over the 64 MiB panel comes from
-// HBM at worst: C reads of the panel a grid, not one.
+// n_valid entry i % S_y and its own column i of x0, mask and the outputs,
+// in the padded layout [c, AR(max_p), MA(max_q)] with a 0/1 mask.  No
+// lane padding is needed (the TPU padded each candidate's run to its
+// 1024-lane blocks).  A warp holds 32 consecutive series of one
+// candidate, so its y loads stay coalesced.  It runs in one of two ways:
+//
+// - padded: one launch at <max_p, max_q> over all C * S_y lanes; each lane
+//   computes every slot, its masked ones multiplied by 0.  At (5,5,1) the
+//   state takes 255 registers and a ~220 B spill, 2 blocks of 128 an SM,
+//   and a lane-step costs 298 flop whatever the lane's own order (8 at
+//   (0,0)+c, 76 at (2,2)+c).
+// - per candidate (the auto-fit screen, ops/arma_ne.py's grid_orders):
+//   candidate c's S_y lanes, one contiguous block, are one launch of the
+//   <p_c, q_c> instantiation (lane0 = c * S_y, theta_slot = icpt + max_p,
+//   t0 = max(max_p, max_q)), which reads and writes only the slots it
+//   owns; the wrapper leaves x0 * mask in the others.  Each candidate
+//   then runs at its own registers, residency and flop a step.  A masked
+//   slot of the padded form contributes exact zeros (0 * y terms in the
+//   sums, zero rows of JtJ, Cholesky rows that are zero but for their
+//   1e-6 diagonal and solve to delta = 0), so on finite lanes the two
+//   forms agree bit for bit.
+//
+// The resident lanes of one launch are a fraction of one candidate's run
+// at S_y = 131072, so the y columns a pass re-reads (~17 MB for ~34k
+// lanes at n_obs = 128) stay in the 50 MB L2, while each candidate's
+// sweep over the 64 MiB panel comes from HBM at worst: C reads of the
+// panel a grid, not one.
 //
 // Its bound is operations: 76 flop x 125 steps per pass at (2,1,2), and a
 // lane needs 1 + n_iter passes (a mean of ~13 on the main path's panel,
 // at most 51), so at S = 131072 the chunk's ~1.8e6 passes are ~1.7e10
 // flop, ~0.25 ms at 67 TFLOP/s; its one read of the inputs is ~0.02 ms.
-// At the auto-fit grid's padded (5,5,1) a lane-step is 298 flop (the
-// masked columns are computed like the others), though a lane needs only
-// its own order's step: 8 flop at (0,0)+c, 76 at (2,2)+c; chip_smoke.py's
-// grid bound counts that.  The design keeps the LM
-// state (x, lam, f, the accepted triu(JtJ) and Jtr, the trial) in
-// registers beside the pass's carry (113 registers at (2,1,2), 175 at
-// (3,3,1)) and reads y from global memory on every pass: time-major, so
-// a warp's loads are coalesced because its threads hold consecutive
-// lanes.  From about k = 10 that state, the pass's carry and the trial's
+// chip_smoke.py's grid bound charges each lane its own order's step.
+// The design keeps the LM state (x, lam, f, the accepted triu(JtJ) and
+// Jtr, the trial) in registers beside the pass's carry (113 registers at
+// (2,1,2), 175 at (3,3,1)) and reads y from global memory on every pass:
+// time-major, so a warp's loads are coalesced because its threads hold
+// consecutive lanes.  From about k = 10 that state, the pass's carry and the trial's
 // sums (about 270 live floats at (5,5,1)) exceed the 255 registers a
 // thread may hold, and the compiler keeps a few dozen of them in local
 // memory (PERF.md); moving the accepted state to shared memory laid out
@@ -358,25 +375,34 @@ extern "C" int arma_lm_fit_config(int S, int n_obs, int p, int q, int icpt,
 }
 
 // Launches the whole LM fit of S lanes over an S_y-series panel on
-// `stream`; does not synchronise, allocates nothing.  x0 (k, S), y
-// (n_obs, S_y), nv (S_y,) or null, mask (k, S) or null; outputs x (k, S),
-// fun, converged, n_iter (S,), one thread a lane in blocks of `threads`.
-// S must be a multiple of S_y (lane i reads series i % S_y).  Returns 0, a
+// `stream`; does not synchronise, allocates nothing.  The launch fits
+// lanes lane0 .. lane0 + S - 1 of an S_all-lane layout: x0 (k_pad, S_all),
+// y (n_obs, S_y), nv (S_y,) or null, mask (k_pad, S_all) or null; outputs
+// x (k_pad, S_all), fun, converged, n_iter (S_all,), one thread a lane in
+// blocks of `threads`.  Lane i reads series i % S_y.  ARMA(p, q) owns
+// slot 0 (with icpt), the AR slots icpt .. icpt + p - 1 and the MA slots
+// theta_slot .. theta_slot + q - 1 of x0, mask and x, and writes no
+// other; its CSS window starts at t0.  The per-series fit is lane0 = 0,
+// S_all = S, theta_slot = icpt + p, t0 = max(p, q).  Returns 0, a
 // cudaError_t, or -1 for bad arguments.
 extern "C" int arma_lm_fit_launch(
     const float* x0, const float* y, const float* nv, const float* mask,
     float* x, float* fun, unsigned char* converged, int* n_iter, int S,
     int S_y, int n_obs, int p, int q, int icpt, float tol, int max_iter,
-    int threads, void* stream_ptr) {
-  if (!arma_ne::lm_args_ok(S, S_y, n_obs, p, q, icpt, threads)) return -1;
+    int lane0, int S_all, int theta_slot, int t0, int threads,
+    void* stream_ptr) {
+  if (!arma_ne::lm_args_ok(S, S_y, n_obs, p, q, icpt, threads) ||
+      lane0 < 0 || static_cast<long long>(lane0) + S > S_all ||
+      theta_slot < icpt + p || t0 < (p > q ? p : q) || t0 >= n_obs)
+    return -1;
   LmConfig c;
   cudaError_t err =
       arma_ne::lm_config(S, p, q, icpt, nv != nullptr, threads, &c);
   if (err == cudaErrorInvalidValue && c.kernel == nullptr) return -1;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c.blocks_per_sm < 1) return -1;
-  LmArgs args{x0, y, nv, mask, x, fun, converged, n_iter, S, S_y, n_obs, tol,
-              max_iter};
+  LmArgs args{x0, y, nv, mask, x, fun, converged, n_iter, S, S_y, n_obs,
+              tol, max_iter, lane0, S_all, theta_slot, t0};
   void* kernel_args[] = {&args};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(c.kernel),
                          dim3(c.blocks), dim3(threads), kernel_args, 0,

@@ -22,22 +22,31 @@ constexpr int kMaxOrder = 5;        // p, q <= 5 are instantiated
 constexpr int kThreads = 128;       // arma_ne_kernel's block
 constexpr int kMaxLmThreads = 256;  // the largest LM-fit block
 
-// The LM fit's arguments.  The panel has S_y series; the fit has S lanes,
-// a multiple of S_y: lane i reads y column i % S_y and n_valid[i % S_y]
-// and its own column i of x0, mask and the outputs (the candidate-major
-// grid of pallas_arma.fit_css_lm; S == S_y is the plain per-series fit).
+// The LM fit's arguments.  The panel has S_y series; a launch fits S
+// lanes, lanes lane0 .. lane0 + S - 1 of a layout of S_all: lane i reads
+// y column i % S_y and n_valid[i % S_y] and its own column i of x0, mask
+// and the outputs (the candidate-major grid of pallas_arma.fit_css_lm;
+// S == S_y == S_all, lane0 == 0 is the plain per-series fit).  x0, mask
+// and x hold a padded parameter layout [c?, AR(P_pad), MA(Q_pad)], of
+// which an instantiation <P, Q, ICPT> owns the intercept, the first P AR
+// slots and the Q MA slots from theta_slot on (ICPT + P is the identity,
+// where the layout is the instantiation's own); the CSS window starts at
+// t0 >= max(P, Q) (max(P_pad, Q_pad) on a padded layout).
 struct LmArgs {
-  const float* x0;           // (k, S) starting points
+  const float* x0;           // (k_pad, S_all) starting points
   const float* y;            // (n_obs, S_y)
   const float* nv;           // (S_y,) or null
-  const float* mask;         // (k, S) of 0/1, or null
-  float* x;                  // out (k, S)
-  float* fun;                // out (S,)
-  unsigned char* converged;  // out (S,) bool
-  int* n_iter;               // out (S,)
+  const float* mask;         // (k_pad, S_all) of 0/1, or null
+  float* x;                  // out (k_pad, S_all): the owned slots
+  float* fun;                // out (S_all,)
+  unsigned char* converged;  // out (S_all,) bool
+  int* n_iter;               // out (S_all,)
   int S, S_y, n_obs;
   float tol;
   int max_iter;
+  int lane0, S_all;          // this launch's first lane; the layout's lanes
+  int theta_slot;            // padded slot of theta_1
+  int t0;                    // the CSS window's first step
 };
 
 using LmKernel = void (*)(const LmArgs);
@@ -64,16 +73,27 @@ __host__ __device__ constexpr int tri(int a, int b, int k) {
   return a * k - a * (a - 1) / 2 + (b - a);
 }
 
-// One normal-equations pass of a lane at prm = [c?, phi..., theta...].
-// `y` is the lane's column of the time-major panel (row stride `stride`).
+// One normal-equations pass of a lane at prm = [c?, phi..., theta...]
+// over the window t0 <= t < n_obs (t0 >= max(P, Q)).  `y` is the lane's
+// column of the time-major panel (row stride `stride`).
+//
+// Every product is fused into its sum with __fmaf_rn, and every other
+// operation rounds on its own (__fsub_rn, __fmul_rn): left to the
+// compiler, whether a product fuses depends on the instantiation (a
+// pure-AR lane's y-lag products recur across unrolled steps, are computed
+// once and then not fused), so the same lane fitted at <p, q> and inside
+// a padded <P, Q> would round apart.  Written out, a padded instantiation
+// whose extra slots are zero adds exact zeros (fma(0, v, s) == s for a
+// finite v) and rounds as the lane's own order does.
 template <int P, int Q, int ICPT, bool RAGGED>
 __device__ __forceinline__ void ne_pass(
     const float (&prm)[Order<P, Q, ICPT>::KA], const float* __restrict__ y,
-    const size_t stride, const float n_valid, const int n_obs, float& sse,
+    const size_t stride, const float n_valid, const int t0, const int n_obs,
+    float& sse,
     float (&jtj)[Order<P, Q, ICPT>::NTA],
     float (&jtr)[Order<P, Q, ICPT>::KA]) {
   using O = Order<P, Q, ICPT>;
-  constexpr int K = O::K, NT = O::NT, ML = O::ML;
+  constexpr int K = O::K, NT = O::NT;
   constexpr int PA = O::PA, QA = O::QA, KA = O::KA;
   const float c = ICPT ? prm[0] : 0.0f;
 
@@ -81,7 +101,7 @@ __device__ __forceinline__ void ne_pass(
   float yr[PA], er[QA], Tr[QA][KA];
 #pragma unroll
   for (int j = 0; j < PA; ++j)
-    yr[j] = j < P ? y[static_cast<size_t>(ML - 1 - j) * stride] : 0.0f;
+    yr[j] = j < P ? y[static_cast<size_t>(t0 - 1 - j) * stride] : 0.0f;
 #pragma unroll
   for (int m = 0; m < QA; ++m) {
     er[m] = 0.0f;
@@ -94,16 +114,17 @@ __device__ __forceinline__ void ne_pass(
 #pragma unroll
   for (int x = 0; x < K; ++x) jtr[x] = 0.0f;
 
-  const float* yp = y + static_cast<size_t>(ML) * stride;
+  const float* yp = y + static_cast<size_t>(t0) * stride;
 #pragma unroll (O::UNROLL)
-  for (int t = ML; t < n_obs; ++t, yp += stride) {
+  for (int t = t0; t < n_obs; ++t, yp += stride) {
     const float yt = *yp;
     float yhat = c;
 #pragma unroll
-    for (int j = 0; j < P; ++j) yhat += prm[ICPT + j] * yr[j];
+    for (int j = 0; j < P; ++j) yhat = __fmaf_rn(prm[ICPT + j], yr[j], yhat);
 #pragma unroll
-    for (int m = 0; m < Q; ++m) yhat += prm[ICPT + P + m] * er[m];
-    float e = yt - yhat;
+    for (int m = 0; m < Q; ++m)
+      yhat = __fmaf_rn(prm[ICPT + P + m], er[m], yhat);
+    float e = __fsub_rn(yt, yhat);
     float T[KA];
 #pragma unroll
     for (int x = 0; x < K; ++x) {
@@ -113,23 +134,25 @@ __device__ __forceinline__ void ne_pass(
       else u = er[(x - ICPT - P) % QA];
       float acc = u;
 #pragma unroll
-      for (int m = 0; m < Q; ++m) acc += prm[ICPT + P + m] * Tr[m][x];
+      for (int m = 0; m < Q; ++m)
+        acc = __fmaf_rn(prm[ICPT + P + m], Tr[m][x], acc);
       T[x] = -acc;
     }
     if (RAGGED) {
       const float w = static_cast<float>(t) < n_valid ? 1.0f : 0.0f;
-      e *= w;
+      e = __fmul_rn(e, w);
 #pragma unroll
-      for (int x = 0; x < K; ++x) T[x] *= w;
+      for (int x = 0; x < K; ++x) T[x] = __fmul_rn(T[x], w);
     }
-    sse += e * e;
+    sse = __fmaf_rn(e, e, sse);
 #pragma unroll
     for (int a = 0, idx = 0; a < K; ++a) {
 #pragma unroll
-      for (int b = a; b < K; ++b, ++idx) jtj[idx] += T[a] * T[b];
+      for (int b = a; b < K; ++b, ++idx)
+        jtj[idx] = __fmaf_rn(T[a], T[b], jtj[idx]);
     }
 #pragma unroll
-    for (int x = 0; x < K; ++x) jtr[x] += T[x] * e;
+    for (int x = 0; x < K; ++x) jtr[x] = __fmaf_rn(T[x], e, jtr[x]);
     if (Q > 0) {
 #pragma unroll
       for (int m = QA - 1; m > 0; --m) {
@@ -162,7 +185,7 @@ arma_ne_kernel(const float* __restrict__ params, const float* __restrict__ y,
 #pragma unroll
   for (int x = 0; x < O::K; ++x) prm[x] = params[x * stride + s];
   ne_pass<P, Q, ICPT, RAGGED>(prm, y + s, stride, RAGGED ? nv[s] : 0.0f,
-                              n_obs, sse, jtj, jtr);
+                              O::ML, n_obs, sse, jtj, jtr);
   out[s] = sse;
 #pragma unroll
   for (int i = 0; i < O::NT; ++i) out[(1 + i) * stride + s] = jtj[i];
@@ -251,14 +274,16 @@ __device__ __forceinline__ bool lm_pass(
     const float (&x)[Order<P, Q, ICPT>::KA],
     const float (&msk)[Order<P, Q, ICPT>::KA], const bool masked,
     const float* __restrict__ y, const size_t stride, const float n_valid,
-    const int n_obs, float& sse, float (&jtj)[Order<P, Q, ICPT>::NTA],
+    const int t0, const int n_obs, float& sse,
+    float (&jtj)[Order<P, Q, ICPT>::NTA],
     float (&jtr)[Order<P, Q, ICPT>::KA]) {
   using O = Order<P, Q, ICPT>;
   constexpr int K = O::K;
   float prm[O::KA];
 #pragma unroll
   for (int c = 0; c < K; ++c) prm[c] = masked ? __fmul_rn(x[c], msk[c]) : x[c];
-  ne_pass<P, Q, ICPT, RAGGED>(prm, y, stride, n_valid, n_obs, sse, jtj, jtr);
+  ne_pass<P, Q, ICPT, RAGGED>(prm, y, stride, n_valid, t0, n_obs, sse, jtj,
+                              jtr);
   if (masked) {
     // the loop's jtj * mask[:, :, None] * mask[:, None, :]: entry [i][j]
     // scaled by mask[i] then mask[j]; the solve reads i >= j
@@ -279,33 +304,44 @@ __device__ __forceinline__ bool lm_pass(
   return ok;
 }
 
-// One thread fits one lane.
+// One thread fits one lane, reading and writing its own slots of the
+// padded layout (LmArgs); the slots it does not own are the caller's.
 template <int P, int Q, int ICPT, bool RAGGED>
 __global__ void __launch_bounds__(kMaxLmThreads)
 arma_lm_fit_kernel(const LmArgs A) {
   using O = Order<P, Q, ICPT>;
   constexpr int K = O::K, KA = O::KA, NTA = O::NTA;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= A.S) return;
-  const size_t stride = static_cast<size_t>(A.S);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= A.S) return;
+  const int lane = A.lane0 + r;
+  const size_t stride = static_cast<size_t>(A.S_all);
   const int col = lane % A.S_y;
   const size_t y_stride = static_cast<size_t>(A.S_y);
   const float* y = A.y + col;
   const bool masked = A.mask != nullptr;
   const float tol = A.tol;
   const float n_valid = RAGGED ? A.nv[col] : 0.0f;
+  const int t0 = A.t0;
+  // the offset of parameter c's row in the padded layout: the intercept
+  // and AR slots keep their index, the MA slots start at theta_slot
+  const size_t ma_shift =
+      static_cast<size_t>(A.theta_slot - (ICPT + P)) * stride;
+  auto at = [&](int c) {
+    return static_cast<size_t>(c) * stride + (c < ICPT + P ? 0 : ma_shift) +
+           lane;
+  };
 
   float x[KA], msk[KA];
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    x[c] = A.x0[c * stride + lane];
-    msk[c] = masked ? A.mask[c * stride + lane] : 1.0f;
+    x[c] = A.x0[at(c)];
+    msk[c] = masked ? A.mask[at(c)] : 1.0f;
     if (masked) x[c] = __fmul_rn(x[c], msk[c]);
   }
   // the current point's sse and normal equations
   float f, jtj[NTA], jtr[KA];
-  lm_pass<P, Q, ICPT, RAGGED>(x, msk, masked, y, y_stride, n_valid, A.n_obs,
-                              f, jtj, jtr);
+  lm_pass<P, Q, ICPT, RAGGED>(x, msk, masked, y, y_stride, n_valid, t0,
+                              A.n_obs, f, jtj, jtr);
   float lam = 1e-3f;
   int it = 0;
   bool conv = false;
@@ -313,8 +349,8 @@ arma_lm_fit_kernel(const LmArgs A) {
     float xt[KA], dmax, ft, jtj_t[NTA], jtr_t[KA];
     lm_step<K, KA, NTA>(jtj, jtr, lam, x, xt, dmax);
     const bool ok = lm_pass<P, Q, ICPT, RAGGED>(xt, msk, masked, y, y_stride,
-                                                n_valid, A.n_obs, ft, jtj_t,
-                                                jtr_t);
+                                                n_valid, t0, A.n_obs, ft,
+                                                jtj_t, jtr_t);
     const bool improved = ft < f && isfinite(ft) && ok;
     if (improved) {
 #pragma unroll
@@ -338,7 +374,7 @@ arma_lm_fit_kernel(const LmArgs A) {
     ++it;
   }
 #pragma unroll
-  for (int c = 0; c < K; ++c) A.x[c * stride + lane] = x[c];
+  for (int c = 0; c < K; ++c) A.x[at(c)] = x[c];
   A.fun[lane] = f;
   A.converged[lane] = conv ? 1 : 0;
   A.n_iter[lane] = it;

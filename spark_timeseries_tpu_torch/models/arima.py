@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -546,19 +546,30 @@ def _step_down_stationary(phi: torch.Tensor, orders: torch.Tensor
     return ok
 
 
-class PanelARIMAFit(NamedTuple):
-    """Per-series automatic order selection over a panel, in the JAX
-    package's layout: ``orders (n_series, 3)`` holds (p, d, q);
-    ``coefficients (n_series, 1 + max_p + max_q)`` float64, zero-padded
-    — slot 0 the intercept (zero when that series' ``d > 1``), slots
-    ``1..max_p`` the AR terms, then the MA terms; ``aic (n_series,)``.
-    ``device`` is where :meth:`model_for` puts a model (float32 on CUDA,
-    float64 on the CPU)."""
+class _PanelARIMAFields(NamedTuple):
     orders: np.ndarray
     coefficients: np.ndarray
     aic: np.ndarray
     max_p: int
-    device: torch.device = torch.device("cuda")
+
+
+class PanelARIMAFit(_PanelARIMAFields):
+    """Per-series automatic order selection over a panel, the JAX
+    package's four fields: ``orders (n_series, 3)`` holds (p, d, q);
+    ``coefficients (n_series, 1 + max_p + max_q)`` float64, zero-padded
+    — slot 0 the intercept (zero when that series' ``d > 1``), slots
+    ``1..max_p`` the AR terms, then the MA terms; ``aic (n_series,)``.
+
+    The attribute ``device``, off the tuple, is where :meth:`model_for`
+    puts a model (float32 on CUDA, float64 on the CPU): the fit's device
+    when :func:`auto_fit_panel` made it (``_replace`` carries it over;
+    ``_make`` has no fit to take it from), else CUDA."""
+    device = torch.device("cuda")
+
+    def _replace(self, **kwargs) -> "PanelARIMAFit":
+        fit = super()._replace(**kwargs)
+        fit.device = self.device
+        return fit
 
     def model_for(self, i: int) -> ARIMAModel:
         """Series ``i``'s fit as a standalone model."""
@@ -576,9 +587,9 @@ class PanelARIMAFit(NamedTuple):
 
 
 def _auto_fit_panel_kernel(values: torch.Tensor, masks_base: torch.Tensor,
-                           pq: torch.Tensor, crit: float, max_p: int,
-                           max_q: int, max_d: int, max_iter: int,
-                           screen_iter: int,
+                           pq: Sequence[Tuple[int, int]], crit: float,
+                           max_p: int, max_q: int, max_d: int,
+                           max_iter: int, screen_iter: int,
                            n_valid: Optional[torch.Tensor] = None):
     """The whole batched search on ``values (S, n)``'s device: KPSS
     d-selection over the stack of size-preserving differences (the
@@ -590,19 +601,24 @@ def _auto_fit_panel_kernel(values: torch.Tensor, masks_base: torch.Tensor,
     stationarity and invertibility) and AIC argmin, then the REFINE of
     each series' winner at the remaining budget, kept only while finite
     and admissible.  Each LM stage is one ``ops.arma_ne.fit_css_lm``
-    call: on CUDA one LM-fit kernel launch over ``x0 (C·S, k)`` and the
-    unrepeated panel.
+    call over ``x0 (C·S, k)`` and the unrepeated panel: on CUDA the screen
+    is one LM-fit kernel launch per candidate at its own order (its
+    ``grid_orders`` are ``pq``), the refine one padded launch.
 
     ``masks_base (C, k)`` sets slot 0 (intercept) for every candidate;
-    it is zeroed per series whose d > 1.  ``n_valid (S,)`` restricts each
-    lane to its left-aligned valid window.  Returns ``(orders (S, 3),
-    coefs (S, k), aic (S,), d_ok (S,), screen_capped (S,), lm_calls)``,
-    the last the number of LM stages run."""
+    it is zeroed per series whose d > 1.  ``pq`` is the host list of the
+    C candidates' ``(p, q)``.  ``n_valid (S,)`` restricts each lane to its
+    left-aligned valid window.  Returns ``(orders (S, 3), coefs (S, k),
+    aic (S,), d_ok (S,), screen_capped (S,), lm_launches)``, the last
+    the LM-fit kernel launches the stages make on CUDA (C + 1 with a
+    refine)."""
     dtype = values.dtype
     dev = values.device
     S, n = values.shape
     k = 1 + max_p + max_q
     C = masks_base.shape[0]
+    grid_orders = pq            # the screen's launches read the host list
+    pq = torch.as_tensor(pq, dtype=torch.int32, device=dev)
 
     diffs = torch.stack([differences_of_order_d(values, dd)
                          for dd in range(max_d + 1)])          # (D, S, n)
@@ -653,19 +669,20 @@ def _auto_fit_panel_kernel(values: torch.Tensor, masks_base: torch.Tensor,
     del Mn, ident
 
     tol = 1e-10 if dtype == torch.float64 else 1e-6
-    lm_calls = 0
+    lm_launches = 0
 
-    def grid_lm(x0, mask, iters):
-        nonlocal lm_calls
-        lm_calls += 1
+    def grid_lm(x0, mask, iters, orders=None):
+        nonlocal lm_launches
+        lm_launches += 1 if orders is None else len(orders)
         lead = x0.shape[:-1]
         x, f, conv, n_it = fit_css_lm(
             x0.reshape(-1, k), diffed, max_p, max_q, 1, tol=tol,
-            max_iter=iters, mask=mask.reshape(-1, k), n_valid=n_valid)
+            max_iter=iters, mask=mask.reshape(-1, k), n_valid=n_valid,
+            grid_orders=orders)
         return MinimizeResult(x.reshape(*lead, k), f.reshape(lead),
                               conv.reshape(lead), n_it.reshape(lead))
 
-    res = grid_lm(init, masks, screen_iter)
+    res = grid_lm(init, masks, screen_iter, grid_orders)
     lane_ok = torch.isfinite(res.x).all(dim=-1, keepdim=True)
     params = torch.where(lane_ok, res.x, init) * masks
 
@@ -714,7 +731,7 @@ def _auto_fit_panel_kernel(values: torch.Tensor, masks_base: torch.Tensor,
         keep &= torch.isfinite(aic_r)
         coefs = torch.where(keep[:, None], refined, coefs)
         chosen_aic = torch.where(keep, aic_r, chosen_aic)
-    return orders, coefs, chosen_aic, d_ok, screen_capped, lm_calls
+    return orders, coefs, chosen_aic, d_ok, screen_capped, lm_launches
 
 
 def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
@@ -737,13 +754,15 @@ def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
     sample.
 
     Runs on ``device`` (``None`` means CUDA, float32, where the screen
-    and the refine are one LM-fit kernel launch each over the unrepeated
-    panel; ``device="cpu"`` runs the plain LM, float32 or float64).
+    is one LM-fit kernel launch per candidate at its own order and the
+    refine one launch, both over the unrepeated panel; ``device="cpu"``
+    runs the plain LM, float32 or float64).
     NaN-padded panels fit each lane's valid window; lanes too short for
     the grid get NaN coefficients, +inf aic and orders (0, 0, 0).  A
     series whose d cannot be chosen raises ``ValueError`` (unless
-    ``max_d == 0``).  ``stats`` (a dict) receives ``lm_fit_launches`` (2
-    on CUDA, 0 on the CPU) and ``screen_capped`` (the share of winners
+    ``max_d == 0``).  ``stats`` (a dict) receives ``lm_fit_launches`` (C
+    + 1 on CUDA with C candidates, C when the screen has the whole
+    budget; 0 on the CPU) and ``screen_capped`` (the share of winners
     whose screen hit its cap).  Returns a :class:`PanelARIMAFit` of
     numpy arrays, as the JAX package's."""
     dev = resolve_device(device)
@@ -773,11 +792,10 @@ def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
         short = short_lanes(obs_len, 2 * mx + 3 + max_p + max_q,
                             f"auto_fit_panel (max_p={max_p}, max_q={max_q})"
                             f" Hannan-Rissanen initialization")
-    orders, coefs, aic, d_ok, screen_capped, lm_calls = \
+    orders, coefs, aic, d_ok, screen_capped, lm_launches = \
         _auto_fit_panel_kernel(
             values, torch.as_tensor(masks, dtype=values.dtype, device=dev),
-            torch.as_tensor(pq, dtype=torch.int32, device=dev), crit, max_p,
-            max_q, max_d, max_iter, screen_iter, obs_len)
+            pq, crit, max_p, max_q, max_d, max_iter, screen_iter, obs_len)
 
     short_np = None if short is None else short.cpu().numpy()
     capped = screen_capped.cpu().numpy()
@@ -785,7 +803,7 @@ def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
         capped = capped[~short_np]
     capped_frac = float(np.mean(capped)) if capped.size else 0.0
     if stats is not None:
-        stats["lm_fit_launches"] = lm_calls if dev.type == "cuda" else 0
+        stats["lm_fit_launches"] = lm_launches if dev.type == "cuda" else 0
         stats["screen_capped"] = capped_frac
     # the reduced screen budget can change order selection on
     # slow-converging panels; say so when it plausibly did
@@ -820,4 +838,6 @@ def auto_fit_panel(values, max_p: int = 5, max_d: int = 2, max_q: int = 5,
             f"auto_fit_panel: no admissible ARMA candidate for {n_failed} "
             f"series; their aic is +inf and coefficients are zero",
             stacklevel=2)
-    return PanelARIMAFit(out_orders, out_coefs, out_aic, max_p, dev)
+    fit = PanelARIMAFit(out_orders, out_coefs, out_aic, max_p)
+    fit.device = dev
+    return fit

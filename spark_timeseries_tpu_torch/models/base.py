@@ -6,7 +6,7 @@ one model object is a whole panel's fit."""
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,10 +22,13 @@ class FitDiagnostics(NamedTuple):
 
     ``converged`` is False for lanes whose optimizer hit its iteration cap
     and for lanes quarantined back to their initial guess; ``fun`` is the
-    objective at the returned parameters."""
+    objective at the returned parameters.  ``attempts`` is the per-lane
+    multi-start solve count of a fit with a retry policy; no fit of the
+    port has one yet, so it is None."""
     converged: torch.Tensor   # bool (...,)
     n_iter: torch.Tensor      # (...,)
     fun: torch.Tensor         # (...,)
+    attempts: Optional[torch.Tensor] = None   # (...,) multi-start solves
 
 
 def diagnostics_from(res, lane_ok=None) -> FitDiagnostics:

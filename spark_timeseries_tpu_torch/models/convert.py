@@ -63,8 +63,9 @@ def panel_arima_fit_from_numpy(orders, coefficients, aic, max_p: int,
             f"expected orders (n, 3), coefficients (n, 1 + max_p + max_q) "
             f"and aic (n,); got {orders.shape}, {coefficients.shape}, "
             f"{aic.shape} with max_p={max_p}")
-    return PanelARIMAFit(orders, coefficients, aic, int(max_p),
-                         resolve_device(device))
+    fit = PanelARIMAFit(orders, coefficients, aic, int(max_p))
+    fit.device = resolve_device(device)
+    return fit
 
 
 def autoregression_from_numpy(c, coefficients,

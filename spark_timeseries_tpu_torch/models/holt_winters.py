@@ -213,7 +213,7 @@ def fit(ts, period: int, model_type: str = "additive",
                             "Holt-Winters fit (two init periods + 1)")
         p, conv_mask = apply_short_quarantine(p, conv.converged, short)
         conv = conv._replace(converged=conv_mask)
-    conv = FitDiagnostics(*(t.reshape(batch) for t in conv))
+    conv = FitDiagnostics(*(t.reshape(batch) for t in conv[:3]))
     p = p.reshape(*batch, 3)
     return HoltWintersModel(model_type, period, p[..., 0], p[..., 1],
                             p[..., 2], diagnostics=conv)

@@ -13,9 +13,10 @@ between the two (a kernel that fails to build or launch raises):
   Python loop over time steps on the lane batch);
 - :func:`fit_css_lm`, the whole LM fit of a panel, or of a candidate
   grid ``x0 (C·S, k)`` over one ``(S, n)`` panel (``arma_lm_fit_kernel``:
-  one launch that runs every lane's solver state machine on the card;
-  plain: :func:`fit_css_lm_plain`, the batched LM loop over the plain
-  pass).  :func:`fit_css_lm_route` runs the same batched loop over
+  one launch that runs every lane's solver state machine on the card, or,
+  given each candidate's order in ``grid_orders``, one launch per
+  candidate at that order; plain: :func:`fit_css_lm_plain`, the batched
+  LM loop over the plain pass).  :func:`fit_css_lm_route` runs the same batched loop over
   :func:`normal_equations`, one kernel launch per iteration: the route the
   LM-fit kernel is held against.  The ARIMA fit runs :func:`fit_css_lm`;
 - :func:`css_cost`, the CSS cost alone (``arma_css_kernel``; plain:
@@ -34,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -338,10 +339,37 @@ def css_cost_plain(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
 LM_FIT_THREADS = 128
 
 
-def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
+def _order_mask(grid_orders, S: int, S_y: int, p: int, q: int, icpt: int,
+                dtype, device) -> torch.Tensor:
+    """The ``(S, k)`` 0/1 mask of the slots each candidate's order owns in
+    the padded ``[c?, AR(p), MA(q)]`` layout: candidate ``c``'s ``S_y``
+    lanes own the intercept (with ``icpt``), their first ``p_c`` AR slots
+    and their first ``q_c`` MA slots."""
+    C = S // S_y
+    orders = [(int(pc), int(qc)) for pc, qc in grid_orders]
+    if len(orders) != C:
+        raise ValueError(
+            f"grid_orders has {len(orders)} candidates; x0's {S} lanes over "
+            f"{S_y} series are {C}")
+    for pc, qc in orders:
+        if not (0 <= pc <= p and 0 <= qc <= q) or icpt + pc + qc == 0:
+            raise ValueError(
+                f"grid_orders candidate ARMA({pc},{qc}) with icpt={icpt} "
+                f"does not fit the padded ARMA({p},{q}) layout or has no "
+                f"parameter")
+    rows = torch.zeros((C, icpt + p + q), dtype=dtype)
+    for c, (pc, qc) in enumerate(orders):
+        rows[c, :icpt + pc] = 1.0
+        rows[c, icpt + p:icpt + p + qc] = 1.0
+    return rows.to(device).repeat_interleave(S_y, dim=0)
+
+
+def _lm_inputs(x0, y, p, q, icpt, mask, n_valid, grid_orders=None):
     """Validated ``(x0, mask, n_valid)`` of an LM fit, cast to ``y``'s
     dtype and with ``x0`` masked.  ``x0`` and ``mask`` have ``C·S`` lanes
-    (candidate-major) over the ``S`` series of ``y`` and ``n_valid``."""
+    (candidate-major) over the ``S`` series of ``y`` and ``n_valid``;
+    ``grid_orders`` multiplies the mask by each candidate's order mask
+    (:func:`_order_mask`)."""
     S, k = x0.shape
     S_y, n_obs = y.shape
     if S_y == 0 or S % S_y:
@@ -358,6 +386,9 @@ def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
             f"(expected {(S_y,)})")
     _check_window(n_obs, p, q)
     x0 = x0.to(y.dtype)
+    if grid_orders is not None:
+        own = _order_mask(grid_orders, S, S_y, p, q, icpt, y.dtype, y.device)
+        mask = own if mask is None else mask.to(y.dtype) * own
     if mask is not None:
         mask = mask.to(y.dtype)
         x0 = x0 * mask
@@ -365,10 +396,11 @@ def _lm_inputs(x0, y, p, q, icpt, mask, n_valid):
     return x0, mask, nv
 
 
-def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid):
+def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+             grid_orders):
     """The batched LM loop with the normal equations from ``packed_fn``;
     a candidate grid gathers the panel to one copy per candidate."""
-    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
+    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid, grid_orders)
     S, k = x0.shape
     C = S // y.shape[0]
     if C > 1:
@@ -423,25 +455,28 @@ def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid):
 def fit_css_lm_plain(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
                      icpt: int, tol: float = 1e-6, max_iter: int = 50,
                      mask: Optional[torch.Tensor] = None,
-                     n_valid: Optional[torch.Tensor] = None):
+                     n_valid: Optional[torch.Tensor] = None,
+                     grid_orders: Optional[Sequence] = None):
     """:func:`fit_css_lm` as plain tensor ops, on any device and float
     dtype — the version the kernel is held against: the batched LM loop
-    over :func:`normal_equations_plain`'s pass."""
+    over :func:`normal_equations_plain`'s pass.  ``grid_orders`` is
+    defined here: the mask times each candidate's order mask."""
     return _lm_loop(_packed_plain, x0, y, p, q, icpt, tol, max_iter, mask,
-                    n_valid)
+                    n_valid, grid_orders)
 
 
 def fit_css_lm_route(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
                      icpt: int, tol: float = 1e-6, max_iter: int = 50,
                      mask: Optional[torch.Tensor] = None,
-                     n_valid: Optional[torch.Tensor] = None):
+                     n_valid: Optional[torch.Tensor] = None,
+                     grid_orders: Optional[Sequence] = None):
     """The same batched LM loop over :func:`normal_equations`' dispatch:
     on CUDA one ``arma_ne`` kernel launch up front and one per iteration,
     with the damped solves and updates as tensor ops and one host sync
     per iteration for the loop test.  The comparison route of the LM-fit
     kernel; on the CPU it equals :func:`fit_css_lm_plain`."""
     return _lm_loop(_packed, x0, y, p, q, icpt, tol, max_iter, mask,
-                    n_valid)
+                    n_valid, grid_orders)
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,7 +487,7 @@ def _lm_fns():
     config.restype = ctypes.c_int
     launch = lib.arma_lm_fit_launch
     launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     return config, launch
 
@@ -485,41 +520,117 @@ def lm_fit_config(S: int, n_obs: int, p: int, q: int, icpt: int,
     return LmFitConfig(threads, *cfg)
 
 
-def _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
-               threads: int = LM_FIT_THREADS):
-    """Launch the LM-fit kernel on the current stream with ``threads`` a
-    block (not synchronised); returns ``(x, fun, converged, n_iter)``."""
-    check_kernel_order(p, q, icpt)
-    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
-    S, k = x0.shape
-    S_y, n_obs = y.shape
-    x0_t = x0.T.contiguous()
-    y_t = y.T.contiguous()
-    mask_t = None if mask is None else mask.T.contiguous()
-    _build.check_inputs([y_t, x0_t] + [t for t in (mask_t, nv)
-                                       if t is not None], "ARMA LM fit")
+def _lm_operands(x0: torch.Tensor, y: torch.Tensor,
+                 nv: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                 in_place: bool = False):
+    """The kernel's operands ``(x0, y, mask)``, slot- and time-major, and
+    its outputs ``(x, fun, converged, n_iter)``; ``in_place`` writes
+    ``x`` over the slot-major copy of ``x0``."""
+    S = x0.shape[0]
     dev = y.device
-    x = torch.empty((k, S), dtype=torch.float32, device=dev)
-    fun = torch.empty((S,), dtype=torch.float32, device=dev)
-    converged = torch.empty((S,), dtype=torch.bool, device=dev)
-    n_iter = torch.empty((S,), dtype=torch.int32, device=dev)
+    ops = (x0.T.contiguous(), y.T.contiguous(),
+           None if mask is None else mask.T.contiguous())
+    _build.check_inputs([ops[1], ops[0]] + [t for t in (ops[2], nv)
+                                            if t is not None],
+                        "ARMA LM fit")
+    x = ops[0] if in_place else torch.empty_like(ops[0])
+    return ops, (x, torch.empty((S,), dtype=torch.float32, device=dev),
+                 torch.empty((S,), dtype=torch.bool, device=dev),
+                 torch.empty((S,), dtype=torch.int32, device=dev))
+
+
+def _lm_call(ops, nv, outs, p: int, q: int, icpt: int, tol: float,
+             max_iter: int, threads: int, lane0: int, S: int,
+             theta_slot: int, t0: int) -> None:
+    """One LM-fit launch of ARMA(p, q) on the current stream over lanes
+    ``lane0 .. lane0 + S - 1`` of the layout of ``outs``: it owns the
+    intercept, the first ``p`` AR slots and the ``q`` MA slots from
+    ``theta_slot`` on, over the CSS window from ``t0``."""
+    x0_t, y_t, mask_t = ops
+    x, fun, converged, n_iter = outs
+    n_obs, S_y = y_t.shape
     _, launch = _lm_fns()
-    _build.launch(launch, dev, x0_t.data_ptr(), y_t.data_ptr(),
+    _build.launch(launch, y_t.device, x0_t.data_ptr(), y_t.data_ptr(),
                   0 if nv is None else nv.data_ptr(),
                   0 if mask_t is None else mask_t.data_ptr(), x.data_ptr(),
                   fun.data_ptr(), converged.data_ptr(), n_iter.data_ptr(), S,
-                  S_y, n_obs, p, q, icpt, float(tol), int(max_iter), threads,
+                  S_y, n_obs, p, q, icpt, float(tol), int(max_iter), lane0,
+                  x.shape[1], theta_slot, t0, threads,
                   what=f"arma_lm_fit kernel launch failed for ARMA({p},{q}) "
-                       f"icpt={icpt} S={S} S_y={S_y} n_obs={n_obs} "
-                       f"threads={threads}")
+                       f"icpt={icpt} S={S} lane0={lane0} S_y={S_y} "
+                       f"n_obs={n_obs} threads={threads}")
     fit_css_lm.launches += 1
-    return x.T, fun, converged, n_iter
+
+
+def _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+               threads: int = LM_FIT_THREADS):
+    """Launch the LM-fit kernel once over every lane, on the current stream
+    with ``threads`` a block (not synchronised); returns ``(x, fun,
+    converged, n_iter)``."""
+    check_kernel_order(p, q, icpt)
+    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid)
+    ops, outs = _lm_operands(x0, y, nv, mask)
+    _lm_call(ops, nv, outs, p, q, icpt, tol, max_iter, threads, 0,
+             x0.shape[0], icpt + p, max(p, q))
+    return (outs[0].T,) + outs[1:]
+
+
+# side streams the per-candidate launches are spread over, so that one
+# candidate's tail overlaps the next ones (PERF.md: on the H100 the default
+# grid's screen took 57 ms over 2, 4 or 8 side streams and 62 ms with every
+# launch on the caller's stream)
+LM_GRID_STREAMS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _side_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
+    return [torch.cuda.Stream(device=device) for _ in range(n)]
+
+
+def _lm_grid_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+                    grid_orders):
+    """The candidate grid as one LM-fit launch per candidate at its own
+    order ``grid_orders[c] = (p_c, q_c)``, over the padded ARMA(p, q)
+    layout, heaviest candidates first, spread over ``LM_GRID_STREAMS``
+    side streams joined back to the caller's (not synchronised); returns
+    ``(x, fun, converged, n_iter)``, the padded launch of
+    :func:`_lm_launch` with the mask times each candidate's order mask
+    (but for diverging lanes: see :func:`fit_css_lm`)."""
+    check_kernel_order(p, q, icpt)
+    x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid,
+                              grid_orders)
+    S_y = y.shape[0]
+    # x0 is this call's own copy (x0 * mask), so the launches fit in
+    # place: a lane reads its start before it writes its result, and the
+    # slots no candidate owns keep x0 * mask, the padded launch's value
+    ops, outs = _lm_operands(x0, y, nv, mask, in_place=True)
+    orders = [(int(pc), int(qc)) for pc, qc in grid_orders]
+
+    def cost(c):      # triu(JᵀJ) entries and MA tangent terms a step
+        k_c = icpt + sum(orders[c])
+        return k_c * (k_c + 1) // 2 + orders[c][1] * k_c
+
+    caller = torch.cuda.current_stream(y.device)
+    side = _side_streams(y.device, LM_GRID_STREAMS)[:len(orders)]
+    for st in side:
+        st.wait_stream(caller)
+    for j, c in enumerate(sorted(range(len(orders)), key=lambda c: -cost(c))):
+        with torch.cuda.stream(side[j % len(side)]):
+            _lm_call(ops, nv, outs, *orders[c], icpt, tol, max_iter,
+                     LM_FIT_THREADS, c * S_y, S_y, icpt + p, max(p, q))
+    for st in side:
+        caller.wait_stream(st)
+        for t in ops + outs + (nv,):
+            if t is not None:
+                t.record_stream(st)
+    return (outs[0].T,) + outs[1:]
 
 
 def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
                icpt: int, tol: float = 1e-6, max_iter: int = 50,
                mask: Optional[torch.Tensor] = None,
-               n_valid: Optional[torch.Tensor] = None):
+               n_valid: Optional[torch.Tensor] = None,
+               grid_orders: Optional[Sequence] = None):
     """Panel-batched Levenberg-Marquardt on the CSS residuals: per lane
     the state machine of ``pallas_arma.fit_css_lm`` (Marquardt-scaled
     damping, trial-point normal equations kept on accept, the pinned exit
@@ -535,16 +646,36 @@ def fit_css_lm(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
     the ``S`` series of ``y`` and ``n_valid`` (the auto-fit grid's shape,
     ``pallas_arma.fit_css_lm``'s ``y_blocks`` form): lane ``i`` fits
     series ``i % S``.  A lane count that is not a multiple of ``S``
-    raises.
+    raises.  ``grid_orders``, a host sequence of ``C`` pairs ``(p_c,
+    q_c)`` with ``p_c <= p`` and ``q_c <= q``, says which order candidate
+    ``c`` fits: its lanes fit with the AR slots past ``p_c`` and the MA
+    slots past ``q_c`` held at zero, as if the mask were zero there (the
+    mask times each candidate's order mask); the CSS window stays the
+    common ``t >= max(p, q)``.
 
-    A CUDA tensor launches the LM-fit kernel of ``csrc/arma_ne.cu`` once
-    for the whole fit, grid or not, over the one unrepeated panel
-    (float32, ``p, q <= 5``; anything else raises) and adds one to
-    ``fit_css_lm.launches``; a CPU tensor runs :func:`fit_css_lm_plain`,
-    which gathers the panel to one copy per candidate."""
+    A CUDA tensor launches the LM-fit kernel of ``csrc/arma_ne.cu`` over
+    the one unrepeated panel (float32, ``p, q <= 5``; anything else
+    raises): once for the whole fit, or with ``grid_orders`` once per
+    candidate at its own order; each launch adds one to
+    ``fit_css_lm.launches``.  A CPU tensor runs :func:`fit_css_lm_plain`,
+    which gathers the panel to one copy per candidate.
+
+    A launch per candidate computes only the slots the candidate owns, so
+    on a lane that diverges it differs from the plain LM and the padded
+    launch, which also run the unowned slots' terms at zero and scale
+    them by 0: where a term overflows, ``0 · inf`` makes NaN.  Such a
+    lane reports ``fun`` inf where they report NaN; and where an unowned
+    JᵀJ entry overflows at the current point (the NaN spreads through
+    their step) or at the trial point (their finiteness test fails),
+    they refuse a trial that the launch per candidate judges on its
+    owned terms alone and may take (PERF.md)."""
     if y.is_cuda:
+        if grid_orders is not None:
+            return _lm_grid_launch(x0, y, p, q, icpt, tol, max_iter, mask,
+                                   n_valid, grid_orders)
         return _lm_launch(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)
-    return fit_css_lm_plain(x0, y, p, q, icpt, tol, max_iter, mask, n_valid)
+    return fit_css_lm_plain(x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+                            grid_orders)
 
 
 fit_css_lm.launches = 0

@@ -3,8 +3,8 @@
 Ported so far: the result type, and :func:`minimize_box`, the batched
 projected gradient on a box that the Holt-Winters fit runs.  The ARIMA
 fit's Levenberg-Marquardt solver is ``ops.arma_ne.fit_css_lm``.  The
-multi-start ``restarts`` path (and the ``attempts`` field) waits for the
-retry slice.
+multi-start ``restarts`` path (which fills the ``attempts`` field,
+None until then) waits for the retry slice.
 """
 
 from __future__ import annotations
@@ -15,11 +15,15 @@ import torch
 
 
 class MinimizeResult(NamedTuple):
-    """Batched optimization artifacts (leading dims ``...`` = batch)."""
+    """Batched optimization artifacts (leading dims ``...`` = batch).
+
+    ``attempts`` is the per-lane solve count of the multi-start retry
+    path, which the port does not have yet: None on every path."""
     x: torch.Tensor          # (..., p) optimal parameters
     fun: torch.Tensor        # (...,)   objective at optimum
     converged: torch.Tensor  # (...,)   bool per-lane convergence mask
     n_iter: torch.Tensor     # (...,)   iterations taken
+    attempts: Optional[torch.Tensor] = None  # (...,) multi-start solves
 
 
 def _project(x: torch.Tensor, lower, upper) -> torch.Tensor:

@@ -370,9 +370,80 @@ def test_lm_fit_grid_rejects(cuda):
     assert arma_ne.fit_css_lm.launches == before
 
 
+def _equal_by_value(got, want):
+    """Per lane: every output equal, NaN matching NaN (a zero's sign may
+    differ in the slots a candidate does not own)."""
+    same = torch.ones_like(got[3], dtype=torch.bool)
+    for a, b in zip(got, want):
+        eq = a == b
+        if a.is_floating_point():
+            eq |= torch.isnan(a) & torch.isnan(b)
+        same &= eq if eq.dim() == 1 else eq.all(dim=1)
+    return same
+
+
+@pytest.mark.parametrize("icpt_mask", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_lm_fit_grid_per_candidate_equals_padded(cuda, ragged, icpt_mask):
+    # the auto-fit's grid, (p, q) <= 5 with intercept: one launch per
+    # candidate at its own order against the padded (5,5,1) launch over a
+    # mask of each candidate's order; the masked slots' terms are exact
+    # zeros, so every lane with a finite fit agrees bit for bit
+    rng = np.random.default_rng(23 + 2 * ragged + icpt_mask)
+    S, n, k = 256, 96, 11
+    orders = GRID_ORDERS
+    C = len(orders)
+    y = _panel(rng, S, n)
+    nv = None
+    if ragged:
+        nv = rng.integers(40, n + 1, size=S)
+        y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+        nv = torch.from_numpy(nv).to(cuda)
+    y = torch.from_numpy(y.astype(np.float32)).to(cuda)
+    x0 = torch.from_numpy(
+        (0.1 * rng.normal(size=(C * S, k))).astype(np.float32)).to(cuda)
+    mask = torch.ones_like(x0)
+    if icpt_mask:       # a series whose d > 1 has no intercept
+        mask[torch.from_numpy(rng.uniform(size=C * S) < 0.3).to(cuda), 0] = 0
+    own = arma_ne._order_mask(orders, C * S, S, 5, 5, 1, torch.float32,
+                              cuda)
+    kw = dict(max_iter=25, n_valid=nv)
+    before = arma_ne.fit_css_lm.launches
+    padded = arma_ne.fit_css_lm(x0, y, 5, 5, 1, mask=mask * own, **kw)
+    got = arma_ne.fit_css_lm(x0, y, 5, 5, 1, mask=mask, grid_orders=orders,
+                             **kw)
+    torch.cuda.synchronize()
+    assert arma_ne.fit_css_lm.launches == before + 1 + C
+    finite = torch.isfinite(padded[0]).all(dim=1) \
+        & torch.isfinite(padded[1])
+    same = _equal_by_value(got, padded)
+    print(f"per candidate vs padded, ragged={ragged} icpt_mask={icpt_mask}:"
+          f" equal {same.double().mean():.4f}, finite "
+          f"{finite.double().mean():.4f}")
+    assert finite.double().mean() > 0.99
+    assert bool(same[finite].all())
+    # the slots a candidate does not own hold x0 * mask: zero
+    assert bool((got[0][own == 0] == 0).all())
+
+
+def test_lm_fit_grid_orders_rejects(cuda):
+    x0, y, mask, nv = _grid_case(cuda, 2, 2, 1, True)
+    before = arma_ne.fit_css_lm.launches
+    with pytest.raises(ValueError, match="grid_orders has 2 candidates"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1, mask=mask, n_valid=nv,
+                           grid_orders=[(1, 1), (2, 2)])
+    with pytest.raises(ValueError, match="does not fit"):
+        arma_ne.fit_css_lm(x0, y, 2, 2, 1, grid_orders=[(3, 1)] * 3)
+    with pytest.raises(ValueError, match="float32"):
+        arma_ne.fit_css_lm(x0.double(), y.double(), 2, 2, 1,
+                           grid_orders=[(1, 1)] * 3)
+    assert arma_ne.fit_css_lm.launches == before
+
+
 def test_auto_fit_panel_on_cuda(cuda):
-    # the screen and the refine: two LM-fit launches in grid mode, no
-    # single pass; orders as the float32 fit on the CPU chooses them
+    # the screen, one LM-fit launch per candidate at its own order, and
+    # the refine, one padded launch: C + 1 = 37 launches, no single pass;
+    # orders as the float32 fit on the CPU chooses them
     rng = np.random.default_rng(19)
     y = np.cumsum(_panel(rng, 512, 96), axis=1).astype(np.float32)
     y[:128] = np.diff(y[:128], axis=1, prepend=0.0)
@@ -393,8 +464,8 @@ def test_auto_fit_panel_on_cuda(cuda):
     finally:
         arima.fit_css_lm = real
     assert (arma_ne.fit_css_lm.launches,
-            arma_ne.normal_equations.launches) == (before[0] + 2, before[1])
-    assert stats["lm_fit_launches"] == 2
+            arma_ne.normal_equations.launches) == (before[0] + 37, before[1])
+    assert stats["lm_fit_launches"] == 37
     # the screen over 36 candidates x 512 series and the refine, both
     # against the unrepeated (512, 96) panel
     assert calls == [((36 * 512, 11), (512, 96)), ((512, 11), (512, 96))]
@@ -653,8 +724,9 @@ def test_hw_box_fit_lane_queue(cuda):
     torch.cuda.synchronize()
     assert len(set(full.n_iter.tolist())) > 20
     # a lane's result does not depend on the thread that ran it
-    for a, b in zip((*queued, q_evals), (*full, f_evals)):
+    for a, b in zip((*queued[:4], q_evals), (*full[:4], f_evals)):
         assert torch.equal(a, b)
+    assert queued.attempts is None and full.attempts is None
     assert int(per_thread.sum()) == int(q_evals.sum())
     route, _ = _solver_route(inp, x0)
     shares = _agreement(full, route)
