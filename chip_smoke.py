@@ -85,10 +85,32 @@ Phases, one JSON line each:
    series against ``fit_css_lm_route`` (the panel repeated 36 times, one
    ``arma_ne`` launch per iteration), and on those of the first 64
    against ``fit_css_lm_plain`` in float32 on the card.
+14. ``panel_path``: the ``Panel`` tier on the card.  ``io.save_csv`` then
+   ``io.load_csv`` of a 131072 x 128 float32 panel (one chunk, ~0.3 GB
+   of text) through the native codec (it must be the native one), bit
+   for bit; a ``Panel`` of the main path's 1,048,576 x 128 panel on a UTC
+   business-day index with gaps from ``--seed`` (1 % of each series'
+   observations knocked out inside its window, 5 % of the series starting
+   1-16 steps late), its H2D timed; ``fill("linear")`` on the card (CUDA
+   events) against the port's float32 CPU fill of the first 131072 rows;
+   ``Panel.stream_fit("arima", p=2, d=1, q=2)`` in 131072-series chunks,
+   the LM-fit kernel's launches counted over exactly that run (one per
+   chunk, ragged lanes included, no single pass), its ``n_converged`` and
+   first chunk's coefficients against ``FitEngine().stream_fit`` of the
+   same filled values from the host, and its series/s with the panel's
+   D2H apart; the first chunk staged as ``arima.fit`` stages it (ragged
+   lanes left-aligned, differenced, their Hannan-Rissanen init over each
+   window) refitted by the LM-fit kernel's ragged form, whose result
+   must be the coefficients the path collected, against
+   ``fit_css_lm_route`` on every lane and on the ragged lanes alone, and
+   against ``fit_css_lm_plain`` on 128 ragged and 128 dense lanes, held
+   to ``lm_fit_vs_route``'s floors; ``Panel(auto panel).auto_fit()`` at the default grid, its
+   C + 1 = 37 launches counted, its orders and coefficients against
+   ``auto_fit_panel`` of the same values, bit for bit.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
-paths' runs; for a kernel that only a comparison route launches,
-``route_launches`` beside it) and, last, the result line.  Any
+paths' runs, ``launches_by_path`` per run; for a kernel that only a
+comparison route launches, ``route_launches`` beside it) and, last, the result line.  Any
 failed check raises, so the script exits non-zero and prints no result
 line; without CUDA it exits 1 before doing anything.
 """
@@ -97,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -223,6 +246,20 @@ AUTO_COEF_MEDIAN = 1e-3
 AUTO_ROUTE_SERIES = 4096  # series whose 36 lanes the route refits
 AUTO_PLAIN_SERIES = 64    # series whose 36 lanes the plain LM refits
 GRID_TRACE_LANES = 64     # lanes of the screen traced where x differs
+
+# the Panel tier: gaps of the 1M-series panel (the mix from_observations
+# and union make of real feeds), the CSV round trip at one chunk's size,
+# and the rows of the card's fill held against the CPU's
+PANEL_GAP_SHARE = 0.01    # observations knocked out inside each window
+PANEL_LATE_SHARE = 0.05   # series starting late
+PANEL_LATE_MAX = 16       # ... by 1 to this many steps
+PANEL_CSV_SERIES = 131072
+PANEL_FILL_CPU_ROWS = 131072
+# card fill vs the CPU's float32 fill: each step is one correctly rounded
+# op on both (the card's division is IEEE, not approximate), so they are
+# expected equal bit for bit; where they are not, a value may differ by a
+# rounding of its interpolation step, 2 float32 ulps relative
+FILL_RTOL = 2.0 ** -22
 
 
 def emit(obj) -> None:
@@ -1685,6 +1722,326 @@ def phase_auto_grid_vs_route(screen, dev):
     return row
 
 
+def gappy_panel(panel: np.ndarray, seed: int) -> np.ndarray:
+    """A copy of ``panel`` with the Panel phase's gaps, drawn from
+    ``seed``: ``PANEL_LATE_SHARE`` of the series start 1 to
+    ``PANEL_LATE_MAX`` steps late (leading NaN), and ``PANEL_GAP_SHARE``
+    of the observations strictly inside each window are knocked out."""
+    rng = np.random.default_rng([seed, 7])
+    S, n = panel.shape
+    start = np.where(rng.random(S) < PANEL_LATE_SHARE,
+                     rng.integers(1, PANEL_LATE_MAX + 1, S), 0)
+    out = panel.copy()
+    t = np.arange(n)[None, :]
+    out[t < start[:, None]] = np.nan
+    gaps = rng.random((S, n), dtype=np.float32) < PANEL_GAP_SHARE
+    gaps &= (t > start[:, None]) & (t < n - 1)
+    out[gaps] = np.nan
+    return out
+
+
+def _bitwise_equal(a, b) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same bits)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and bool(np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def ragged_lm_vs_route(part: np.ndarray, coefs: np.ndarray, dev,
+                       plain_lanes=LM_PLAIN_LANES):
+    """The LM-fit kernel's ragged form at the Panel path's shapes: the
+    first chunk of the filled panel staged as ``arima.fit`` stages it for
+    the LM fit (``ragged_view``, one difference, the Hannan-Rissanen init
+    over each lane's window), fitted by the kernel, whose x quarantined
+    as the fit does must be ``coefs``, the coefficients the path
+    collected; then held, as in ``lm_fit_vs_route``, against the batched
+    LM over the single-pass kernel on every lane and on the ragged lanes
+    alone, and against the plain LM on ragged and dense lanes."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.ops.ragged import ragged_view
+
+    p, q, icpt, tol, max_iter = 2, 2, 1, 1e-6, arima.LM_MAX_ITER
+    ts, obs_len = ragged_view(torch.from_numpy(part).to(dev))
+    check(obs_len is not None, "the Panel path's first chunk is not ragged")
+    y = arima.differences_of_order_d(ts, 1)[..., 1:]
+    y = y.reshape(-1, y.shape[-1])
+    nv = torch.clamp(obs_len - 1, min=0).reshape(-1)
+    min_n = 2 * max(p, q) + 2 + p + q + icpt
+    check(int((nv < min_n).sum()) == 0,
+          "a lane of the Panel path's first chunk is too short to fit")
+    init = arima.hannan_rissanen_init(p, q, y, True, n_valid=nv)
+    got = arma_ne.fit_css_lm(init, y, p, q, icpt, tol, max_iter, n_valid=nv)
+    staged = torch.where(torch.isfinite(got[0]).all(dim=-1, keepdim=True),
+                         got[0], init).cpu().numpy()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route = arma_ne.fit_css_lm_route(init, y, p, q, icpt, tol, max_iter,
+                                     n_valid=nv)
+    torch.cuda.synchronize()
+    route_ms = (time.perf_counter() - t0) * 1e3
+    ragged = nv < y.shape[1]
+    rag = torch.nonzero(ragged).squeeze(1)
+    lanes = torch.cat([rag[:plain_lanes // 2],
+                       torch.nonzero(~ragged).squeeze(1)[:plain_lanes // 2]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = arma_ne.fit_css_lm_plain(init[lanes], y[lanes], p, q, icpt, tol,
+                                     max_iter, n_valid=nv[lanes])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_k = [t[lanes] for t in got]
+    row = {"lanes": y.shape[0], "ragged_lanes": int(rag.numel()),
+           "collected_coefficients_bitwise": _bitwise_equal(staged, coefs),
+           "route_ms": route_ms, "vs_route": _lm_agreement(got, route),
+           "vs_route_ragged": _lm_agreement([t[rag] for t in got],
+                                            [t[rag] for t in route]),
+           "vs_route_floor": LM_ROUTE_SHARE,
+           "vs_route_max_abs_x_ragged": _max_abs_x(got, route, rag),
+           "plain_lanes": {"ragged": int(min(rag.numel(), plain_lanes // 2)),
+                           "all": int(lanes.numel())},
+           "plain_ms": plain_ms, "vs_plain": _lm_agreement(got_k, plain),
+           "route_vs_plain": _lm_agreement([t[lanes] for t in route],
+                                           plain),
+           "vs_plain_margin": LM_PLAIN_MARGIN}
+    return row
+
+
+def check_ragged_lm(row) -> None:
+    check(row["collected_coefficients_bitwise"],
+          "the LM-fit kernel on the staged first chunk differs from the "
+          "coefficients Panel.stream_fit collected")
+    for key, floor in zip(("n_iter_equal", "fun_within_1e-5"),
+                          LM_ROUTE_SHARE):
+        for what in ("vs_route", "vs_route_ragged"):
+            check(row[what][key] >= floor,
+                  f"ragged LM-fit kernel {what}: {key} share "
+                  f"{row[what][key]:.4f} < {floor}")
+        floor = row["route_vs_plain"][key] - LM_PLAIN_MARGIN
+        check(row["vs_plain"][key] >= floor,
+              f"ragged LM-fit kernel vs plain: {key} share "
+              f"{row['vs_plain'][key]:.4f} < the route's "
+              f"{row['route_vs_plain'][key]:.4f} - {LM_PLAIN_MARGIN}")
+
+
+def phase_panel_path(panel, auto_panel, seed, dev):
+    """The Panel tier on the card: the CSV round trip, a gappy Panel of
+    the main path's panel, its fill, ``Panel.stream_fit`` and
+    ``Panel.auto_fit``, each kernel run's launches counted over exactly
+    that run."""
+    import tempfile
+
+    import torch
+
+    from spark_timeseries_tpu_torch import Panel, io
+    from spark_timeseries_tpu_torch import time as ttime
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.ops import univariate as uv
+    from spark_timeseries_tpu_torch.utils import metrics
+
+    S, n = panel.shape
+    index = ttime.uniform("2000-01-03T00:00Z", n,
+                          ttime.BusinessDayFrequency(1))
+    keys = [f"series-{i}" for i in range(S)]
+    row = {"phase": "panel_path", "n_series": S, "n_obs": n,
+           "index": index.to_string()}
+
+    # 1. the CSV round trip of one chunk's worth of series
+    csv_panel = Panel(index, panel[:PANEL_CSV_SERIES],
+                      keys[:PANEL_CSV_SERIES], device=dev)
+    metrics.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        io.save_csv(csv_panel, tmp)
+        save_s = time.perf_counter() - t0
+        csv_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                        for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        back = io.load_csv(tmp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    counters = metrics.snapshot()["counters"]
+    # float32 on the card; the float64 read is exact on either device
+    csv_exact = _bitwise_equal(
+        back.values.cpu().numpy().astype(np.float64),
+        panel[:PANEL_CSV_SERIES].astype(np.float64))
+    row["csv"] = {"n_series": PANEL_CSV_SERIES, "bytes": csv_bytes,
+                  "save_s": save_s, "load_s": load_s,
+                  "native_calls": counters.get("io.csv_codec_native", 0),
+                  "python_calls": counters.get("io.csv_codec_python", 0),
+                  "bit_exact": csv_exact,
+                  "keys_equal": back.keys == csv_panel.keys,
+                  "index_equal": back.index.to_string()
+                  == index.to_string()}
+    del csv_panel, back
+
+    # 2. the gappy 1M-series panel onto the card
+    gappy = gappy_panel(panel, seed)
+    late = np.isnan(gappy[:, 0])
+    torch.cuda.synchronize()
+    metrics.reset()
+    t0 = time.perf_counter()
+    big = Panel(index, gappy, keys, device=dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    h2d_bytes = metrics.snapshot()["counters"].get("panel.h2d_bytes", 0)
+    row["panel"] = {"late_share": float(late.mean()),
+                    "gap_share": float(np.isnan(gappy).mean()),
+                    "h2d_s": h2d_s, "h2d_bytes": h2d_bytes,
+                    "h2d_gb_s": h2d_bytes / h2d_s / 1e9}
+
+    # 3. fill("linear") on the card against the CPU's float32 fill; its
+    # two neighbour scans timed alone
+    fill_ms = _event_ms(lambda: big.fill("linear"), 5)
+    valid = ~torch.isnan(big.values)
+    iota = uv._iota(big.values)
+    scans_ms = {"prev_valid_cummax": _event_ms(
+        lambda: uv._prev_valid_idx(valid, iota), 3),
+        "next_valid_cummin": _event_ms(
+        lambda: uv._next_valid_idx(valid, iota), 3)}
+    del valid, iota
+    filled = big.fill("linear")
+    del big
+    k = PANEL_FILL_CPU_ROWS
+    t0 = time.perf_counter()
+    cpu_fill = uv.fill_linear(torch.from_numpy(gappy[:k])).numpy()
+    cpu_fill_s = time.perf_counter() - t0
+    card_fill = filled.values[:k].cpu().numpy()
+    same_nan = bool(np.array_equal(np.isnan(card_fill), np.isnan(cpu_fill)))
+    ok = ~np.isnan(cpu_fill)
+    diff = np.abs(card_fill[ok].astype(np.float64) - cpu_fill[ok])
+    rel = diff / np.maximum(np.abs(cpu_fill[ok]).astype(np.float64), 1e-30)
+    row["fill"] = {"ms": fill_ms, "scans_ms": scans_ms,
+                   # each element read once and written once
+                   "gb_s": 2 * gappy.nbytes / (fill_ms * 1e-3) / 1e9,
+                   "cpu_rows": k, "cpu_s": cpu_fill_s,
+                   "bitwise_equal": _bitwise_equal(card_fill, cpu_fill),
+                   "nan_masks_equal": same_nan,
+                   "elements_differing": int(np.sum(diff > 0)),
+                   "max_abs_diff": float(diff.max()),
+                   "max_rel_diff": float(rel.max()),
+                   "rel_bound": FILL_RTOL}
+    valid = ~np.isnan(gappy[:k])
+    inside = (np.cumsum(valid, axis=1) > 0) \
+        & (np.cumsum(valid[:, ::-1], axis=1)[:, ::-1] > 0)
+    row["fill"]["interior_nan_left"] = int(np.sum(np.isnan(card_fill)
+                                                  & inside))
+    del gappy
+
+    # 4. Panel.stream_fit against the engine on the same values from the
+    # host; the launches counted over exactly the panel's run
+    engine = FitEngine()
+    kw = dict(p=2, d=1, q=2, chunk_size=CHUNK, collect=True)
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    res = filled.stream_fit("arima", engine=engine, **kw)
+    launches = arma_ne.fit_css_lm.launches
+    ne_launches = arma_ne.normal_equations.launches
+    host = filled.values.cpu().numpy()
+    ref = engine.stream_fit(host, "arima", device=dev, **kw)
+    # one chunk's steps (its host gap scan, then on the card), ragged
+    # lanes and all
+    from spark_timeseries_tpu_torch import engine as engine_mod
+    t0 = time.perf_counter()
+    engine_mod._interior_gap_count(host[:CHUNK])
+    gap_count_ms = (time.perf_counter() - t0) * 1e3
+    chunk_steps = arima_chunk_steps(host[:CHUNK], dev)
+    chunk_steps["host_interior_gap_count"] = gap_count_ms
+    coefs = res.models[0].coefficients.numpy()
+    converged_pct = 100.0 * res.n_converged / res.n_series
+    d2h = res.stats["input_d2h_s"]
+    row["stream_fit"] = {
+        "n_chunks": res.n_chunks, "wall_s": res.wall_s,
+        "series_per_s": res.rate, "input_d2h_s": d2h,
+        "input_d2h_gb_s": host.nbytes / d2h / 1e9,
+        "series_per_s_with_d2h": res.n_fitted / (res.wall_s + d2h),
+        "converged_pct": converged_pct,
+        "ragged_share": float(np.isnan(host[:, 0]).mean()),
+        "lm_iterations_per_chunk": res.stats["lm_iterations"],
+        "engine_wall_s": ref.wall_s, "engine_series_per_s": ref.rate,
+        "first_chunk_steps_ms": chunk_steps,
+        "n_converged": res.n_converged,
+        "engine_n_converged": ref.n_converged,
+        "first_chunk_coefficients_bitwise": _bitwise_equal(
+            coefs, ref.models[0].coefficients.numpy())}
+    row["arma_lm_fit_launches"] = launches
+    row["arma_ne_launches"] = ne_launches
+    del filled, ref, res
+    # the ragged LM fit of the first chunk against the route and the
+    # plain LM (comparison launches, after the counts were read)
+    row["ragged_lm"] = ragged_lm_vs_route(host[:CHUNK], coefs, dev)
+    del host
+
+    # 5. Panel.auto_fit against auto_fit_panel on the same values
+    auto = Panel(index.islice(0, auto_panel.shape[1]), auto_panel,
+                 keys[:auto_panel.shape[0]], device=dev)
+    stats = {}
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = auto.auto_fit(stats=stats, **AUTO_GRID)
+    auto_s = time.perf_counter() - t0
+    auto_launches = arma_ne.fit_css_lm.launches
+    auto_ne = arma_ne.normal_equations.launches
+    want = arima.auto_fit_panel(auto_panel, device=dev, **AUTO_GRID)
+    C = (AUTO_GRID["max_p"] + 1) * (AUTO_GRID["max_q"] + 1)
+    row["auto_fit"] = {
+        "n_series": auto.n_series, "wall_s": auto_s,
+        "series_per_s": auto.n_series / auto_s,
+        "orders_bitwise": _bitwise_equal(fit.orders, want.orders),
+        "coefficients_bitwise": _bitwise_equal(fit.coefficients,
+                                               want.coefficients)}
+    row["auto_fit_launches"] = auto_launches
+    row["auto_fit_arma_ne_launches"] = auto_ne
+    row["arma_ne_launches"] += auto_ne
+    emit(row)     # before the checks, so a failed check leaves its numbers
+
+    csv = row["csv"]
+    check(csv["native_calls"] == 2 and csv["python_calls"] == 0,
+          f"the CSV round trip ran the native codec {csv['native_calls']} "
+          f"and the Python path {csv['python_calls']} times, not native "
+          f"twice")
+    check(csv["bit_exact"] and csv["keys_equal"] and csv["index_equal"],
+          "the CSV round trip changed the values, keys or index")
+    fill = row["fill"]
+    check(fill["nan_masks_equal"] and fill["interior_nan_left"] == 0,
+          "the card's fill left NaN where the CPU's did not, or inside a "
+          "window")
+    check(fill["max_rel_diff"] <= FILL_RTOL,
+          f"the card's fill differs from the CPU's by "
+          f"{fill['max_rel_diff']:.3g} relative (bound {FILL_RTOL:.3g})")
+    sf = row["stream_fit"]
+    chunks = -(-S // CHUNK)
+    check(launches == sf["n_chunks"] == len(sf["lm_iterations_per_chunk"])
+          == chunks,
+          f"Panel.stream_fit launched the LM-fit kernel {launches} times "
+          f"for {sf['n_chunks']} chunks ({chunks} expected)")
+    check(ne_launches == 0, f"Panel.stream_fit launched the single-pass "
+                            f"kernel {ne_launches} times")
+    check(sf["converged_pct"] >= 50.0,
+          f"Panel.stream_fit converged_pct {sf['converged_pct']:.2f} < 50")
+    check(sf["n_converged"] == sf["engine_n_converged"]
+          and sf["first_chunk_coefficients_bitwise"],
+          "Panel.stream_fit differs from FitEngine().stream_fit of the same "
+          "values")
+    check_ragged_lm(row["ragged_lm"])
+    check(auto_launches == C + 1 == stats["lm_fit_launches"]
+          and auto_ne == 0,
+          f"Panel.auto_fit launched the LM-fit kernel {auto_launches} times "
+          f"(stats: {stats['lm_fit_launches']}) and the single pass "
+          f"{auto_ne} times, not C + 1 = {C + 1} and 0")
+    check(row["auto_fit"]["orders_bitwise"]
+          and row["auto_fit"]["coefficients_bitwise"],
+          "Panel.auto_fit differs from auto_fit_panel of the same values")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1724,8 +2081,14 @@ def main(argv=None) -> int:
     arma_ne._lm_fns()
     hw_sse._kernel_fn()
     hw_sse._box_fns()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [str(p.name) for p in libs]})
+    build_s = time.perf_counter() - t0
+    from spark_timeseries_tpu_torch import io
+    t0 = time.perf_counter()
+    check(io.fastcsv() is not None,
+          "g++ did not build the CSV codec csrc/fastcsv.cpp")
+    emit({"phase": "build", "seconds": build_s,
+          "libraries": [str(p.name) for p in libs],
+          "csv_codec_seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     hw_panel = synthetic_hw_panel(N_SERIES, HW_N_OBS, HW_PERIOD, args.seed)
@@ -1783,6 +2146,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     grid_row = phase_auto_grid_vs_route(screen, dev)
     del screen
 
+    panel_row = phase_panel_path(panel, auto_panel, args.seed, dev)
+
     css = hw_timing["css"][0]       # the main path's order, (2,1,2)+c
     emit({"kernels": [{
         "name": "arma_lm_fit", "route": "cuda",
@@ -1790,7 +2155,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "replaces_solver": "spark_timeseries_tpu/ops/pallas_arma.py:463 "
                            "(fit_css_lm)",
-        "launches": lm_launches,
+        "launches": lm_launches + panel_row["arma_lm_fit_launches"],
+        "launches_by_path": {
+            "main_path": lm_launches,
+            "panel_path": panel_row["arma_lm_fit_launches"]},
         # lanes stopped by the iteration cap end anywhere along a ridge
         "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
@@ -1800,7 +2168,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "name": "arma_ne", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
-        "launches": main_row["normal_equations_launches"],
+        "launches": main_row["normal_equations_launches"]
+        + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"],
+        "launches_by_path": {
+            "main_path": main_row["normal_equations_launches"],
+            "auto_fit_path": auto_row["arma_ne_launches"],
+            "panel_path": panel_row["arma_ne_launches"]},
         "route_launches": lm_row["route_arma_ne_launches"],
         "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
@@ -1835,7 +2208,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229 "
                     "(y_blocks grid, :351)",
-        "launches": grid_launches,
+        "launches": grid_launches + panel_row["auto_fit_launches"],
+        "launches_by_path": {
+            "auto_fit_path": grid_launches,
+            "panel_path": panel_row["auto_fit_launches"]},
         "max_abs_err": grid_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
         "plain_lanes": grid_row["plain_lanes"],

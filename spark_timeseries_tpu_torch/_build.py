@@ -1,20 +1,23 @@
-"""Builds the port's CUDA sources and loads them with ctypes.
+"""Builds the port's native sources and loads them with ctypes.
 
-Library ``<name>`` is ``csrc/<name>.cu`` with its parts
+CUDA library ``<name>`` is ``csrc/<name>.cu`` with its parts
 ``csrc/<name>.<part>.cu`` (a large set of kernel instantiations spread
 over several translation units): each source compiles with nvcc for
 ``sm_90a`` to an object, one nvcc process per source, all started
 together, and the objects link into
-``build/torch_kernels/<name>-<hash>.so`` at the repository root, where
-``<hash>`` covers every file under ``csrc/`` and the flags, so an edited
-source rebuilds.  The shared libraries have a plain C interface: the
-wrappers pass pointers and the stream as ``ctypes.c_void_p``.
+``build/torch_kernels/<name>-<hash>.so`` at the repository root.  Host
+library ``<name>`` is ``csrc/<name>.cpp``, one g++ compile into
+``build/torch_kernels/<name>-<hash>.so`` (:func:`host_library`).  Each
+``<hash>`` covers that library's own sources (and, for CUDA, the shared
+``*.cuh`` headers) and its flags, so an edited source rebuilds its own
+library and no other.  The shared libraries have a plain C interface:
+the wrappers pass pointers and the stream as ``ctypes.c_void_p``.
 
-Importing this module needs no nvcc; building happens when a CUDA tensor
-first reaches a kernel wrapper (or :func:`build_all` is called), and a
-missing nvcc raises then.  :func:`check_inputs` and :func:`launch` are
-the wrappers' side of the binding: what may cross into a kernel, and a
-launch on the current stream whose error code raises.
+Importing this module needs no compiler; building happens when a CUDA
+tensor first reaches a kernel wrapper (or :func:`build_all` is called),
+and a missing nvcc raises then.  :func:`check_inputs` and :func:`launch`
+are the wrappers' side of the binding: what may cross into a kernel, and
+a launch on the current stream whose error code raises.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -34,9 +37,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
 
 def _nvcc() -> str:
@@ -54,16 +58,18 @@ def _nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+def _digest(flags: Sequence[str], paths: Sequence[Path]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def _target(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest()}.so"
+    """The build of CUDA library ``name``: its sources and the headers."""
+    paths = _sources()[name] + sorted(CSRC.glob("*.cuh"))
+    return BUILD_DIR / f"{name}-{_digest(NVCC_FLAGS, paths)}.so"
 
 
 def _sources() -> Dict[str, List[Path]]:
@@ -131,6 +137,36 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             _libs[name] = lib
         return lib
+
+
+def host_library(name: str) -> Optional[ctypes.CDLL]:
+    """The loaded library of ``csrc/<name>.cpp``, compiled with g++ on
+    first use; None when g++ is missing or fails.  The result, a failure
+    included, is kept for the process.  A racing build in another process
+    is harmless: each compiles to a temporary name and renames it into
+    place."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = _build_host(name)
+        return _libs[name]
+
+
+def _build_host(name: str) -> Optional[ctypes.CDLL]:
+    src = CSRC / f"{name}.cpp"
+    so = BUILD_DIR / f"{name}-{_digest(GXX_FLAGS, [src])}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
+        try:
+            res = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+                                 capture_output=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            return None
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 def check_inputs(tensors: Sequence[torch.Tensor], kernel: str) -> None:

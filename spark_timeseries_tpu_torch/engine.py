@@ -146,7 +146,9 @@ class StreamResult(NamedTuple):
     its lanes needed, summed) and ``box_fit_launches`` (1 per chunk on
     CUDA, 0 on the CPU), and on the CPU ``value_and_grad_calls`` (the
     plain solver's calls; the card's fit makes none), then
-    ``collected_ranges`` with ``collect=True``, and ``device``."""
+    ``collected_ranges`` with ``collect=True``, ``input_d2h_s`` (the
+    seconds of the input's copy to the host: a tensor on a card) and
+    ``device``."""
     n_series: int
     n_fitted: int
     n_converged: int
@@ -233,7 +235,10 @@ class FitEngine:
     def stream_fit(self, values, family: str = "arima", *,
                    chunk_size: int = 131072, collect: bool = False,
                    device=None, **kwargs) -> StreamResult:
-        """Fit a host panel ``(n_series, n_obs)`` in chunks on ``device``.
+        """Fit a panel ``(n_series, n_obs)`` in chunks on ``device``.
+        ``values`` is an array or a tensor; chunks are staged from the
+        host, so a tensor on a card is first copied to the host once
+        (its seconds in ``stats["input_d2h_s"]``, not in ``wall_s``).
 
         Each chunk's fit is isolated: a chunk that raises (or violates the
         data contract) lands in ``chunk_failures`` with its row range,
@@ -248,7 +253,12 @@ class FitEngine:
                 f"does not have")
         statics = _statics(family, kwargs)
         dev = resolve_device(device)
-        host = np.asarray(values)
+        t0 = time.perf_counter()
+        # chunks are staged from the host: a tensor on a card comes to
+        # the host once, as the JAX engine's np.asarray of a device array
+        host = values.cpu().numpy() if isinstance(values, torch.Tensor) \
+            else np.asarray(values)
+        input_d2h_s = time.perf_counter() - t0
         if host.ndim != 2:
             raise ValueError(
                 f"stream_fit needs a (n_series, n_obs) panel, got "
@@ -384,6 +394,7 @@ class FitEngine:
         stats: Dict[str, Any] = {"chunk_size": chunk,
                                  "lm_iterations": lm_iterations,
                                  "lm_fit_launches": lm_fit_launches,
+                                 "input_d2h_s": input_d2h_s,
                                  "device": str(dev)}
         if family == "holt_winters":
             stats.update(hw_stats)

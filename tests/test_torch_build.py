@@ -7,6 +7,8 @@ import os
 import re
 import stat
 
+import pytest
+
 from spark_timeseries_tpu_torch import _build
 
 
@@ -46,7 +48,7 @@ def test_build_all_compiles_each_source_then_links(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
     libs = _build.build_all()
     assert sorted(p.name for p in libs) == sorted(
-        f"{name}-{_build._digest()}.so" for name in ("arma_ne", "hw_sse"))
+        _build._target(name).name for name in ("arma_ne", "hw_sse"))
     assert sorted(os.listdir(tmp_path / "out")) == sorted(
         p.name for p in libs)              # no temporaries left behind
     cmds = log.read_text().splitlines()
@@ -63,3 +65,49 @@ def test_build_all_compiles_each_source_then_links(tmp_path, monkeypatch):
     log.write_text("")
     _build.build_all()
     assert log.read_text() == ""
+
+
+def test_each_build_hashes_only_its_own_sources(tmp_path, monkeypatch):
+    """An edit to one library's source renames its build and no other's:
+    the CSV codec (g++) and the CUDA libraries do not rebuild each other,
+    and a shared ``*.cuh`` header renames every CUDA build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "a.part0.cu", "b.cu", "common.cuh", "codec.cpp"):
+        (csrc / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+
+    def names():
+        return (_build._target("a").name, _build._target("b").name,
+                _build._digest(_build.GXX_FLAGS, [csrc / "codec.cpp"]))
+
+    before = names()
+    (csrc / "codec.cpp").write_text("// edited\n")
+    after = names()
+    assert after[:2] == before[:2] and after[2] != before[2]
+    (csrc / "a.part0.cu").write_text("// edited\n")
+    edited = names()
+    assert edited[0] != after[0] and edited[1:] == after[1:]
+    (csrc / "common.cuh").write_text("// edited\n")
+    header = names()
+    assert header[0] != edited[0] and header[1] != edited[1] \
+        and header[2] == edited[2]
+
+
+def test_host_library_builds_with_gxx_or_returns_none(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "tiny.cpp").write_text(
+        'extern "C" long long tiny_twice(long long x) { return 2 * x; }\n')
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(_build, "_libs", {})
+    lib = _build.host_library("tiny")
+    if lib is None:
+        pytest.skip("no g++ here")
+    assert lib.tiny_twice(21) == 42
+    assert [p.suffix for p in (tmp_path / "out").iterdir()] == [".so"]
+    monkeypatch.setenv("PATH", str(tmp_path / "nowhere"))
+    (csrc / "broken.cpp").write_text("not c++\n")
+    assert _build.host_library("broken") is None
+    assert _build.host_library("tiny") is lib      # kept for the process

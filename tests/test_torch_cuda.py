@@ -1,8 +1,11 @@
 """The port on an NVIDIA card: the CUDA kernels (ARMA normal equations,
 ARMA LM fit, per series and over a candidate grid, CSS cost, Holt-Winters
 SSE value and gradient, Holt-Winters box fit) against their plain
-versions, and the fits (``auto_fit_panel`` among them) and the streaming
-engine on CUDA against the same calls on the CPU.
+versions, the fits (``auto_fit_panel`` among them) and the streaming
+engine on CUDA against the same calls on the CPU, and the ``Panel`` on
+the card: its fills against the CPU's, ``Panel.stream_fit`` /
+``Panel.auto_fit`` against the engine and ``auto_fit_panel``, and the
+CSV codec built on the card's machine.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from spark_timeseries_tpu_torch import Panel, io
+from spark_timeseries_tpu_torch import time as ttime
 from spark_timeseries_tpu_torch.engine import FitEngine
 from spark_timeseries_tpu_torch.models import arima, holt_winters
 from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
@@ -763,3 +768,97 @@ def test_hw_stream_fit_launches_box_fit_once_per_chunk(cuda):
     # the start and at least one trial for each lane of the smallest
     # (tail) bucket, 128 lanes
     assert min(res.stats["lane_evaluations"]) >= 2 * 128
+
+
+def _gappy(rng, S, n):
+    """A float32 ARIMA panel with ``chip_smoke.py``'s gaps: 1 % of the
+    observations knocked out inside each series' window, 5 % of the
+    series starting 1-16 steps late; one series all NaN."""
+    y = np.cumsum(_panel(rng, S, n), axis=1).astype(np.float32)
+    start = np.where(rng.random(S) < 0.05, rng.integers(1, 17, S), 0)
+    t = np.arange(n)[None, :]
+    y[t < start[:, None]] = np.nan
+    y[(rng.random((S, n)) < 0.01) & (t > start[:, None]) & (t < n - 1)] \
+        = np.nan
+    y[3] = np.nan
+    return y
+
+
+def _index(n):
+    return ttime.uniform("2000-01-03T00:00Z", n,
+                         ttime.BusinessDayFrequency(1))
+
+
+@pytest.mark.parametrize("method", ["linear", "nearest", "next", "previous",
+                                    "zero", "spline"])
+def test_panel_fill_on_cuda_matches_cpu(cuda, method):
+    # each step of a fill is its own correctly rounded op: bit for bit
+    y = _gappy(np.random.default_rng(30), 4096, 128)
+    keys = [f"s{i}" for i in range(y.shape[0])]
+    got = Panel(_index(128), y, keys, device=cuda).fill(method)
+    want = Panel(_index(128), y, keys, device="cpu").fill(method)
+    assert got.device.type == "cuda" and got.values.dtype == torch.float32
+    _assert_bitwise(got.values.cpu(), want.values)
+
+
+def test_panel_on_cuda_is_float32_and_gathers_on_the_card(cuda):
+    y = _gappy(np.random.default_rng(31), 64, 40).astype(np.float64)
+    keys = [f"s{i}" for i in range(64)]
+    p = Panel(_index(40), y, keys, device=cuda)
+    assert p.values.dtype == torch.float32
+    cpu = Panel(_index(40), y.astype(np.float32), keys, device="cpu")
+    for got, want in ((p.select(["s9", "s2"]), cpu.select(["s9", "s2"])),
+                      (p.remove_instants_with_nans(),
+                       cpu.remove_instants_with_nans()),
+                      (p.fill("linear").differences_by_frequency(
+                          ttime.DayFrequency(3)),
+                       cpu.fill("linear").differences_by_frequency(
+                           ttime.DayFrequency(3))),
+                      (p.with_index(_index(50)), cpu.with_index(_index(50)))):
+        assert got.device.type == "cuda"
+        assert got.index.to_string() == want.index.to_string()
+        _assert_bitwise(got.values.cpu(), want.values)
+
+
+def test_panel_stream_fit_on_cuda_matches_engine(cuda):
+    y = _gappy(np.random.default_rng(32), 2000, 96)
+    y = np.delete(y, 3, axis=0)               # no all-NaN lane to fit
+    p = Panel(_index(96), y, [f"s{i}" for i in range(y.shape[0])],
+              device=cuda).fill("linear")
+    kw = dict(chunk_size=512, collect=True, p=2, d=1, q=2)
+    before = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    got = p.stream_fit("arima", **kw)
+    assert (arma_ne.fit_css_lm.launches - before[0],
+            arma_ne.normal_equations.launches - before[1]) == (4, 0)
+    want = FitEngine().stream_fit(p.values.cpu().numpy(), "arima",
+                                  device=cuda, **kw)
+    assert not got.chunk_failures and got.n_chunks == 4
+    assert got.n_converged == want.n_converged
+    assert got.stats["input_d2h_s"] > 0
+    for g, w in zip(got.models, want.models):
+        _assert_bitwise(g.coefficients, w.coefficients)
+    # some lanes started late, so the kernel ran its ragged form
+    assert np.isnan(p.values[:, 0].cpu().numpy()).any()
+
+
+def test_panel_auto_fit_on_cuda_matches_auto_fit_panel(cuda):
+    y = np.cumsum(_panel(np.random.default_rng(33), 512, 80),
+                  axis=1).astype(np.float32)
+    p = Panel(_index(80), y, [f"s{i}" for i in range(512)], device=cuda)
+    stats = {}
+    got = p.auto_fit(max_p=2, max_q=2, stats=stats)
+    assert stats["lm_fit_launches"] == 10
+    want = arima.auto_fit_panel(y, max_p=2, max_q=2, device=cuda)
+    np.testing.assert_array_equal(got.orders, want.orders)
+    np.testing.assert_array_equal(got.coefficients, want.coefficients)
+
+
+def test_csv_codec_builds_on_this_machine(cuda, tmp_path):
+    assert io.fastcsv() is not None, "g++ could not build the codec"
+    y = _gappy(np.random.default_rng(34), 300, 50)
+    p = Panel(_index(50), y, [f"s,{i}" for i in range(300)], device=cuda)
+    io.save_csv(p, str(tmp_path / "p"))
+    back = io.load_csv(str(tmp_path / "p"), device=cuda)
+    assert back.keys == p.keys
+    assert back.index.to_string() == p.index.to_string()
+    _assert_bitwise(back.values, p.values)
