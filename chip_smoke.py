@@ -108,6 +108,29 @@ Phases, one JSON line each:
    C + 1 = 37 launches counted, its orders and coefficients against
    ``auto_fit_panel`` of the same values, bit for bit.
 
+15. ``resilient_path``: the fail-soft fit.  The main path's panel with
+   pathological rows from ``--seed`` (0.2 % each all-NaN, constant, with
+   an inf, with an interior gap, too short; 5 % healthy late starts)
+   through ``FitEngine().stream_fit(resilient=True, retry=RetryPolicy(),
+   auto_order=True)`` in 131072-series chunks, the kernels' launches
+   counted over exactly that run (the LM-fit kernel's must equal the
+   stages' own count, no single pass); statuses, attempts histogram,
+   launches and restarted lanes per chunk, the share of usable lanes;
+   then its first chunk bitwise against ``arima.fit_resilient`` and
+   ``Panel.fit_resilient`` of the same rows, its OK lanes bitwise against
+   the plain ``arima.fit``, its health codes bitwise against the CPU's
+   ``classify_series`` (skipped lanes NaN with 0 attempts), and on 4096
+   retried lanes the restart loop over the LM-fit kernel against the
+   same loop over ``fit_css_lm_route`` with the same draws.
+16. ``arima_surface``: on the main panel's first chunk and its fit,
+   ``forecast_interval``, ``approx_aic`` (the cost-only kernel once),
+   ``gradient_log_likelihood_css_arma`` (the single pass once, against
+   its plain version), ``coefficient_precision``, the time-dependent
+   effects and the residual tests, ``adftest``, KPSS ``"ct"``,
+   ``refit_unconverged`` (one LM-fit launch) and the stepwise
+   ``auto_fit`` of single series, each timed with CUDA events and held
+   against the port's float64 CPU run on 256 lanes.
+
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
 comparison route launches, ``route_launches`` beside it) and, last, the result line.  Any
@@ -260,6 +283,28 @@ PANEL_FILL_CPU_ROWS = 131072
 # expected equal bit for bit; where they are not, a value may differ by a
 # rounding of its interpolation step, 2 float32 ulps relative
 FILL_RTOL = 2.0 ** -22
+
+# the resilient phase's pathological rows, drawn from --seed: this share
+# of the panel each all-NaN, constant, with an inf, with an interior gap,
+# and too short (a valid window of RES_SHORT_WINDOW); RES_LATE_SHARE of the
+# series start 1 to RES_LATE_MAX steps late (healthy, ragged)
+RES_SHARE = 0.002
+RES_SHORT_WINDOW = 8
+RES_LATE_SHARE = 0.05
+RES_LATE_MAX = 16
+RES_ROUTE_LANES = 4096   # retried lanes: restart loop over kernel / route
+# arima_surface: lanes of the port's float64 CPU run each method is held
+# against, the relative tolerance of float32 on the card against float64
+# on identical coefficients (~1e-6 per rounding, grown over the 127-step
+# recurrences and their sums), and the share of stationary and invertible
+# lanes that must meet it (an explosive lane's recurrence amplifies the
+# last bits of its inputs without bound)
+SURF_CPU_LANES = 256
+SURF_RTOL = 1e-3
+SURF_SHARE = 0.99
+SURF_GRAD_JITTER = 0.05   # sd of the jitter the gradient is taken at
+SURF_AUTO_SERIES = 8      # stepwise auto_fit: series, share of equal orders
+SURF_AUTO_FLOOR = 0.75
 
 
 def emit(obj) -> None:
@@ -2042,6 +2087,490 @@ def phase_panel_path(panel, auto_panel, seed, dev):
     return row
 
 
+def resilient_panel(panel: np.ndarray, seed: int):
+    """A copy of ``panel`` with the resilient phase's pathological rows,
+    drawn from ``seed`` (disjoint sets): ``RES_SHARE`` of the series each
+    all-NaN, constant, with one inf, with one interior gap and too short,
+    and ``RES_LATE_SHARE`` healthy late starts.  Returns the panel and the
+    rows of each kind."""
+    rng = np.random.default_rng([seed, 11])
+    S, n = panel.shape
+    k = int(S * RES_SHARE)
+    order = rng.permutation(S)
+    kinds = ["all_nan", "constant", "has_inf", "interior_gap", "too_short"]
+    rows = {kind: np.sort(order[i * k:(i + 1) * k])
+            for i, kind in enumerate(kinds)}
+    rows["late"] = np.sort(order[5 * k:5 * k + int(S * RES_LATE_SHARE)])
+    out = panel.copy()
+    out[rows["all_nan"]] = np.nan
+    out[rows["constant"]] = out[rows["constant"], :1]
+    out[rows["has_inf"], rng.integers(0, n, k)] = np.inf
+    out[rows["interior_gap"], rng.integers(1, n - 1, k)] = np.nan
+    out[rows["too_short"], :n - RES_SHORT_WINDOW] = np.nan
+    lead = rng.integers(1, RES_LATE_MAX + 1, rows["late"].size)
+    late = out[rows["late"]]
+    late[np.arange(n)[None, :] < lead[:, None]] = np.nan
+    out[rows["late"]] = late
+    return out, rows
+
+
+def _model_bitwise(a, b) -> bool:
+    """Two ARIMA models' coefficients and diagnostics equal bit for bit."""
+    import torch
+
+    fields = [(a.coefficients, b.coefficients)] + [
+        (x, y) for x, y in zip(a.diagnostics, b.diagnostics)
+        if isinstance(x, torch.Tensor)]
+    return all(_bitwise_equal(x.cpu().numpy(), y.cpu().numpy())
+               for x, y in fields)
+
+
+def restart_route_check(part: np.ndarray, lanes: np.ndarray, dev):
+    """The restart loop over the LM-fit kernel against the same loop
+    over ``fit_css_lm_route`` (one ``arma_ne`` launch per iteration), on
+    the given rows of a chunk staged as ``arima.fit`` stages them, with
+    the same draws."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne, optimize
+    from spark_timeseries_tpu_torch.ops.ragged import ragged_view
+    from spark_timeseries_tpu_torch.ops.univariate import \
+        differences_of_order_d
+    from spark_timeseries_tpu_torch.utils.resilience import RetryPolicy
+
+    ts, obs = ragged_view(torch.from_numpy(part[lanes]).to(dev))
+    diffed = differences_of_order_d(ts, 1)[..., 1:]
+    nv = None if obs is None else torch.clamp(obs - 1, min=0)
+    init = arima.hannan_rissanen_init(2, 2, diffed, True, n_valid=nv)
+    pol = RetryPolicy()
+    draws = optimize.restart_draws(pol.max_restarts, init.shape[0], 5,
+                                   init.dtype, dev, pol.seed)
+
+    def restarted(fit):
+        def solve(xs, idx):
+            y = diffed if idx is None else diffed.index_select(0, idx)
+            v = None if nv is None else (nv if idx is None
+                                         else nv.index_select(0, idx))
+            return fit(xs, y, 2, 2, 1, tol=1e-6, max_iter=arima.LM_MAX_ITER,
+                       n_valid=v)
+        res = optimize.solve_with_restarts(
+            solve, init, pol.max_restarts, pol.perturb_scale,
+            jitter_draws=draws)
+        torch.cuda.synchronize()
+        return res
+
+    kern = restarted(arma_ne.fit_css_lm)
+    ne0 = arma_ne.normal_equations.launches
+    route = restarted(arma_ne.fit_css_lm_route)
+    agree = _lm_agreement(tuple(kern[:4]), tuple(route[:4]))
+    agree["attempts_equal"] = float((kern.attempts == route.attempts)
+                                    .double().mean())
+    agree["lanes"] = int(lanes.size)
+    agree["route_arma_ne_launches"] = arma_ne.normal_equations.launches - ne0
+    agree["max_abs_x_same_iter"] = _max_abs_x(
+        tuple(kern[:4]), tuple(route[:4]), kern.n_iter == route.n_iter)
+    return agree
+
+
+def resilient_chunk_steps(part_dev, out, dev):
+    """Host-clock ms (each step synchronised) of the resilient chain's
+    steps on one chunk, replayed one by one: the health classification
+    and its D2H, the primary fit with its restarts, the common-factor
+    screen on the host, the auto-order stage over the lanes it is offered
+    and the AR and mean stages over the lanes left to them."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        return val, (time.perf_counter() - t0) * 1e3
+
+    n = part_dev.shape[1]
+    health, ms_health = timed(lambda: res_mod.classify_series(
+        part_dev, min_len=12).cpu().numpy())
+    skipped = res_mod.unfittable_mask(health)
+    place = torch.as_tensor(res_mod._placeholder_rows(n, np.float32),
+                            device=dev)
+    safe = torch.where(torch.as_tensor(skipped, device=dev)[:, None],
+                       place[None], part_dev)
+    primary, ms_primary = timed(lambda: arima.fit(
+        2, 1, 2, safe, retry=res_mod.RetryPolicy(), warn=False, device=dev))
+    suspect, ms_suspect = timed(lambda: arima._cancellation_suspects(primary))
+
+    def stage_rows(idx):
+        return torch.as_tensor(idx, device=dev)
+
+    conv = primary.diagnostics.converged.cpu().numpy()
+    offered = np.flatnonzero((~conv | suspect) & ~skipped)
+    stage = arima._make_auto_order_stage(2, 1, 2, None)
+    _, ms_auto = timed(lambda: stage(safe.index_select(0,
+                                                       stage_rows(offered))))
+    later = np.flatnonzero(np.isin(out.fallback_used, (2, 3))
+                           | (out.status == res_mod.STATUS_ABANDONED))
+    _, ms_ar = timed(lambda: arima.fit(2, 1, 0, safe.index_select(
+        0, stage_rows(later)), warn=False, device=dev))
+    _, ms_mean = timed(lambda: arima.fit(0, 1, 0, safe.index_select(
+        0, stage_rows(later)), warn=False, device=dev))
+    return {"classify": ms_health, "primary_with_restarts": ms_primary,
+            "cancellation_suspects_host": ms_suspect,
+            "auto_order_stage": ms_auto, "auto_order_lanes": int(offered.size),
+            "ar_stage": ms_ar, "mean_stage": ms_mean,
+            "later_stage_lanes": int(later.size)}
+
+
+def phase_resilient_path(panel, seed, dev, chunk=CHUNK):
+    """The fail-soft ARIMA(2,1,2) fit of the north-star panel with
+    pathological rows: ``FitEngine().stream_fit(resilient=True,
+    retry=RetryPolicy(), auto_order=True)`` in 131072-series chunks, its
+    kernel launches counted over exactly that run, then its first chunk
+    against the direct chain, ``Panel.fit_resilient``, the plain fit, the
+    CPU classification, and the restart loop over the route."""
+    import torch
+
+    from spark_timeseries_tpu_torch import Panel
+    from spark_timeseries_tpu_torch import time as ttime
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    rp, rows = resilient_panel(panel, seed)
+    S, n = rp.shape
+    kw = dict(p=2, d=1, q=2, resilient=True, retry=res_mod.RetryPolicy(),
+              auto_order=True)
+    engine = FitEngine()
+    # warm-up on a slice with every pathology (not counted)
+    warm = np.concatenate([rp[:4096]] + [rp[r[:8]] for r in rows.values()])
+    engine.stream_fit(warm, "arima", chunk_size=warm.shape[0], device=dev,
+                      **kw)
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    arma_ne.css_cost.launches = 0
+    res = engine.stream_fit(rp, "arima", chunk_size=chunk, device=dev,
+                            collect=True, **kw)
+    launches = arma_ne.fit_css_lm.launches
+    ne_launches = arma_ne.normal_equations.launches
+    css_launches = arma_ne.css_cost.launches
+    st = res.stats
+    statuses = st["resilient_statuses"]
+    usable = sum(statuses.get(k, 0) for k in ("ok", "retried", "fallback"))
+    row = {"phase": "resilient_path", "n_series": S, "n_obs": n,
+           "chunk_size": chunk, "n_chunks": res.n_chunks,
+           "pathological_rows": {k: int(v.size) for k, v in rows.items()},
+           "wall_s": res.wall_s, "series_per_s": res.rate,
+           "statuses": statuses, "usable_pct": 100.0 * usable / S,
+           "attempts_histogram": st["resilient_attempts"],
+           "lm_fit_launches_per_chunk": st["lm_fit_launches"],
+           "lm_fit_launches_by_stage_per_chunk":
+               st["lm_fit_launches_by_stage"],
+           "restart_lanes_per_chunk": st["restart_lanes"],
+           "arma_lm_fit_launches": launches,
+           "arma_ne_launches": ne_launches, "arma_css_launches": css_launches}
+
+    # the first chunk against the direct chain, the Panel and the plain fit
+    part = rp[:chunk]
+    part_dev = torch.from_numpy(part).to(dev)
+    stats = {}
+    arma_ne.fit_css_lm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct, out = arima.fit_resilient(part_dev, 2, 1, 2, auto_order=True,
+                                      device=dev, stats=stats)
+    torch.cuda.synchronize()
+    row["chunk_fit_resilient_s"] = time.perf_counter() - t0
+    row["chunk_lm_fit_launches_by_stage"] = stats["lm_fit_launches_by_stage"]
+    row["chunk_launches_match_stats"] = \
+        arma_ne.fit_css_lm.launches == stats["lm_fit_launches"]
+    row["chunk0_bitwise_direct"] = _model_bitwise(res.models[0], direct)
+    index = ttime.uniform("2000-01-03T00:00Z", n,
+                          ttime.BusinessDayFrequency(1))
+    tp = Panel(index, part_dev, [f"s{i}" for i in range(chunk)], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_model, p_out = tp.fit_resilient("arima", 2, 1, 2, auto_order=True)
+    torch.cuda.synchronize()
+    row["panel_fit_resilient_s"] = time.perf_counter() - t0
+    row["panel_bitwise_direct"] = _model_bitwise(p_model, direct) \
+        and bool(np.array_equal(p_out.status, out.status))
+    skipped = res_mod.unfittable_mask(out.health)
+    safe = part.copy()
+    safe[skipped] = res_mod._placeholder_rows(n, part.dtype)
+    plain = arima.fit(2, 1, 2, torch.from_numpy(safe).to(dev), warn=False,
+                      device=dev)
+    ok = out.status == res_mod.STATUS_OK
+    row["ok_lanes"] = int(ok.sum())
+    row["ok_bitwise_plain"] = _bitwise_equal(
+        direct.coefficients.cpu().numpy()[ok],
+        plain.coefficients.cpu().numpy()[ok])
+    # informational: the healthy rows fitted alone (another batch size)
+    healthy = np.flatnonzero(~skipped)
+    alone = arima.fit(2, 1, 2, torch.from_numpy(part[healthy]).to(dev),
+                      warn=False, device=dev)
+    same = (alone.coefficients.cpu().numpy()
+            == plain.coefficients.cpu().numpy()[healthy]).all(axis=1)
+    row["healthy_rows_alone_bitwise_share"] = float(same.mean())
+    # fit_resilient's min_len at (2,1,2) with intercept: d + the
+    # Hannan-Rissanen floor 2·max(p, q) + 2 + p + q + 1
+    cpu_health = res_mod.classify_series(torch.from_numpy(part),
+                                         min_len=1 + 11).numpy()
+    row["health_bitwise_cpu"] = _bitwise_equal(out.health, cpu_health)
+    row["health_counts"] = {res_mod.HEALTH_NAMES[c]: int((out.health == c)
+                                                         .sum())
+                            for c in np.unique(out.health)}
+    row["skipped_nan_and_zero_attempts"] = bool(
+        np.isnan(out.params[skipped]).all()
+        and (out.attempts[skipped] == 0).all())
+    row["chunk_steps_ms"] = resilient_chunk_steps(part_dev, out, dev)
+    retried = np.flatnonzero(out.attempts > 1)
+    retried = retried[~skipped[retried]][:RES_ROUTE_LANES]
+    row["restart_vs_route"] = restart_route_check(part, retried, dev)
+    emit(row)     # before the checks, so a failed check leaves its numbers
+
+    check(not res.chunk_failures,
+          f"chunk failures: {[f['error'] for f in res.chunk_failures]}")
+    check(launches > 0 and launches == sum(st["lm_fit_launches"]),
+          f"the resilient path launched the LM-fit kernel {launches} times, "
+          f"its stages counted {sum(st['lm_fit_launches'])}")
+    check(ne_launches == 0, f"the resilient path launched the single-pass "
+                            f"kernel {ne_launches} times")
+    check(row["chunk_launches_match_stats"],
+          "the direct chain's LM-fit launches differ from its stats")
+    check(statuses.get("skipped", 0) == sum(
+        rows[k].size for k in ("all_nan", "has_inf", "interior_gap",
+                               "too_short")),
+          f"skipped {statuses.get('skipped', 0)} lanes, not the "
+          f"pathological rows")
+    check(row["chunk0_bitwise_direct"],
+          "stream_fit(resilient=True)'s first chunk differs from "
+          "arima.fit_resilient of the same rows")
+    check(row["panel_bitwise_direct"],
+          "Panel.fit_resilient differs from arima.fit_resilient")
+    check(row["ok_lanes"] > 0 and row["ok_bitwise_plain"],
+          "OK lanes differ from the plain arima.fit")
+    check(row["health_bitwise_cpu"] and row["skipped_nan_and_zero_attempts"],
+          "health codes differ from the CPU classification, or skipped "
+          "lanes carry parameters or attempts")
+    rv = row["restart_vs_route"]
+    check(rv["lanes"] > 0 and rv["n_iter_equal"] >= LM_ROUTE_SHARE[0]
+          and rv["fun_within_1e-5"] >= LM_ROUTE_SHARE[1],
+          f"the restart loop over the kernel agrees with the loop over "
+          f"the route on n_iter {rv['n_iter_equal']:.4f} / fun "
+          f"{rv['fun_within_1e-5']:.4f} of {rv['lanes']} lanes (floors "
+          f"{LM_ROUTE_SHARE})")
+    return row
+
+
+def _share_close(got, want, sane, rtol, atol=0.0) -> float:
+    """Share of ``sane`` lanes whose every entry of ``got`` (the card's,
+    float32) lies within ``rtol`` of ``want`` (the CPU's float64),
+    relative to the lane's largest ``|want|`` (plus ``atol``)."""
+    g = got.detach().double().cpu().numpy().reshape(len(sane), -1)[sane]
+    w = want.detach().double().cpu().numpy().reshape(len(sane), -1)[sane]
+    scale = np.abs(w).max(axis=1, keepdims=True) + atol
+    with np.errstate(invalid="ignore"):
+        ok = (np.abs(g - w) <= rtol * scale).all(axis=1)
+    return float(ok.mean()) if ok.size else 0.0
+
+
+def phase_arima_surface(panel, seed, dev, chunk=CHUNK):
+    """The fitted model's methods and the residual tests on one
+    131072-lane chunk and its fit on the card, each timed with CUDA
+    events and its kernel launches counted, each held against the port's
+    float64 CPU run on the first ``SURF_CPU_LANES`` lanes of the same
+    coefficients.  The gradient is taken away from the fit, at its
+    coefficients plus a jitter from ``seed``: at the optimum it is ~0 by
+    construction, where a kernel that returned zeros would pass."""
+    import torch
+
+    from spark_timeseries_tpu_torch import stats as tstats
+    from spark_timeseries_tpu_torch.models import arima, base, convert
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    y = torch.from_numpy(panel[:chunk]).to(dev)
+    model = arima.fit(2, 1, 2, y, warn=False, device=dev)
+    L = SURF_CPU_LANES
+    y64 = torch.from_numpy(panel[:L].astype(np.float64))
+    m64 = convert.arima_from_numpy(
+        2, 1, 2, model.coefficients[:L].cpu().double().numpy(),
+        device="cpu")
+    sane = m64.is_stationary() & m64.is_invertible()
+    jitter = torch.from_numpy(np.random.default_rng(seed).normal(
+        0.0, SURF_GRAD_JITTER, model.coefficients.shape).astype(np.float32))
+    mj = convert.arima_from_numpy(
+        2, 1, 2, (model.coefficients + jitter.to(dev)).cpu().numpy(),
+        device=dev)
+    mj64 = convert.arima_from_numpy(
+        2, 1, 2, mj.coefficients[:L].cpu().double().numpy(), device="cpu")
+    sane_j = mj64.is_stationary() & mj64.is_invertible()
+    d = y[:, 1:] - y[:, :-1]
+    d64 = y64[:, 1:] - y64[:, :-1]
+    trend = torch.linspace(0.0, 1.0, panel.shape[1] - 1, device=dev)
+    factors = trend[None, :, None].expand(chunk, -1, 1)
+
+    def residual_tests(m, r, X):
+        return (tstats.lbtest(r, 10)[0], tstats.dwtest(r),
+                tstats.bgtest(r, X, 2)[0])
+
+    def refit(v, m):
+        return arima.fit(2, 1, 2, v, max_iter=200, warn=False,
+                         device=v.device, user_init_params=m.coefficients)
+
+    cases = [
+        ("forecast_interval",
+         lambda m, yy, dd, X: torch.stack(m.forecast_interval(yy, 12)[1:]),
+         5),
+        ("approx_aic", lambda m, yy, dd, X: m.approx_aic(yy), 20),
+        ("gradient_log_likelihood_css_arma",
+         lambda m, yy, dd, X: m.gradient_log_likelihood_css_arma(dd), 20),
+        ("coefficient_precision",
+         lambda m, yy, dd, X: m.coefficient_precision(yy), 2),
+        ("remove_time_dependent_effects",
+         lambda m, yy, dd, X: m.remove_time_dependent_effects(yy), 5),
+        ("residual_tests",
+         lambda m, yy, dd, X: torch.stack(residual_tests(
+             m, m.remove_time_dependent_effects(yy)[:, 1:], X)), 5),
+        ("adftest", lambda m, yy, dd, X: tstats.adftest(yy, 2, "c")[0], 5),
+        ("kpsstest_ct", lambda m, yy, dd, X: tstats.kpsstest(yy, "ct")[0],
+         5),
+    ]
+    row = {"phase": "arima_surface", "lanes": chunk, "cpu_lanes": L,
+           "sane_cpu_lanes": int(sane.sum()), "rtol": SURF_RTOL,
+           "share_floor": SURF_SHARE, "methods": {}}
+    counters = (arma_ne.fit_css_lm, arma_ne.normal_equations,
+                arma_ne.css_cost)
+    totals = {"arma_lm_fit": 0, "arma_ne": 0, "arma_css": 0}
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(zip(totals, (c.launches for c in counters)))
+        for k2, v in got.items():
+            totals[k2] += v
+        return out, got
+
+    grad = "gradient_log_likelihood_css_arma"
+    for name, fn, reps in cases:
+        m, m_64, ok = (mj, mj64, sane_j) if name == grad \
+            else (model, m64, sane)
+        out, got = counted(lambda: fn(m, y, d, factors))
+        ms = _event_ms(lambda: fn(m, y, d, factors), reps)
+        ref = fn(m_64, y64, d64, factors[:L].cpu().double())
+        out_l = out[:, :L] if name in ("forecast_interval",
+                                       "residual_tests") else out[:L]
+        ref_l = ref
+        if name in ("forecast_interval", "residual_tests"):
+            out_l, ref_l = out_l.transpose(0, 1), ref.transpose(0, 1)
+        # the ADF t statistic sits near 0 on many lanes: its tolerance is
+        # relative to the lane's largest |t| + 1
+        share = _share_close(out_l, ref_l, ok, SURF_RTOL,
+                             atol=1.0 if name == "adftest" else 0.0)
+        row["methods"][name] = {"ms": ms, "launches": got,
+                                "share_within_rtol": share,
+                                "sane_cpu_lanes": int(ok.sum())}
+
+    # the gradient at the jittered point against its plain version on
+    # the card (float32 both, sums in other orders): each lane's error
+    # relative to its largest |entry|, so a zero gradient errs by 1.  On
+    # the lanes invertible there: where the MA part is not invertible the
+    # residual recursion amplifies each rounding without bound
+    g_kern = mj.gradient_log_likelihood_css_arma(d)
+    _, g_plain = arma_ne.css_neg_ll_value_and_grad_plain(
+        mj.coefficients, d, 2, 2, 1)
+    g_plain = -g_plain.double()               # ∇LL = −∇(−LL)
+    scale = g_plain.abs().amax(dim=1)
+    err = ((g_kern.double() - g_plain).abs().amax(dim=1) / scale)
+    inv = torch.as_tensor(mj.is_invertible(), device=dev)
+    g_fit = model.gradient_log_likelihood_css_arma(d).double().abs() \
+        .amax(dim=1)
+    row["methods"][grad].update(
+        jitter_sd=SURF_GRAD_JITTER,
+        vs_plain_share=float((err[inv] <= NE_TOL).double().mean()),
+        vs_plain_max_err=float(err[inv].max()),
+        vs_plain_invertible_share=float(inv.double().mean()),
+        median_max_abs_grad=float(scale[inv].median()),
+        median_max_abs_grad_at_fit=float(g_fit[inv].median()))
+
+    # refit_unconverged: the capped fit's unconverged lanes, gathered
+    (got_model, got) = counted(lambda: base.refit_unconverged(y, model,
+                                                              refit))
+    ms = _event_ms(lambda: base.refit_unconverged(y, model, refit), 2)
+    ref_model = base.refit_unconverged(y64, m64._replace(
+        diagnostics=model.diagnostics._replace(
+            converged=model.diagnostics.converged[:L].cpu(),
+            n_iter=model.diagnostics.n_iter[:L].cpu(),
+            fun=model.diagnostics.fun[:L].cpu().double())), refit)
+    # the refitted lanes sit on flat ridges, where float32 and float64 end
+    # at other points of one valley: their objectives are compared
+    unconv = ~model.diagnostics.converged[:L].cpu().numpy()
+    both = got_model.diagnostics.converged[:L].cpu().numpy() \
+        & ref_model.diagnostics.converged.numpy() & unconv
+    f32 = got_model.diagnostics.fun[:L].cpu().double().numpy()[both]
+    f64 = ref_model.diagnostics.fun.numpy()[both]
+    row["methods"]["refit_unconverged"] = {
+        "ms": ms, "launches": got,
+        "refitted_lanes": int((~model.diagnostics.converged).sum()),
+        "converged_after": float(got_model.diagnostics.converged.double()
+                                 .mean()),
+        "cpu_both_converged": int(both.sum()),
+        "fun_share_within_rtol": float(np.mean(
+            np.abs(f32 - f64) <= SURF_RTOL * np.abs(f64))) if f64.size
+        else None}
+
+    # one stepwise auto_fit per series, against the CPU's
+    t_ms, same, got_all = [], 0, {"arma_lm_fit": 0, "arma_ne": 0,
+                                  "arma_css": 0}
+    for i in range(SURF_AUTO_SERIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        am, got = counted(lambda: arima.auto_fit(y[i], max_p=2, max_q=2,
+                                                 device=dev))
+        end.record()
+        end.synchronize()
+        t_ms.append(start.elapsed_time(end))
+        for k2, v in got.items():
+            got_all[k2] += v
+        ref_am = arima.auto_fit(y64[i], max_p=2, max_q=2, device="cpu")
+        same += (am.p, am.d, am.q, am.has_intercept) \
+            == (ref_am.p, ref_am.d, ref_am.q, ref_am.has_intercept)
+    row["methods"]["auto_fit"] = {
+        "ms": float(np.median(t_ms)), "series": SURF_AUTO_SERIES,
+        "launches": got_all, "orders_equal_share": same / SURF_AUTO_SERIES}
+    row["launches"] = totals
+    emit(row)
+
+    for name, m in row["methods"].items():
+        if "share_within_rtol" in m:
+            check(m["share_within_rtol"] >= SURF_SHARE,
+                  f"{name}: only {m['share_within_rtol']:.4f} of the sane "
+                  f"lanes agree with the float64 CPU run to {SURF_RTOL:g}")
+    ms_ = row["methods"]
+    check(ms_["approx_aic"]["launches"]["arma_css"] == 1,
+          "approx_aic did not run the cost-only kernel once")
+    check(ms_["gradient_log_likelihood_css_arma"]["launches"]["arma_ne"]
+          == 1, "the gradient did not run the single-pass kernel once")
+    check(ms_[grad]["vs_plain_share"] >= SURF_SHARE,
+          "the gradient through arma_ne differs from its plain version on "
+          "more than 1 % of the invertible lanes")
+    rf = ms_["refit_unconverged"]
+    check(rf["launches"]["arma_lm_fit"] == 1 and (
+        rf["fun_share_within_rtol"] is None
+        or rf["fun_share_within_rtol"] >= AGREE[1][1]),
+          f"refit_unconverged: {rf}")
+    check(ms_["auto_fit"]["orders_equal_share"] >= SURF_AUTO_FLOOR,
+          f"the stepwise auto_fit chose the CPU's orders on only "
+          f"{ms_['auto_fit']['orders_equal_share']:.2f} of the series")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2148,6 +2677,15 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
 
     panel_row = phase_panel_path(panel, auto_panel, args.seed, dev)
 
+    res_row = phase_resilient_path(panel, args.seed, dev)
+    surf_row = phase_arima_surface(panel, args.seed, dev)
+    surf = surf_row["launches"]
+    # the auto-order stage's launches are the grid row's (its screen and
+    # refine, as on the auto-fit path); the rest the LM-fit row's
+    res_grid = sum(by.get("auto_order", 0)
+                   for by in res_row["lm_fit_launches_by_stage_per_chunk"])
+    res_lm = res_row["arma_lm_fit_launches"] - res_grid
+
     css = hw_timing["css"][0]       # the main path's order, (2,1,2)+c
     emit({"kernels": [{
         "name": "arma_lm_fit", "route": "cuda",
@@ -2155,10 +2693,13 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "replaces_solver": "spark_timeseries_tpu/ops/pallas_arma.py:463 "
                            "(fit_css_lm)",
-        "launches": lm_launches + panel_row["arma_lm_fit_launches"],
+        "launches": lm_launches + panel_row["arma_lm_fit_launches"]
+        + res_lm + surf["arma_lm_fit"],
         "launches_by_path": {
             "main_path": lm_launches,
-            "panel_path": panel_row["arma_lm_fit_launches"]},
+            "panel_path": panel_row["arma_lm_fit_launches"],
+            "resilient_path": res_lm,
+            "arima_surface": surf["arma_lm_fit"]},
         # lanes stopped by the iteration cap end anywhere along a ridge
         "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
@@ -2169,11 +2710,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "launches": main_row["normal_equations_launches"]
-        + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"],
+        + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"]
+        + res_row["arma_ne_launches"] + surf["arma_ne"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
-            "panel_path": panel_row["arma_ne_launches"]},
+            "panel_path": panel_row["arma_ne_launches"],
+            "resilient_path": res_row["arma_ne_launches"],
+            "arima_surface": surf["arma_ne"]},
         "route_launches": lm_row["route_arma_ne_launches"],
         "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
@@ -2182,7 +2726,13 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "name": "arma_css", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
         "replaces": "docs/experiments/arma_pallas.py:67",
-        "launches": css_launches, "max_abs_err": css_max_abs,
+        "launches": css_launches + res_row["arma_css_launches"]
+        + surf["arma_css"],
+        "launches_by_path": {
+            "hw_path": css_launches,
+            "resilient_path": res_row["arma_css_launches"],
+            "arima_surface": surf["arma_css"]},
+        "max_abs_err": css_max_abs,
         "ms": css["kernel_ms"], "plain_ms": css["plain_ms"],
         "bound_ms": css["bound_us"] / 1e3,
         "bound_by": css["bound_by"], "library_ms": None}, {
@@ -2208,10 +2758,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229 "
                     "(y_blocks grid, :351)",
-        "launches": grid_launches + panel_row["auto_fit_launches"],
+        "launches": grid_launches + panel_row["auto_fit_launches"]
+        + res_grid,
         "launches_by_path": {
             "auto_fit_path": grid_launches,
-            "panel_path": panel_row["auto_fit_launches"]},
+            "panel_path": panel_row["auto_fit_launches"],
+            "resilient_path": res_grid},
         "max_abs_err": grid_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
         "plain_lanes": grid_row["plain_lanes"],

@@ -33,6 +33,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ._device import KernelError, KernelInputError
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -53,7 +55,7 @@ def _nvcc() -> str:
     for path in candidates:
         if os.path.isfile(path):
             return path
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
@@ -122,7 +124,7 @@ def build_all() -> List[Path]:
             os.replace(tmp, _target(name))
         tmp.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return [_target(name) for name in _sources()]
 
 
@@ -134,7 +136,10 @@ def library(name: str) -> ctypes.CDLL:
             so = _target(name)
             if not so.exists():
                 build_all()
-            lib = ctypes.CDLL(str(so))
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as e:
+                raise KernelError(f"cannot load {so}: {e}") from e
             _libs[name] = lib
         return lib
 
@@ -174,13 +179,13 @@ def check_inputs(tensors: Sequence[torch.Tensor], kernel: str) -> None:
     one's device: the pointers a kernel takes carry no shape or type."""
     for t in tensors:
         if t.device != tensors[0].device:
-            raise ValueError(f"the {kernel} kernel's inputs must share one "
+            raise KernelInputError(f"the {kernel} kernel's inputs must share one "
                              f"device")
         if t.dtype != torch.float32:
-            raise ValueError(f"the CUDA {kernel} kernel takes float32, got "
+            raise KernelInputError(f"the CUDA {kernel} kernel takes float32, got "
                              f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"the CUDA {kernel} kernel needs contiguous "
+            raise KernelInputError(f"the CUDA {kernel} kernel needs contiguous "
                              f"inputs")
 
 
@@ -191,5 +196,5 @@ def launch(fn, device: torch.device, *args, what: str) -> None:
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{what}: " + ("unsupported arguments" if rc < 0
+        raise KernelError(f"{what}: " + ("unsupported arguments" if rc < 0
                                           else f"CUDA error {rc}"))

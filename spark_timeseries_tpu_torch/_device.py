@@ -13,6 +13,23 @@ from __future__ import annotations
 import torch
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, load, configure or launch.
+    Stage and chunk isolation never catch it: a fit that cannot reach
+    its kernel raises instead of serving a fallback."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """Operands a kernel does not take (dtype, device, layout)."""
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """Whether ``e`` is a failure of a kernel or of the card, which
+    isolation re-raises, rather than a failure of one stage's numbers."""
+    return isinstance(e, (KernelError, torch.cuda.OutOfMemoryError,
+                          getattr(torch, "AcceleratorError", ())))
+
+
 def resolve_device(device=None) -> torch.device:
     """The ``torch.device`` an entry point runs on (``None`` -> CUDA)."""
     dev = torch.device("cuda" if device is None else device)

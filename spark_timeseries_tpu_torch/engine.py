@@ -3,7 +3,8 @@
 :meth:`FitEngine.stream_fit` fits a panel larger than device memory in
 chunks of ``chunk_size`` series — the JAX engine's chunk boundaries — and
 isolates per-chunk failures (recorded in ``chunk_failures``, never
-raised).  On CUDA each host chunk is staged through a pinned buffer and
+raised), except a kernel that does not build or launch and a card out of
+memory (``_device.is_device_fault``), which raise.  On CUDA each host chunk is staged through a pinned buffer and
 copied on a side stream while the previous chunk fits, so the copy of
 chunk i+1 overlaps the fit of chunk i.  The tail chunk pads to its own
 :func:`series_bucket` like the JAX engine's (zero lanes for a dense
@@ -12,22 +13,30 @@ themselves per lane and are sliced off.  :meth:`FitEngine.fit` fits one
 panel directly: eager PyTorch has no compile cache for bucketing to
 serve.
 
+The resilient tier is here: :meth:`FitEngine.fit_resilient` pads the
+series axis with all-NaN lanes, which health classification skips, and
+``stream_fit(resilient=True)`` runs every chunk through the family's
+fail-soft chain.
+
 What only JAX needs does not come across: the AOT executable cache,
-donation, the compile-cache directory, journals, deadlines, degradation,
-resilient mode and telemetry.  Their ``stream_fit`` keywords raise
-``NotImplementedError``.
+donation, the compile-cache directory, journals, deadlines, degradation
+and telemetry.  Their ``stream_fit`` keywords raise
+``NotImplementedError``.  ``retry`` here is a
+``utils.resilience.RetryPolicy`` for the fits (the JAX engine's chunk
+re-dispatch policy of the same name belongs to its durability tier).
 """
 
 from __future__ import annotations
 
 import time
 import traceback as _traceback
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ._device import as_tensor, check_dtype, resolve_device
+from ._device import (as_tensor, check_dtype, is_device_fault,
+                      resolve_device)
 from .ops.ragged import ragged_view
 
 __all__ = ["SERIES_BUCKET_FLOOR", "OBS_BUCKET_MULTIPLE", "pad_bucket",
@@ -38,8 +47,12 @@ OBS_BUCKET_MULTIPLE = 32
 
 # stream_fit keywords of the JAX engine with no counterpart here
 _NOT_PORTED = ("prefetch", "donate", "journal", "job_meta", "deadline_s",
-               "retry", "degrade", "degrade_floor", "resilient", "fused",
-               "on_progress", "job_label")
+               "degrade", "degrade_floor", "fused", "on_progress",
+               "job_label")
+
+# the JAX engine's resilient families that wait for their model slices
+_RESILIENT_WAITING = ("arimax", "arx", "ewma", "garch", "argarch", "egarch",
+                      "holt_winters", "regression_arima")
 
 
 def series_bucket(n_series: int) -> int:
@@ -61,9 +74,9 @@ def pad_bucket(n_series: int, n_obs: int) -> Tuple[int, int]:
 
 _STATICS_BUILDERS = {
     "arima": lambda p=2, d=1, q=2, include_intercept=True,
-    method="css-lm", max_iter=None:
+    method="css-lm", max_iter=None, retry=None:
         (int(p), int(d), int(q), bool(include_intercept), str(method),
-         max_iter),
+         max_iter, retry),
     "ar": lambda max_lag=2, no_intercept=False:
         (int(max_lag), bool(no_intercept)),
     "holt_winters": lambda period=12, model_type="additive":
@@ -99,10 +112,11 @@ def _fit_values(family: str, statics: tuple, values: torch.Tensor,
     values, n_valid = ragged_view(values)
 
     if family == "arima":
-        p, d, q, icpt, method, max_iter = statics
+        p, d, q, icpt, method, max_iter, retry = statics
         return arima.fit(p, d, q, values, include_intercept=icpt,
-                         method=method, max_iter=max_iter, warn=warn,
-                         n_valid=n_valid, device=values.device, stats=stats)
+                         method=method, max_iter=max_iter, retry=retry,
+                         warn=warn, n_valid=n_valid, device=values.device,
+                         stats=stats)
     max_lag, no_icpt = statics
     return autoregression.fit(values, max_lag, no_intercept=no_icpt,
                               n_valid=n_valid)
@@ -131,6 +145,20 @@ def _map_tensors(obj, fn):
 class _ChunkDataError(ValueError):
     """A chunk violates the data contract (interior gaps): deterministic,
     so it is recorded, never retried."""
+
+
+def _failure_record(start: int, stop: int, bucket: int,
+                    e: Exception) -> Dict[str, Any]:
+    """A ``chunk_failures`` entry: the row range, bucket, kind (``data``
+    for a data-contract violation), exception and truncated
+    traceback."""
+    tb = "".join(_traceback.format_exception(type(e), e, e.__traceback__))
+    return {"chunk_start": int(start), "chunk_stop": int(stop),
+            "n_series": int(stop - start), "bucket": int(bucket),
+            "kind": "data" if isinstance(e, _ChunkDataError) else "error",
+            "error_type": type(e).__name__,
+            "error": f"{type(e).__name__}: {e}",
+            "traceback": tb[-2000:], "attempts": 1}
 
 
 class StreamResult(NamedTuple):
@@ -219,8 +247,8 @@ class FitEngine:
             warn: bool = False, **kwargs):
         """Fit one ``(n_series, n_obs)`` panel on ``device`` (``None`` means
         CUDA).  ``kwargs`` are the family's fit parameters (arima:
-        ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``;
-        ar: ``max_lag``/``no_intercept``; holt_winters:
+        ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``/
+        ``retry``; ar: ``max_lag``/``no_intercept``; holt_winters:
         ``period``/``model_type``).  NaN-padded lanes fit their valid
         windows; NaN inside a window raises."""
         statics = _statics(family, kwargs)
@@ -232,9 +260,129 @@ class FitEngine:
                 f"{tuple(v.shape)}")
         return _fit_values(family, statics, v, warn)
 
+    # -- resilient tier (the Panel.fit_resilient front-end) -----------------
+
+    @staticmethod
+    def resilient_dispatch(family: str) -> Callable:
+        """The family's ``fit_resilient`` (the direct, unbucketed chain):
+        ``arima`` and ``ar``; the JAX engine's other resilient families
+        raise ``NotImplementedError`` until their models are ported."""
+        from .models import arima, autoregression
+        dispatch = {"arima": arima.fit_resilient,
+                    "ar": autoregression.fit_resilient}
+        if family in _RESILIENT_WAITING:
+            raise NotImplementedError(
+                f"the resilient fit of family {family!r} is not ported yet "
+                f"(ROADMAP Queue A item 3)")
+        if family not in dispatch:
+            raise ValueError(f"unknown model family {family!r}; expected "
+                             f"one of {sorted(dispatch)}")
+        return dispatch[family]
+
+    def fit_resilient(self, values, family: str, *args, device=None,
+                      **kwargs):
+        """Pad the series axis to its :func:`series_bucket` with all-NaN
+        lanes, run the family's ``fit_resilient`` chain on ``device``
+        (``None`` means CUDA), and slice the padding back off.  Padding
+        lanes classify as unfittable, so every stage skips them: the real
+        lanes are the unbucketed chain's results bit for bit.  Returns
+        ``(model, FitOutcome)`` for the real lanes."""
+        fit_fn = self.resilient_dispatch(family)
+        dev = resolve_device(device)
+        v = as_tensor(values, dev)
+        if v.ndim != 2:
+            return fit_fn(v, *args, device=dev, **kwargs)
+        n_series, n_obs = v.shape
+        bs = series_bucket(n_series)
+        if bs == n_series:
+            return fit_fn(v, *args, device=dev, **kwargs)
+        padded = torch.full((bs, n_obs), float("nan"), dtype=v.dtype,
+                            device=dev)
+        padded[:n_series] = v
+        model, outcome = fit_fn(padded, *args, device=dev, **kwargs)
+        model = _map_tensors(model, lambda t: t[:n_series]
+                             if t.ndim >= 1 and t.shape[0] == bs else t)
+        outcome = type(outcome)(
+            None if outcome.params is None else outcome.params[:n_series],
+            outcome.status[:n_series], outcome.attempts[:n_series],
+            outcome.fallback_used[:n_series], outcome.health[:n_series],
+            None if outcome.orders is None
+            else outcome.orders[:n_series])
+        return model, outcome
+
+    def _stream_resilient(self, host: np.ndarray, family: str,
+                          chunk_size: int, collect: bool,
+                          dev: torch.device, input_d2h_s: float,
+                          kwargs) -> StreamResult:
+        """``stream_fit(resilient=True)``: each chunk's fail-soft chain in
+        turn (the chain gathers and scatters on the host's orders, so
+        there is no fit to overlap a copy with)."""
+        from .utils.resilience import (STATUS_FALLBACK, STATUS_OK,
+                                       STATUS_RETRIED)
+        check_dtype(torch.from_numpy(host[:0, :0]).dtype, dev)
+        n_series = host.shape[0]
+        chunk = max(1, min(int(chunk_size), n_series))
+        partition = [(s, min(s + chunk, n_series))
+                     for s in range(0, n_series, chunk)]
+        conv = 0
+        dead_series = 0
+        failures: List[Dict[str, Any]] = []
+        models: List[Any] = []
+        ranges: List[List[int]] = []
+        statuses: Dict[str, int] = {}
+        attempts: Dict[int, int] = {}
+        launches: List[int] = []
+        by_stage: List[Dict[str, int]] = []
+        restart_lanes: List[List[int]] = []
+        t0 = time.perf_counter()
+        for start, stop in partition:
+            try:
+                part = torch.from_numpy(host[start:stop]).to(dev)
+                st: Dict[str, Any] = {}
+                kw = dict(kwargs, stats=st) if family == "arima" else kwargs
+                model, outcome = self.fit_resilient(part, family, device=dev,
+                                                    **kw)
+                ok = np.isin(outcome.status,
+                             (STATUS_OK, STATUS_RETRIED, STATUS_FALLBACK))
+                conv += int(ok.sum())
+                for name, count in outcome.counts().items():
+                    statuses[name] = statuses.get(name, 0) + count
+                vals, counts = np.unique(outcome.attempts, return_counts=True)
+                for a, c in zip(vals.tolist(), counts.tolist()):
+                    attempts[a] = attempts.get(a, 0) + c
+                launches.append(st.get("lm_fit_launches", 0))
+                by_stage.append(st.get("lm_fit_launches_by_stage", {}))
+                restart_lanes.append(st.get("restart_lanes", []))
+                if collect:
+                    models.append(_map_tensors(model, lambda t: t.cpu()))
+                    ranges.append([start, stop])
+            except Exception as e:  # noqa: BLE001 — chunk isolation
+                if is_device_fault(e):
+                    raise
+                dead_series += stop - start
+                failures.append(_failure_record(
+                    start, stop, series_bucket(stop - start), e))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        stats: Dict[str, Any] = {
+            "chunk_size": chunk, "resilient": True,
+            "resilient_statuses": statuses,
+            "resilient_attempts": dict(sorted(attempts.items())),
+            "lm_fit_launches": launches,
+            "lm_fit_launches_by_stage": by_stage,
+            "restart_lanes": restart_lanes,
+            "input_d2h_s": input_d2h_s, "device": str(dev)}
+        if collect:
+            stats["collected_ranges"] = ranges
+        return StreamResult(n_series, max(n_series - dead_series, 0), conv,
+                            wall, len(partition), failures,
+                            models if collect else None, stats)
+
     def stream_fit(self, values, family: str = "arima", *,
                    chunk_size: int = 131072, collect: bool = False,
-                   device=None, **kwargs) -> StreamResult:
+                   device=None, resilient: bool = False,
+                   **kwargs) -> StreamResult:
         """Fit a panel ``(n_series, n_obs)`` in chunks on ``device``.
         ``values`` is an array or a tensor; chunks are staged from the
         host, so a tensor on a card is first copied to the host once
@@ -243,15 +391,29 @@ class FitEngine:
         Each chunk's fit is isolated: a chunk that raises (or violates the
         data contract) lands in ``chunk_failures`` with its row range,
         bucket, exception type and a truncated traceback, and the stream
-        goes on.  ``n_converged`` counts converged real lanes; ``wall_s``
-        covers staging through the last chunk's results on the host."""
+        goes on; a kernel or card fault raises.  ``n_converged`` counts converged real lanes; ``wall_s``
+        covers staging through the last chunk's results on the host.
+
+        ``resilient=True`` runs every chunk through the family's fail-soft
+        chain (:meth:`fit_resilient`: health masking, ``retry=``
+        multi-start restarts, the fallback stages and arima's
+        ``auto_order=``, all passed through ``kwargs``), one chunk after
+        the other; ``n_converged`` then counts lanes whose status is
+        ok / retried / fallback, ``stats["resilient_statuses"]`` the
+        statuses, ``stats["resilient_attempts"]`` the attempts histogram,
+        and per chunk ``lm_fit_launches`` (every stage's; on the CPU 0),
+        ``lm_fit_launches_by_stage`` and ``restart_lanes`` (the primary's
+        restarts)."""
         not_ported = sorted(set(kwargs) & set(_NOT_PORTED))
         if not_ported:
             raise NotImplementedError(
                 f"stream_fit keywords {not_ported} belong to the JAX "
                 f"engine's durability and compile tiers, which the port "
                 f"does not have")
-        statics = _statics(family, kwargs)
+        if resilient:
+            self.resilient_dispatch(family)
+        else:
+            statics = _statics(family, kwargs)
         dev = resolve_device(device)
         t0 = time.perf_counter()
         # chunks are staged from the host: a tensor on a card comes to
@@ -263,6 +425,9 @@ class FitEngine:
             raise ValueError(
                 f"stream_fit needs a (n_series, n_obs) panel, got "
                 f"{host.shape}")
+        if resilient:
+            return self._stream_resilient(host, family, chunk_size, collect,
+                                          dev, input_d2h_s, kwargs)
         dtype = torch.from_numpy(host[:0, :0]).dtype
         check_dtype(dtype, dev)
         n_series, n_obs = host.shape
@@ -314,18 +479,9 @@ class FitEngine:
 
         def record_failure(start: int, stop: int, e: Exception) -> None:
             nonlocal dead_series
-            n_real = stop - start
-            dead_series += n_real
-            tb = "".join(_traceback.format_exception(
-                type(e), e, e.__traceback__))
-            failures.append({
-                "chunk_start": int(start), "chunk_stop": int(stop),
-                "n_series": int(n_real), "bucket": int(bucket(n_real)),
-                "kind": "data" if isinstance(e, _ChunkDataError)
-                else "error",
-                "error_type": type(e).__name__,
-                "error": f"{type(e).__name__}: {e}",
-                "traceback": tb[-2000:], "attempts": 1})
+            dead_series += stop - start
+            failures.append(_failure_record(start, stop,
+                                            bucket(stop - start), e))
 
         # does an arima chunk run the LM loop (not the AR fast path)?
         lm_path = False
@@ -339,6 +495,8 @@ class FitEngine:
             try:
                 return stage(idx)
             except Exception as e:  # noqa: BLE001 — chunk isolation
+                if is_device_fault(e):
+                    raise
                 return e
 
         staged = try_stage(0)
@@ -386,6 +544,8 @@ class FitEngine:
                                           and t.shape[0] == bs
                                           else t).cpu()))
             except Exception as e:  # noqa: BLE001 — chunk isolation
+                if is_device_fault(e):
+                    raise
                 record_failure(start, stop, e)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -1,14 +1,19 @@
 """ARIMA(p, d, q) models, batched (counterpart of
 ``spark_timeseries_tpu/models/arima.py``).
 
-Ported so far: the conditional-sum-of-squares fit with the batched
-Levenberg-Marquardt solver (``method="css-lm"``, ``objective="css"``),
-the AR fast path, ragged (NaN-padded) panels, short-lane quarantine,
-forecasting, the CSS log likelihood, the stationarity/invertibility
-root checks, and the batched automatic order selection
-:func:`auto_fit_panel` (KPSS d-selection, the whole (p, q) candidate
-grid fitted at once, AIC argmin).  The LM solves come from
-``ops.arma_ne.fit_css_lm`` — on CUDA, the hand-written LM-fit kernel.
+Ported: the conditional-sum-of-squares fit (``objective="css"``) by the
+batched Levenberg-Marquardt solver (``method="css-lm"``, on CUDA the
+hand-written LM-fit kernel ``ops.arma_ne.fit_css_lm``) or by the
+projected gradient over the CSS value and gradient (``"css-bobyqa"``),
+with multi-start retry (``retry=``); the AR fast path, ragged (NaN-padded)
+panels and short-lane quarantine; the model's forecasts with bands,
+likelihood, AIC, gradient, Hessian, AR(∞) form, time-dependent effects
+and sampling; the stationarity/invertibility root checks; the stepwise
+:func:`auto_fit` and the batched :func:`auto_fit_panel`; and the fail-soft
+:func:`fit_resilient` (health masking, retry, the fallback chain ARIMA ->
+auto-order -> AR -> mean).  Not ported yet: ``method="css-cgd"`` (BFGS),
+``objective="exact"`` and ``log_likelihood_exact`` (the state-space
+slice), ``fit_long`` and ``segment_fit_outputs`` (the long-series slice).
 
 Coefficients are laid out ``[intercept?, AR..., MA...]`` as in the JAX
 package, panels series-major ``(n_series, n_obs)``.
@@ -24,18 +29,20 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
-from ..ops.arma_ne import (check_kernel_order, css_cost, fit_css_lm,
+from ..ops.arma_ne import (check_kernel_order, css_cost,
+                           css_neg_ll_value_and_grad, fit_css_lm,
                            normal_equations_plain)
 from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram, spd_solve
-from ..ops.optimize import MinimizeResult
+from ..ops.optimize import MinimizeResult, _solve_with_policy, minimize_box
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from ..ops.univariate import (differences_of_order_d,
                               inverse_differences_of_order_d)
 from ..stats import KPSS_CONSTANT_CRITICAL_VALUES, kpsstest
+from ..utils import resilience as _resilience
 from . import autoregression
-from .base import FitDiagnostics, diagnostics_from
+from .base import FitDiagnostics, diagnostics_from, normal_quantile
 
 # LM iteration cap of the css-lm fit (the JAX package's LM_MAX_ITER)
 LM_MAX_ITER = 50
@@ -137,14 +144,20 @@ def _difference_rows(ts: torch.Tensor, d: int) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _broadcast(params: torch.Tensor, ts: torch.Tensor):
+    """``params (..., k)`` and ``ts (..., n)`` expanded to one batch."""
+    batch = torch.broadcast_shapes(params.shape[:-1], ts.shape[:-1])
+    return (params.expand(*batch, params.shape[-1]),
+            ts.expand(*batch, ts.shape[-1]))
+
+
 def _forecast(params: torch.Tensor, ts: torch.Tensor, n_future: int,
               p: int, d: int, q: int, icpt: int) -> torch.Tensor:
     """1-step-ahead fitted historicals + ``n_future`` forecast periods,
     with the d-order integration unwound through the incremental
     differences (the JAX package's ``_forecast_one``, batched)."""
-    batch = torch.broadcast_shapes(params.shape[:-1], ts.shape[:-1])
-    params = params.expand(*batch, params.shape[-1])
-    ts = ts.expand(*batch, ts.shape[-1])
+    params, ts = _broadcast(params, ts)
+    batch = params.shape[:-1]
     c, phi, theta = _split_params(params, p, q, icpt)
     max_lag = max(p, q)
     n = ts.shape[-1]
@@ -188,6 +201,152 @@ def _forecast(params: torch.Tensor, ts: torch.Tensor, n_future: int,
         results[..., n - d:] = inverse_differences_of_order_d(
             torch.cat([prev_terms, fwd], dim=-1), d)
     return results
+
+
+def _remove_effects(params: torch.Tensor, ts: torch.Tensor, p: int, d: int,
+                    q: int, icpt: int) -> torch.Tensor:
+    """The underlying errors of an ARIMA(p, d, q) realization (the JAX
+    package's ``_remove_effects_one``, batched): difference, left-extend
+    ``max(p, q)`` entries equal to the intercept, then invert the ARMA
+    recurrence (the recovered error at t feeds the MA terms after it)."""
+    params, ts = _broadcast(params, ts)
+    c, phi, theta = _split_params(params, p, q, icpt)
+    max_lag = max(p, q)
+    diffed = differences_of_order_d(ts, d)
+    ext = torch.cat([c[..., None].expand(*c.shape, max_lag), diffed], dim=-1)
+    if p > 0:
+        ar_part = lag_matvec(ext, phi, p)[..., max_lag - p:]
+    else:
+        ar_part = torch.zeros_like(diffed)
+    base = ext[..., max_lag:] - c[..., None] - ar_part
+    if q == 0:
+        return base
+    errs = [torch.zeros_like(base[..., 0])] * q
+    outs = []
+    for t in range(base.shape[-1]):
+        ma = theta[..., 0] * errs[0]
+        for m in range(1, q):
+            ma = ma + theta[..., m] * errs[m]
+        out = base[..., t] - ma
+        errs = [out] + errs[:-1]
+        outs.append(out)
+    return torch.stack(outs, dim=-1)
+
+
+def _add_effects(params: torch.Tensor, ts: torch.Tensor, p: int, d: int,
+                 q: int, icpt: int) -> torch.Tensor:
+    """ARIMA(p, d, q) structure over i.i.d. draws (the JAX package's
+    ``_add_effects_one``, batched): prior AR values equal the intercept,
+    prior MA errors are zero, the MA terms read the input errors, and the
+    result is inverse-differenced ``d`` times."""
+    params, ts = _broadcast(params, ts)
+    c, phi, theta = _split_params(params, p, q, icpt)
+    max_lag = max(p, q)
+    if q > 0:
+        e_pad = torch.cat([ts.new_zeros((*ts.shape[:-1], max_lag)), ts],
+                          dim=-1)
+        ma_part = lag_matvec(e_pad, theta, q)[..., max_lag - q:]
+    else:
+        ma_part = torch.zeros_like(ts)
+    drive = ts + c[..., None] + ma_part
+    if p == 0:
+        out = drive
+    else:
+        recent = [c] * p
+        outs = []
+        for t in range(drive.shape[-1]):
+            ar = phi[..., 0] * recent[0]
+            for j in range(1, p):
+                ar = ar + phi[..., j] * recent[j]
+            out_t = drive[..., t] + ar
+            recent = [out_t] + recent[:-1]
+            outs.append(out_t)
+        out = torch.stack(outs, dim=-1)
+    return inverse_differences_of_order_d(out, d)
+
+
+def _psi_half_widths(params: torch.Tensor, ts: torch.Tensor, h: int, p: int,
+                     d: int, q: int, icpt: int, conf: float) -> torch.Tensor:
+    """Half-widths of symmetric ``conf`` forecast bands for horizons 1..h
+    (the JAX package's ``_psi_half_widths``, batched): ψ-weights of the
+    nonstationary AR polynomial ``φ(B)(1 - B)^d``, the h-step variance
+    ``σ² Σ_{j<h} ψ_j²`` with ``σ² = css / n`` of the one-step residuals."""
+    params, ts = _broadcast(params, ts)
+    _, phi, theta = _split_params(params, p, q, icpt)
+    diffed = differences_of_order_d(ts, d)[..., d:]
+    _, err = _one_step_errors(params, diffed, p, q, icpt)
+    sigma2 = (err * err).sum(dim=-1) / diffed.shape[-1]
+
+    # φ*(B) = φ(B)(1-B)^d as 1 - Σ a_j B^j, j = 1..p+d
+    binom = [math.comb(d, k) * (-1.0) ** k for k in range(d + 1)]
+    ar_poly = torch.cat([torch.ones_like(phi[..., :1]), -phi], dim=-1)
+    ar_star = [sum(ar_poly[..., i] * binom[j - i]
+                   for i in range(max(0, j - d), min(j, p) + 1))
+               for j in range(p + d + 1)]
+    a = [-c for c in ar_star[1:]]                                # p + d
+    th = [torch.zeros_like(sigma2)] * h
+    for j in range(1, min(q, h - 1) + 1):
+        th[j] = theta[..., j - 1]
+    psis = [torch.ones_like(sigma2)]
+    for j in range(1, h):
+        psi = th[j]
+        for i, a_i in enumerate(a):
+            if j - i - 1 >= 0:
+                psi = psi + a_i * psis[j - i - 1]
+        psis.append(psi)
+    psi = torch.stack(psis, dim=-1)
+    var_h = sigma2[..., None] * torch.cumsum(psi * psi, dim=-1)
+    z = normal_quantile(conf, ts.dtype).to(ts.device)
+    return z * torch.sqrt(var_h)
+
+
+def ar_truncation(c, phi, theta, n_terms: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Truncated AR(∞) form of a (batched) ARMA: ``(c_pi (...), pi (...,
+    n_terms))`` with ``π_k = φ_k + θ_k - Σ_{i=1..min(k-1, q)} θ_i π_{k-i}``
+    (taps past the order are zero) and ``c_pi = c / (1 + Σθ_i)``, the
+    JAX package's ``ar_truncation``.  ``phi (..., p)``, ``theta (...,
+    q)``, ``c (...)``."""
+    phi = torch.as_tensor(phi)
+    theta = torch.as_tensor(theta, dtype=phi.dtype, device=phi.device)
+    c = torch.as_tensor(c, dtype=phi.dtype, device=phi.device)
+    batch = phi.shape[:-1]
+    p, q = phi.shape[-1], theta.shape[-1]
+    n_terms = int(n_terms)
+    if n_terms < 1:
+        raise ValueError(f"ar_truncation needs n_terms >= 1, got {n_terms}")
+
+    def taps(x, k):
+        if k >= n_terms:
+            return x[..., :n_terms]
+        return torch.cat([x, x.new_zeros((*batch, n_terms - k))], dim=-1)
+
+    phi_ext = taps(phi, p)
+    c_pi = c / (1.0 + theta.sum(dim=-1))
+    if q == 0:
+        return c_pi, phi_ext
+    th_ext = taps(theta, q)
+    ring = [phi.new_zeros(batch)] * q          # π_{k-1} .. π_{k-q}
+    pis = []
+    for k in range(n_terms):
+        pi_k = phi_ext[..., k] + th_ext[..., k] \
+            - (theta * torch.stack(ring, dim=-1)).sum(dim=-1)
+        ring = [pi_k] + ring[:-1]
+        pis.append(pi_k)
+    return c_pi, torch.stack(pis, dim=-1)
+
+
+def _neg_ll_autograd(params: torch.Tensor, diffed: torch.Tensor, p: int,
+                     q: int, icpt: int) -> torch.Tensor:
+    """The negative CSS log likelihood as differentiable tensor ops over
+    the residual recurrence (the JAX package's ``_log_likelihood_css_arma``,
+    negated), per lane."""
+    _, err = _one_step_errors(params, diffed, p, q, icpt)
+    n_eff = float(diffed.shape[-1])
+    css = (err * err).sum(dim=-1)
+    sigma2 = css / n_eff
+    return -((-n_eff / 2.0) * torch.log(2.0 * math.pi * sigma2)
+             - css / (2.0 * sigma2))
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +466,100 @@ class ARIMAModel(NamedTuple):
         return _all_roots_outside_unit_circle(
             np.concatenate([ones, theta], axis=-1))
 
+    def approx_aic(self, ts) -> torch.Tensor:
+        """Conditional-likelihood AIC, ``-2 LL + 2 k`` (the CSS likelihood
+        through the cost-only kernel on the card)."""
+        return -2.0 * self.log_likelihood_css(ts) + 2.0 * self.n_params
+
+    def gradient_log_likelihood_css_arma(self, diffed) -> torch.Tensor:
+        """Gradient of the CSS log likelihood on an already-differenced
+        series, ``(..., k)``: ``-(n / css) Jᵀr`` from one normal-equations
+        pass (``ops.arma_ne.css_neg_ll_value_and_grad``; on the card one
+        ``arma_ne`` kernel launch)."""
+        params, y = _broadcast(self.coefficients, self._like(diffed))
+        k = params.shape[-1]
+        if k == 0:
+            return params.clone()
+        if y.is_cuda:
+            check_kernel_order(self.p, self.q, self._icpt)
+        batch = params.shape[:-1]
+        _, grad = css_neg_ll_value_and_grad(
+            params.reshape(-1, k), y.reshape(-1, y.shape[-1]), self.p,
+            self.q, self._icpt)
+        return -grad.reshape(*batch, k)
+
+    def remove_time_dependent_effects(self, ts) -> torch.Tensor:
+        """The underlying errors of the series (the inverse of
+        :meth:`add_time_dependent_effects`)."""
+        return _remove_effects(self.coefficients, self._like(ts), self.p,
+                               self.d, self.q, self._icpt)
+
+    def add_time_dependent_effects(self, ts) -> torch.Tensor:
+        """The ARIMA process applied to i.i.d. errors ``ts``."""
+        return _add_effects(self.coefficients, self._like(ts), self.p,
+                            self.d, self.q, self._icpt)
+
+    def sample(self, n: int, generator: Optional[torch.Generator] = None,
+               shape=()) -> torch.Tensor:
+        """Gaussian innovations ``(*shape, n)`` from ``generator`` (on its
+        device, then moved to the model's) pushed through the process."""
+        gen_dev = generator.device if generator is not None \
+            else self.coefficients.device
+        noise = torch.randn((*shape, n), generator=generator,
+                            dtype=self.coefficients.dtype, device=gen_dev)
+        return self.add_time_dependent_effects(noise)
+
+    def forecast_interval(self, ts, n_future: int, conf: float = 0.95):
+        """Point forecast plus symmetric ``conf`` prediction bands:
+        ``(forecast, lower, upper)``, ``forecast`` exactly
+        :meth:`forecast`'s output, ``lower`` / ``upper`` over the
+        ``n_future`` future steps only, widening with the ψ-weight error
+        variance.  Bands are bounded only where the AR part is stationary:
+        an explosive lane's bands grow at its rate and may overflow."""
+        if n_future < 1:
+            raise ValueError("forecast_interval needs n_future >= 1")
+        ts = self._like(ts)
+        point = self.forecast(ts, n_future)
+        half = _psi_half_widths(self.coefficients, ts, n_future, self.p,
+                                self.d, self.q, self._icpt, conf)
+        future = point[..., ts.shape[-1]:]
+        return point, future - half, future + half
+
+    def ar_inf_coefficients(self, n_terms: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The AR(∞) form truncated at ``n_terms``, ``(c_pi, pi)`` with
+        ``y_t ≈ c_pi + Σ_j pi_j y_{t-j} + e_t`` on the differenced scale
+        (:func:`ar_truncation`)."""
+        return ar_truncation(self.intercept, self.ar_coefficients,
+                             self.ma_coefficients, n_terms)
+
+    def coefficient_precision(self, ts, assume_differenced: bool = False
+                              ) -> torch.Tensor:
+        """The exact Hessian of the negative CSS log likelihood at the
+        coefficients, ``(..., k, k)``: the observed information the
+        long-series combiner weights by.  ``ts`` is the fitted series
+        (``assume_differenced=True`` when already differenced).
+
+        Every lane's likelihood goes into one autograd graph (lanes are
+        independent, so the gradient of their sum separates by lane):
+        one backward with its graph kept for the gradient, then one
+        backward per coefficient for the Hessian's rows."""
+        y = self._like(ts)
+        if not assume_differenced:
+            y = differences_of_order_d(y, self.d)[..., self.d:]
+        params, y = _broadcast(self.coefficients, y)
+        k = params.shape[-1]
+        if k == 0:
+            return params.new_zeros((*params.shape, 0))
+        with torch.enable_grad():
+            x = params.detach().clone().requires_grad_(True)
+            f = _neg_ll_autograd(x, y, self.p, self.q, self._icpt).sum()
+            (g,) = torch.autograd.grad(f, x, create_graph=True)
+            rows = [torch.autograd.grad(g[..., j].sum(), x,
+                                        retain_graph=j + 1 < k)[0]
+                    for j in range(k)]
+        return torch.stack(rows, dim=-2).detach()
+
 
 # ---------------------------------------------------------------------------
 # fitting
@@ -352,16 +605,23 @@ def fit(p: int, d: int, q: int, ts,
         user_init_params=None, warn: bool = True,
         max_iter: Optional[int] = None, retry=None,
         n_valid=None, objective: str = "css",
-        device=None, stats: Optional[dict] = None) -> ARIMAModel:
+        device=None, stats: Optional[dict] = None,
+        _restart_draws=None) -> ARIMAModel:
     """Fit an ARIMA(p, d, q) by conditional-sum-of-squares maximum
-    likelihood with the batched Levenberg-Marquardt solver.
+    likelihood.
 
     ``ts`` may be ``(n,)`` or ``(n_series, n)`` (array-like or tensor);
     the whole panel fits in one batched solve on ``device`` (``None``
     means CUDA, which runs float32 and raises without a card; pass
-    ``device="cpu"`` for the CPU, float32 or float64).  The LM fit is
-    ``ops.arma_ne.fit_css_lm``: on the card one launch of its CUDA kernel
-    runs every lane's whole fit.
+    ``device="cpu"`` for the CPU, float32 or float64).  ``method``:
+
+    - ``"css-lm"`` (default): batched Levenberg-Marquardt on the one-step
+      residuals, ``ops.arma_ne.fit_css_lm``: on the card one launch of its
+      CUDA kernel runs every lane's whole fit;
+    - ``"css-bobyqa"``: the projected gradient of ``ops.optimize.
+      minimize_box`` over the CSS negative log likelihood and its
+      gradient (``ops.arma_ne.css_neg_ll_value_and_grad``: on the card
+      one ``arma_ne`` launch per trial), 500 iterations by default.
 
     ``q == 0`` (without ``user_init_params``) is the AR fast path: a
     direct OLS, every finite lane converged in 0 iterations.  NaN-padded
@@ -370,36 +630,48 @@ def fit(p: int, d: int, q: int, ts,
     ``diagnostics.converged == False``.  ``n_valid`` (per-lane lengths of
     an already left-aligned, zero-tailed panel) skips the NaN detection.
 
-    ``max_iter`` caps the LM iterations (default :data:`LM_MAX_ITER`);
-    the convergence tolerance is 1e-10 for float64 and 1e-6 for float32,
-    as in the JAX package's LM solver.  ``diagnostics.fun`` is the
-    residual sum of squares on the LM path and the negative CSS log
-    likelihood on the AR fast path, as in the JAX package.
+    ``max_iter`` caps the iterations (default :data:`LM_MAX_ITER` for
+    css-lm); the LM tolerance is 1e-10 for float64 and 1e-6 for float32,
+    as in the JAX package.  ``diagnostics.fun`` is the residual sum of
+    squares on the LM path and the negative CSS log likelihood on the AR
+    fast path and css-bobyqa, as in the JAX package.
+
+    ``retry`` (a ``utils.resilience.RetryPolicy``) re-solves the lanes
+    that did not converge from jittered starts
+    (``ops.optimize.solve_with_restarts``): attempt 0 is the plain fit of
+    every lane, and each restart one solve over the failing lanes alone,
+    gathered (on the card one LM-fit launch each); the per-lane count
+    lands in ``diagnostics.attempts``, and ``retry.max_iter`` (when set)
+    is the per-attempt budget unless ``max_iter`` overrides it.  The
+    jitter comes from a ``torch.Generator`` seeded with ``retry.seed``,
+    not the JAX package's per-lane keys, so the same seed restarts from
+    other points; ``_restart_draws (R, S, k)`` hands in the draws
+    themselves.
 
     ``stats`` (a dict), when the fit runs the LM solver, receives
-    ``lm_fit_launches``: the LM-fit kernel's launches (1 on CUDA, 0 on the
-    CPU).
+    ``lm_fit_launches`` (the LM-fit kernel's launches: one per attempt
+    on CUDA, 0 on the CPU) and ``restart_lanes`` (lanes re-solved at
+    each restart).
 
-    Not ported yet (raise ``NotImplementedError``): ``method`` css-cgd
-    and css-bobyqa, ``retry``, and ``objective="exact"``.
+    Not ported yet (raise ``NotImplementedError``): ``method="css-cgd"``
+    (BFGS, ROADMAP Queue A item 3) and ``objective="exact"`` (item 4).
     """
     if objective == "exact":
         raise NotImplementedError(
             "objective='exact' (the Kalman-likelihood refine) is not ported "
-            "yet; it comes with the state-space slice")
+            "yet (ROADMAP Queue A item 4)")
     if objective != "css":
         raise ValueError(f"unknown objective {objective!r}; expected "
                          f"'css' or 'exact'")
-    if method in ("css-cgd", "css-bobyqa"):
+    if method == "css-cgd":
         raise NotImplementedError(
-            f"method {method!r} is not ported yet; the port fits with "
-            f"'css-lm'")
-    if method != "css-lm":
+            "method 'css-cgd' (batched BFGS) is not ported yet (ROADMAP "
+            "Queue A item 3); fit with 'css-lm' or 'css-bobyqa'")
+    if method not in ("css-lm", "css-bobyqa"):
         raise ValueError(f"unknown method {method!r}")
-    if retry is not None:
-        raise NotImplementedError(
-            "retry (multi-start fits) is not ported yet; it comes with the "
-            "resilient-fit slice")
+    rk = _resilience.retry_kwargs(retry)
+    if max_iter is None and retry is not None and retry.max_iter is not None:
+        max_iter = retry.max_iter
     icpt = 1 if include_intercept else 0
     dim = p + q + icpt
     ar_fast = p > 0 and q == 0 and user_init_params is None
@@ -475,17 +747,50 @@ def fit(p: int, d: int, q: int, ts,
         init = torch.as_tensor(user_init_params, dtype=ts.dtype,
                                device=dev).expand(*ts.shape[:-1], dim)
 
-    mi = max_iter if max_iter is not None else LM_MAX_ITER
-    tol = 1e-10 if ts.dtype == torch.float64 else 1e-6
     lanes = init.shape[:-1]
-    x, f, conv, n_iter = fit_css_lm(
-        init.reshape(-1, dim), diffed.reshape(-1, diffed.shape[-1]), p, q,
-        icpt, tol=tol, max_iter=mi,
-        n_valid=None if nv is None else nv.reshape(-1))
-    if stats is not None:
-        stats["lm_fit_launches"] = 1 if x.is_cuda else 0
-    res = MinimizeResult(x.reshape(*lanes, dim), f.reshape(lanes),
-                         conv.reshape(lanes), n_iter.reshape(lanes))
+    x0 = init.reshape(-1, dim)
+    y = diffed.reshape(-1, diffed.shape[-1])
+    nv_flat = None if nv is None else nv.reshape(-1)
+
+    def gathered(idx):
+        """The panel rows (and windows) of lanes ``idx`` (None: all)."""
+        if idx is None:
+            return y, nv_flat
+        return (y.index_select(0, idx),
+                None if nv_flat is None else nv_flat.index_select(0, idx))
+
+    solver: dict = {}
+    if method == "css-lm":
+        mi = max_iter if max_iter is not None else LM_MAX_ITER
+        tol = 1e-10 if ts.dtype == torch.float64 else 1e-6
+
+        def solve(xs, idx):
+            yy, vv = gathered(idx)
+            return fit_css_lm(xs, yy, p, q, icpt, tol=tol, max_iter=mi,
+                              n_valid=vv)
+
+        res = _solve_with_policy(solve, x0, rk.get("restarts", 0),
+                                 rk.get("restart_scale", 0.25),
+                                 rk.get("restart_seed", 0), _restart_draws,
+                                 solver)
+        if stats is not None:
+            stats["lm_fit_launches"] = solver["solves"] if x0.is_cuda else 0
+            stats["restart_lanes"] = solver["restart_lanes"]
+    else:
+        def evaluator_for(idx):
+            yy, vv = gathered(idx)
+            return lambda x: css_neg_ll_value_and_grad(x, yy, p, q, icpt,
+                                                       n_valid=vv)
+
+        res = minimize_box(evaluator_for(None), x0, -math.inf, math.inf,
+                           tol=1e-10,
+                           max_iter=max_iter if max_iter is not None
+                           else 500, evaluator_for=evaluator_for,
+                           jitter_draws=_restart_draws, **rk)
+    res = MinimizeResult(
+        res.x.reshape(*lanes, dim), res.fun.reshape(lanes),
+        res.converged.reshape(lanes), res.n_iter.reshape(lanes),
+        None if res.attempts is None else res.attempts.reshape(lanes))
 
     # quarantine failed lanes back to their (finite) initial guess rather
     # than poisoning the batch; per lane, so a partially-NaN result never
@@ -498,6 +803,248 @@ def fit(p: int, d: int, q: int, ts,
                        diagnostics=diag._replace(converged=conv_mask))
     _warn_stationarity_invertibility(model, warn)
     return model
+
+
+def fit_panel(panel, p: int, d: int, q: int, engine=None,
+              **kwargs) -> ARIMAModel:
+    """Batched fit of a :class:`~spark_timeseries_tpu_torch.panel.Panel`
+    on its device through :meth:`FitEngine.fit
+    <spark_timeseries_tpu_torch.engine.FitEngine.fit>` (``engine``, or a
+    new engine); ``engine=False`` calls :func:`fit` directly.  ``kwargs``
+    pass through (``include_intercept``, ``method``, ``max_iter``,
+    ``retry``; with ``engine=False`` any :func:`fit` keyword)."""
+    warn = kwargs.pop("warn", True)
+    if engine is False:
+        return fit(p, d, q, panel.values, warn=warn, device=panel.device,
+                   **kwargs)
+    from ..engine import FitEngine
+    eng = engine if engine is not None else FitEngine()
+    return eng.fit(panel.values, "arima", device=panel.device, warn=warn,
+                   p=p, d=d, q=q, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the fail-soft panel fit
+# ---------------------------------------------------------------------------
+
+def _poly_roots_batched(coefs: np.ndarray) -> np.ndarray:
+    """Roots of each ascending-coefficient polynomial row: ``(S, k+1)`` ->
+    complex ``(S, k)``, host float64 numpy.  Rows whose leading
+    coefficient is ~0 or that are not finite get NaN roots."""
+    coefs = np.asarray(coefs, dtype=np.float64)
+    S, k1 = coefs.shape
+    k = k1 - 1
+    roots = np.full((S, k), np.nan, np.complex128)
+    ok = (np.abs(coefs[:, -1]) > 1e-8) & np.all(np.isfinite(coefs), axis=-1)
+    if k >= 1 and np.any(ok):
+        sub = coefs[ok]
+        comp = np.zeros((sub.shape[0], k, k))
+        comp[:, k - 1, :] = -sub[:, :k] / sub[:, k:k + 1]
+        if k > 1:
+            comp[:, :k - 1, 1:] = np.eye(k - 1)
+        roots[ok] = np.linalg.eigvals(comp)
+    return roots
+
+
+def _cancellation_suspects(model: ARIMAModel,
+                           tol: float = 0.15) -> np.ndarray:
+    """Per-lane common-factor cancellation, on the host in float64 as in
+    the JAX package: True where some AR root lies within ``tol``
+    (relative to the root's magnitude, floor 1) of some MA root.  Such a
+    lane is a lower-order ARMA on a flat likelihood ridge, which the
+    ``auto_order`` stage refits at a searched lower order."""
+    p, q = model.p, model.q
+    coefs = model.coefficients.detach().cpu().numpy().astype(np.float64)
+    if coefs.ndim == 1:
+        coefs = coefs[None]
+    S = coefs.shape[0]
+    if p == 0 or q == 0:
+        return np.zeros(S, bool)
+    icpt = model._icpt
+    phi = coefs[:, icpt:icpt + p]
+    theta = coefs[:, icpt + p:icpt + p + q]
+    one = np.ones((S, 1))
+    # AR: 1 - φ₁z - ... ; MA: 1 + θ₁z + ...  (ascending coefficients)
+    ar = _poly_roots_batched(np.concatenate([one, -phi], axis=1))
+    ma = _poly_roots_batched(np.concatenate([one, theta], axis=1))
+    dist = np.abs(ar[:, :, None] - ma[:, None, :])          # (S, p, q)
+    scale = np.maximum(1.0, np.abs(ar))[:, :, None]
+    rel = np.where(np.isfinite(dist), dist / scale, np.inf)
+    return np.min(rel.reshape(S, -1), axis=-1) < tol
+
+
+def _pad_to_order(model: ARIMAModel, p: int, q: int) -> ARIMAModel:
+    """A lower-order fit as an ARIMA(p, d, q) model, the absent AR/MA
+    slots zero (an AR(p') fit with θ = 0 is an ARIMA(p, d, q) point)."""
+    icpt = model._icpt
+    coefs = model.coefficients
+    lead = coefs.shape[:-1]
+    parts = [coefs[..., :icpt + model.p],
+             coefs.new_zeros((*lead, p - model.p)),
+             coefs[..., icpt + model.p:],
+             coefs.new_zeros((*lead, q - model.q))]
+    return ARIMAModel(p, model.d, q, torch.cat(parts, dim=-1),
+                      model.has_intercept, diagnostics=model.diagnostics)
+
+
+def _add_launches(stats: Optional[dict], stage: str, n: int) -> None:
+    if stats is not None:
+        by = stats.setdefault("lm_fit_launches_by_stage", {})
+        by[stage] = by.get(stage, 0) + int(n)
+        stats["lm_fit_launches"] = stats.get("lm_fit_launches", 0) + int(n)
+
+
+def _make_auto_order_stage(p: int, d: int, q: int,
+                           max_iter: Optional[int],
+                           stats: Optional[dict] = None):
+    """The ``auto_order`` fallback stage: re-select (p', q') <= (p, q) for
+    the gathered failing lanes by :func:`auto_fit_panel` over their
+    d-differenced rows (``max_d=0`` pins the primary's d), each winner's
+    zero-padded coefficients in the primary ``[c, AR(p), MA(q)]`` slots.
+    A lane converges here when the search found an admissible winner
+    (finite AIC, carried in ``diagnostics.fun``).  Returns a
+    :class:`~spark_timeseries_tpu_torch.utils.resilience.StageResult`
+    with the selected (p', d, q') per lane."""
+
+    def stage(v: torch.Tensor):
+        diffed = differences_of_order_d(v, d)[..., d:] if d else v
+        st: dict = {}
+        with warnings.catch_warnings():
+            # failing lanes routinely have no admissible candidate or a
+            # capped screen: the outcome's status codes report them
+            warnings.simplefilter("ignore")
+            sel = auto_fit_panel(diffed, max_p=p, max_d=0, max_q=q,
+                                 max_iter=max_iter, device=v.device,
+                                 stats=st)
+        _add_launches(stats, "auto_order", st["lm_fit_launches"])
+        coefs = torch.as_tensor(sel.coefficients, dtype=v.dtype,
+                                device=v.device)
+        conv = np.isfinite(sel.aic) \
+            & np.all(np.isfinite(sel.coefficients), axis=-1)
+        n_sub = coefs.shape[0]
+        diag = FitDiagnostics(
+            torch.as_tensor(conv, device=v.device),
+            torch.zeros((n_sub,), dtype=torch.int32, device=v.device),
+            torch.as_tensor(sel.aic, dtype=v.dtype, device=v.device))
+        model = ARIMAModel(p, d, q, coefs, True, diagnostics=diag)
+        orders = np.asarray(sel.orders, np.int32).copy()
+        orders[:, 1] = d           # the search ran at the primary's d
+        return _resilience.StageResult(model, orders)
+
+    return stage
+
+
+def fit_resilient(ts, p: int, d: int, q: int,
+                  include_intercept: bool = True,
+                  fallbacks: Sequence[str] = ("ar", "mean"),
+                  retry: Optional[_resilience.RetryPolicy] = None,
+                  auto_order: bool = False, cancel_tol: float = 0.15,
+                  device=None, stats: Optional[dict] = None, **kwargs):
+    """Fail-soft batched ARIMA over a panel ``ts (n_series, n)``: health
+    masking, multi-start retry and the fallback chain ARIMA(p, d, q) ->
+    [``auto_order``] -> ``"ar"`` (AR(p) by the direct OLS, θ = 0) ->
+    ``"mean"`` (intercept only, on the d-differenced series), each stage
+    on the failing lanes alone, gathered on ``device`` (``None`` means
+    CUDA).
+
+    Returns ``(model, outcome)``: an :class:`ARIMAModel` in the full
+    (p, d, q) layout whose lanes come from the first stage that converged
+    for them, and a :class:`~spark_timeseries_tpu_torch.utils.resilience.
+    FitOutcome` with per-series status, health, attempts, fallback index
+    and effective ``orders`` (p, d, q).  Unfittable lanes (all-NaN, inf,
+    interior gaps, too short) are skipped with NaN parameters instead of
+    raising; healthy lanes equal :func:`fit`'s bit for bit.  ``retry``
+    defaults to ``RetryPolicy()`` (two restarts).  ``kwargs`` pass
+    through to the primary :func:`fit` (``method``, ``max_iter``, ...).
+
+    ``auto_order=True`` inserts the adaptive stage ahead of the fixed
+    fallbacks: lanes whose primary fit failed, or converged onto a
+    common-factor plateau (an AR root within ``cancel_tol`` of an MA root,
+    :func:`_cancellation_suspects`, host float64), are refitted by
+    :func:`auto_fit_panel` over (p', q') <= (p, q) at the primary's d,
+    and a suspect lane takes the winner only when it is admissible.
+
+    ``stats`` (a dict) receives ``lm_fit_launches`` (the LM-fit kernel's
+    launches over every stage on CUDA, 0 on the CPU),
+    ``lm_fit_launches_by_stage`` and the primary's ``restart_lanes``."""
+    if retry is None:
+        retry = _resilience.RetryPolicy()
+    dev = resolve_device(device)
+    values = as_tensor(ts, dev)
+    icpt = 1 if include_intercept else 0
+    max_lag = max(p, q)
+    # the Hannan-Rissanen floor (the binding one when q > 0), plus d
+    min_len = d + max(2 * max_lag + 2 + p + q + icpt, max_lag + 2, 3)
+    if stats is not None:
+        stats["lm_fit_launches"] = 0
+
+    def primary(v):
+        st: dict = {}
+        m = fit(p, d, q, v, include_intercept=include_intercept,
+                retry=retry, warn=False, device=dev, stats=st, **kwargs)
+        _add_launches(stats, "arima", st.get("lm_fit_launches", 0))
+        if stats is not None:
+            stats["restart_lanes"] = st.get("restart_lanes", [])
+        return m
+
+    def static_stage(name, pp, qq):
+        def stage(v):
+            st: dict = {}
+            m = fit(pp, d, qq, v, include_intercept=include_intercept,
+                    warn=False, device=dev, stats=st)
+            _add_launches(stats, name, st.get("lm_fit_launches", 0))
+            return _pad_to_order(m, p, q)
+        return stage
+
+    chain = [("arima", primary)]
+    suspect_fn = None
+    if auto_order:
+        if not include_intercept:
+            raise ValueError(
+                "auto_order=True requires include_intercept=True: the "
+                "batched order search always carries an intercept slot, "
+                "and its winners must embed into the primary layout")
+        if p == 0 and q == 0:
+            raise ValueError(
+                "auto_order=True needs p > 0 or q > 0: an ARIMA(0,d,0) "
+                "primary has no lower order to search")
+        chain.append(("auto_order", _make_auto_order_stage(
+            p, d, q, kwargs.get("max_iter"), stats)))
+        if p > 0 and q > 0:
+            suspect_fn = lambda m: _cancellation_suspects(m, cancel_tol)  # noqa: E731
+    for fb in fallbacks:
+        if fb == "ar" and p > 0 and q > 0:
+            chain.append(("ar", static_stage("ar", p, 0)))
+        elif fb == "mean":
+            chain.append(("mean", static_stage("mean", 0, 0)))
+        elif fb != "ar":
+            raise ValueError(f"unknown arima fallback {fb!r}; "
+                             f"expected 'ar' or 'mean'")
+    model, outcome = _resilience.resilient_fit(
+        values, chain, min_len=min_len, family="arima",
+        suspect_fn=suspect_fn)
+
+    # back-fill the static per-stage orders so outcome.orders is total:
+    # auto_order lanes already carry their searched (p', d, q')
+    status = np.asarray(outcome.status)
+    orders = outcome.orders
+    if orders is None:
+        orders = np.full((status.shape[0], 3), -1, np.int32)
+    static_order = {"arima": (p, d, q), "ar": (p, d, 0), "mean": (0, d, 0)}
+    unfilled = orders[:, 0] < 0
+    primary_lanes = unfilled & np.isin(
+        status, (_resilience.STATUS_OK, _resilience.STATUS_RETRIED,
+                 _resilience.STATUS_ABANDONED))
+    orders[primary_lanes] = (p, d, q)
+    fb_used = np.asarray(outcome.fallback_used)
+    for j, (name, _) in enumerate(chain):
+        so = static_order.get(name)
+        if so is None:
+            continue
+        mask = unfilled & (status == _resilience.STATUS_FALLBACK) \
+            & (fb_used == j)
+        orders[mask] = so
+    return model, outcome._replace(orders=orders)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +1091,97 @@ def _step_down_stationary(phi: torch.Tensor, orders: torch.Tensor
         a = torch.cat([torch.where(active[..., None], lower, a[..., :m - 1]),
                        torch.zeros_like(a[..., m - 1:])], dim=-1)
     return ok
+
+
+def find_roots(coefficients: Sequence[float]) -> np.ndarray:
+    """Roots of ``c[0] + c[1] x + ... + c[n] x^n`` by companion-matrix
+    eigenvalues, host float64 numpy."""
+    coefficients = np.asarray(coefficients, dtype=np.float64)
+    n = coefficients.shape[-1] - 1
+    if n < 1:
+        return np.zeros((0,), dtype=np.complex128)
+    companion = np.zeros((n, n))
+    companion[n - 1, :] = -coefficients[:n] / coefficients[n]
+    if n > 1:
+        companion[:n - 1, 1:] = np.eye(n - 1)
+    return np.linalg.eigvals(companion)
+
+
+def _choose_d(ts: torch.Tensor, max_d: int) -> int:
+    """The lowest differencing order whose KPSS statistic says level
+    stationarity (R forecast::ndiffs)."""
+    for diff in range(max_d + 1):
+        stat, critical_values = kpsstest(differences_of_order_d(ts, diff),
+                                         "c")
+        if float(stat) < critical_values[KPSS_SIGNIFICANCE]:
+            return diff
+    raise ValueError(
+        f"stationarity not achieved with differencing order <= {max_d}")
+
+
+def auto_fit(ts, max_p: int = 5, max_d: int = 2, max_q: int = 5,
+             device=None) -> ARIMAModel:
+    """Hyndman-Khandakar stepwise automatic ARIMA of one series on
+    ``device`` (``None`` means CUDA): ``d`` by KPSS, then a local search
+    over (p, q, intercept) scored by :meth:`ARIMAModel.approx_aic`, only
+    stationary and invertible candidates kept; a candidate whose css-lm
+    fit raises or is not finite is fitted again by css-bobyqa.  The
+    neighbourhood varies both p and q, as in the JAX package."""
+    dev = resolve_device(device)
+    ts = as_tensor(ts, dev)
+    d = _choose_d(ts, max_d)
+    # the search runs on the size-preserving differences (the first d
+    # entries raw), as the JAX package's does
+    diffed = differences_of_order_d(ts, d)
+    add_intercept = d <= 1
+
+    def try_fit(p, q, intercept):
+        for method in ("css-lm", "css-bobyqa"):
+            try:
+                m = fit(p, 0, q, diffed, include_intercept=intercept,
+                        method=method, warn=False, device=dev)
+                if bool(torch.isfinite(m.coefficients).all()):
+                    return m
+            except (ValueError, FloatingPointError, np.linalg.LinAlgError,
+                    torch.linalg.LinAlgError):
+                # this candidate is numerically inadmissible (too short a
+                # window, a singular solve); anything else propagates
+                continue
+        return None
+
+    past = set()
+    best_model, best_aic = None, math.inf
+    next_params = [(p, q, add_intercept)
+                   for p, q in [(0, 0), (2, 2), (1, 0), (0, 1)]]
+    while next_params:
+        past.update(next_params)
+        improving = []
+        for m in (try_fit(p, q, i) for p, q, i in next_params):
+            if m is None or not (np.all(m.is_stationary())
+                                 and np.all(m.is_invertible())):
+                continue
+            aic = float(m.approx_aic(diffed))
+            if math.isfinite(aic) and aic < best_aic:
+                improving.append((m, aic))
+        if not improving:
+            break
+        best_model, best_aic = min(improving, key=lambda t: t[1])
+        surrounding = []
+        for dp in (-1, 0, 1):
+            for dq in (-1, 0, 1):
+                intercept = (not best_model.has_intercept) \
+                    if (dp == 0 and dq == 0) else best_model.has_intercept
+                surrounding.append(
+                    (best_model.p + dp, best_model.q + dq, intercept))
+        next_params = [c for c in surrounding
+                       if c not in past and 0 <= c[0] <= max_p
+                       and 0 <= c[1] <= max_q]
+
+    if best_model is None:
+        raise ValueError("auto_fit failed to fit any admissible ARMA model")
+    return ARIMAModel(best_model.p, d, best_model.q,
+                      best_model.coefficients, best_model.has_intercept,
+                      diagnostics=best_model.diagnostics)
 
 
 class _PanelARIMAFields(NamedTuple):

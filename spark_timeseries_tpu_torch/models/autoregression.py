@@ -1,7 +1,9 @@
 """Autoregressive AR(p) models, batched (counterpart of
 ``spark_timeseries_tpu/models/autoregression.py``): OLS on the lag stack,
-optional intercept.  The ARIMA AR fast path and the first stage of the
-Hannan-Rissanen initialization."""
+optional intercept, the time-dependent effects, sampling, and the
+fail-soft :func:`fit_resilient` (OLS -> intercept-only mean).  The ARIMA
+AR fast path and the first stage of the Hannan-Rissanen
+initialization."""
 
 from __future__ import annotations
 
@@ -9,9 +11,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.lag import lag_stack
+from .._device import as_tensor, resolve_device
+from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram
 from ..ops.ragged import step_weights
+from ..utils import resilience as _resilience
 from .base import FitDiagnostics
 
 
@@ -33,6 +37,45 @@ class ARModel(NamedTuple):
         """Intercept slot + AR lags (the slot counts even for
         ``no_intercept`` fits, as in the JAX package)."""
         return self.order + 1
+
+    def remove_time_dependent_effects(self, ts) -> torch.Tensor:
+        """``out[i] = ts[i] - c - Σ_j coef_j · ts[i-j-1]``, out-of-range
+        terms dropped (a zero-padded lag product)."""
+        ts = torch.as_tensor(ts, dtype=self.coefficients.dtype,
+                             device=self.coefficients.device)
+        c = self.c
+        p = self.coefficients.shape[-1]
+        padded = torch.cat([ts.new_zeros((*ts.shape[:-1], p)), ts], dim=-1)
+        ar_part = lag_matvec(padded, self.coefficients, p)
+        return ts - (c[..., None] if c.ndim else c) - ar_part
+
+    def add_time_dependent_effects(self, ts) -> torch.Tensor:
+        """``out[i] = c + ts[i] + Σ_j coef_j · out[i-j-1]``: an order-p
+        recurrence on the output, step by step over the lane batch."""
+        ts = torch.as_tensor(ts, dtype=self.coefficients.dtype,
+                             device=self.coefficients.device)
+        coefs = self.coefficients
+        p = coefs.shape[-1]
+        c = self.c
+        batch = torch.broadcast_shapes(ts.shape[:-1], c.shape,
+                                       coefs.shape[:-1])
+        carry = ts.new_zeros((*batch, p))
+        outs = []
+        for t in range(ts.shape[-1]):
+            d = c + ts[..., t] + (coefs * carry).sum(dim=-1)
+            carry = torch.cat([d[..., None], carry[..., :-1]], dim=-1)
+            outs.append(d)
+        return torch.stack(outs, dim=-1)
+
+    def sample(self, n: int, generator: Optional[torch.Generator] = None,
+               shape=()) -> torch.Tensor:
+        """Gaussian innovations ``(*shape, n)`` from ``generator`` (on its
+        device, then moved to the model's) pushed through the model."""
+        gen_dev = generator.device if generator is not None \
+            else self.coefficients.device
+        noise = torch.randn((*shape, n), generator=generator,
+                            dtype=self.coefficients.dtype, device=gen_dev)
+        return self.add_time_dependent_effects(noise)
 
 
 def fit(ts: torch.Tensor, max_lag: int = 1, no_intercept: bool = False,
@@ -59,3 +102,38 @@ def fit(ts: torch.Tensor, max_lag: int = 1, no_intercept: bool = False,
                                           device=ts.device),
                           torch.where(ok, torch.zeros_like(nan), nan))
     return ARModel(c, coefs, diagnostics=diag)
+
+
+def fit_panel(panel, max_lag: int = 1, no_intercept: bool = False) -> ARModel:
+    """Batched fit of a Panel's values on its device."""
+    return fit(panel.values, max_lag, no_intercept)
+
+
+def _mean_model(v: torch.Tensor, max_lag: int) -> ARModel:
+    """Terminal fallback: intercept only (every AR coefficient zero), the
+    NaN-ignoring mean of each lane."""
+    c = torch.nanmean(v, dim=-1)
+    ok = torch.isfinite(c)
+    nan = torch.full((), float("nan"), dtype=v.dtype, device=v.device)
+    return ARModel(c, v.new_zeros((*v.shape[:-1], max_lag)),
+                   diagnostics=FitDiagnostics(
+                       ok, torch.zeros(ok.shape, dtype=torch.int32,
+                                       device=v.device),
+                       torch.where(ok, torch.zeros_like(nan), nan)))
+
+
+def fit_resilient(ts, max_lag: int = 1, no_intercept: bool = False,
+                  retry: Optional[_resilience.RetryPolicy] = None,
+                  device=None):
+    """Fail-soft batched AR(p) on ``device`` (``None`` means CUDA): OLS ->
+    intercept-only mean model.  The OLS is direct, so ``retry`` is taken
+    for a uniform interface and unused.  ``ts (n_series, n)``; returns
+    ``(model, FitOutcome)``."""
+    del retry
+    values = as_tensor(ts, resolve_device(device))
+    chain = [
+        ("ols", lambda v: fit(v, max_lag, no_intercept)),
+        ("mean", lambda v: _mean_model(v, max_lag)),
+    ]
+    return _resilience.resilient_fit(values, chain, min_len=2 * max_lag + 2,
+                                     family="ar")

@@ -1,7 +1,8 @@
 """Carrying fitted parameters into the port: numpy arrays (for example the
 fields of a JAX-package model, read with ``np.asarray``) become the
 port's model NamedTuples on a device, so both packages can forecast and
-score from identical coefficients."""
+score from identical coefficients; a retry policy and a resilient fit's
+outcome cross as their fields."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
+from ..utils.resilience import FitOutcome, RetryPolicy
 from .arima import ARIMAModel, PanelARIMAFit
 from .autoregression import ARModel
 from .base import FitDiagnostics
@@ -19,14 +21,18 @@ from .holt_winters import HoltWintersModel
 
 def _diagnostics(diagnostics: Optional[Sequence], device
                  ) -> Optional[FitDiagnostics]:
-    """``(converged, n_iter, fun)`` arrays -> :class:`FitDiagnostics`."""
+    """``(converged, n_iter, fun[, attempts])`` arrays ->
+    :class:`FitDiagnostics` (``attempts`` None stays None)."""
     if diagnostics is None:
         return None
-    converged, n_iter, fun = diagnostics
+    converged, n_iter, fun = diagnostics[:3]
+    attempts = diagnostics[3] if len(diagnostics) > 3 else None
     return FitDiagnostics(
         torch.as_tensor(converged, dtype=torch.bool, device=device),
         torch.as_tensor(n_iter, dtype=torch.int32, device=device),
-        as_tensor(fun, device))
+        as_tensor(fun, device),
+        None if attempts is None
+        else torch.as_tensor(attempts, dtype=torch.int32, device=device))
 
 
 def arima_from_numpy(p: int, d: int, q: int, coefficients,
@@ -88,3 +94,23 @@ def holt_winters_from_numpy(model_type: str, period: int, alpha, beta,
                             as_tensor(alpha, dev), as_tensor(beta, dev),
                             as_tensor(gamma, dev),
                             _diagnostics(diagnostics, dev))
+
+
+def retry_policy_from(policy) -> RetryPolicy:
+    """The port's :class:`RetryPolicy` from any object with its four
+    fields (the JAX package's ``RetryPolicy``)."""
+    return RetryPolicy(int(policy.max_restarts), float(policy.perturb_scale),
+                       int(policy.seed),
+                       None if policy.max_iter is None
+                       else int(policy.max_iter))
+
+
+def fit_outcome_from_numpy(params, status, attempts, fallback_used, health,
+                           orders=None) -> FitOutcome:
+    """The port's :class:`FitOutcome` from numpy fields (a JAX-package
+    outcome's, field for field), with the JAX package's dtypes."""
+    return FitOutcome(
+        None if params is None else np.asarray(params),
+        np.asarray(status, np.int32), np.asarray(attempts, np.int64),
+        np.asarray(fallback_used, np.int32), np.asarray(health, np.int32),
+        None if orders is None else np.asarray(orders, np.int32))

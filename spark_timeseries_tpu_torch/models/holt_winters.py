@@ -10,9 +10,8 @@ launch of the hand-written persistent kernel for the whole fit; on the
 CPU, its plain version (``ops.optimize.minimize_box`` over the fused
 value-and-grad pass).
 
-Not ported yet: ``retry`` (raises ``NotImplementedError``),
-``fit_resilient`` (waits for the resilience module) and ``fit_panel``
-(waits for the panel module).
+Not ported yet (ROADMAP Queue A item 3): ``retry`` (raises
+``NotImplementedError``), ``fit_resilient`` and ``fit_panel``.
 """
 
 from __future__ import annotations
@@ -191,8 +190,8 @@ def fit(ts, period: int, model_type: str = "additive",
     """
     if retry is not None:
         raise NotImplementedError(
-            "retry (multi-start fits) is not ported yet; it comes with the "
-            "resilient-fit slice")
+            "retry (multi-start Holt-Winters fits) is not ported yet "
+            "(ROADMAP Queue A item 3)")
     hw_sse.check_model_type(model_type)
     dev = resolve_device(device)
     ts, obs_len = ragged_view(as_tensor(ts, dev))

@@ -35,12 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from .. import _build
-from .linalg import spd_solve
+from .optimize import lm_state_machine
 
 KERNEL_MAX_ORDER = 5      # p, q <= 5, with and without intercept, are
                           # instantiated (csrc/arma_ne.orders*.cu)
@@ -251,6 +252,40 @@ def normal_equations_plain(params: torch.Tensor, y: torch.Tensor,
                              n_valid)
 
 
+def _css_neg_ll(ne_fn, params, y, p, q, icpt, n_valid):
+    _, jtr, css = ne_fn(params, y, p, q, icpt, n_valid=n_valid)
+    n_eff = float(y.shape[-1]) if n_valid is None else n_valid.to(y.dtype)
+    sigma2 = css / n_eff
+    # the JAX package's _log_likelihood_css_arma, negated
+    neg_ll = -((-n_eff / 2.0) * torch.log(2.0 * math.pi * sigma2)
+               - css / (2.0 * sigma2))
+    return neg_ll, (n_eff / css)[:, None] * jtr
+
+
+def css_neg_ll_value_and_grad(params: torch.Tensor, y: torch.Tensor, p: int,
+                              q: int, icpt: int,
+                              n_valid: Optional[torch.Tensor] = None):
+    """The negative CSS log likelihood of ARMA(p, q) lanes and its
+    gradient from one :func:`normal_equations` pass: ``(neg_ll (S,),
+    grad (S, k))`` for ``params (S, k)``, ``y (S, n)``.
+
+    With ``css = Σ r²`` over ``t >= max(p, q)`` and ``σ² = css / n`` (``n``
+    the window: the series length, or ``n_valid``), ``-LL = (n / 2)
+    log(2π σ²) + css / (2σ²)`` and ``∇(-LL) = (n / css) · Jᵀr``, ``J`` the
+    residuals' Jacobian.  On CUDA one ``arma_ne`` kernel launch; on the
+    CPU the plain pass."""
+    return _css_neg_ll(normal_equations, params, y, p, q, icpt, n_valid)
+
+
+def css_neg_ll_value_and_grad_plain(params: torch.Tensor, y: torch.Tensor,
+                                    p: int, q: int, icpt: int,
+                                    n_valid: Optional[torch.Tensor] = None):
+    """:func:`css_neg_ll_value_and_grad` over
+    :func:`normal_equations_plain`, on any device."""
+    return _css_neg_ll(normal_equations_plain, params, y, p, q, icpt,
+                       n_valid)
+
+
 # ---------------------------------------------------------------------------
 # the CSS cost alone (the port of arma_pallas.py::_css_kernel, cost mode)
 # ---------------------------------------------------------------------------
@@ -407,7 +442,6 @@ def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
         y = y.repeat(C, 1)
         nv = None if nv is None else nv.repeat(C)
     y_t = y.T.contiguous()                  # (n_obs, S), once per fit
-    eye = torch.eye(k, dtype=y.dtype, device=y.device)
 
     def ne(x):
         if mask is not None:
@@ -415,41 +449,7 @@ def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
         res = _unpack(packed_fn(x.T.contiguous(), y_t, nv, p, q, icpt), k)
         return _masked_ne(*res, mask) if mask is not None else res
 
-    x = x0
-    jtj, jtr, f = ne(x0)
-    lam = torch.full((S,), 1e-3, dtype=y.dtype, device=y.device)
-    it_lanes = torch.zeros((S,), dtype=torch.int32, device=y.device)
-    done = torch.zeros((S,), dtype=torch.bool, device=y.device)
-    it = 0
-    while it < max_iter and not bool(done.all()):
-        active = ~done
-        damp = lam[:, None] * torch.diagonal(jtj, dim1=-2, dim2=-1) + 1e-12
-        delta = spd_solve(jtj + damp[..., None] * eye, jtr)
-        x_new = x - delta
-        jtj_new, jtr_new, f_new = ne(x_new)
-        ok = torch.isfinite(jtj_new).all(dim=-1).all(dim=-1) \
-            & torch.isfinite(jtr_new).all(dim=-1)
-        improved = (f_new < f) & torch.isfinite(f_new) & ok
-        take = improved & active
-        x = torch.where(take[:, None], x_new, x)
-        f_keep = torch.where(take, f_new, f)
-        jtj = torch.where(take[:, None, None], jtj_new, jtj)
-        jtr = torch.where(take[:, None], jtr_new, jtr)
-        # the pinned-at-minimum exit tests the PRE-update lambda, so a
-        # rejection at lam = 1e8 still raises lam and only the next
-        # rejection marks the lane done
-        rel_drop = (f - f_new) <= tol * (torch.abs(f) + tol)
-        step_small = torch.abs(delta).amax(dim=-1) <= tol * (
-            torch.abs(x).amax(dim=-1) + tol)
-        newly = (improved & (rel_drop | step_small)) \
-            | (~improved & (lam > 1e8))
-        lam = torch.where(active, torch.where(improved, lam * 0.1,
-                                              lam * 10.0), lam)
-        f = f_keep
-        it_lanes = it_lanes + active.to(torch.int32)
-        done = done | (newly & active)
-        it += 1
-    return x, f, done, it_lanes
+    return lm_state_machine(ne, x0, tol, max_iter)
 
 
 def fit_css_lm_plain(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
@@ -513,7 +513,7 @@ def lm_fit_config(S: int, n_obs: int, p: int, q: int, icpt: int,
     with torch.cuda.device(device):
         rc = config(S, n_obs, p, q, icpt, int(ragged), threads, cfg)
     if rc != 0:
-        raise RuntimeError(
+        raise _build.KernelError(
             f"arma_lm_fit configuration failed for ARMA({p},{q}) "
             f"icpt={icpt} S={S} threads={threads}: "
             + ("unsupported arguments" if rc < 0 else f"CUDA error {rc}"))

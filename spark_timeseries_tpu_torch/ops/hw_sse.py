@@ -342,7 +342,7 @@ def box_fit_config(inp: HWInputs, threads: Optional[int] = None,
             rc = config(S, n_steps, inp.period, int(inp.additive),
                         int(inp.n_valid is not None), t, max_blocks, cfg)
         if rc != 0:
-            raise RuntimeError(
+            raise _build.KernelError(
                 f"hw_box_fit configuration failed for period {inp.period} "
                 f"S={S} n_steps={n_steps} threads={t}: "
                 + ("unsupported arguments" if rc < 0

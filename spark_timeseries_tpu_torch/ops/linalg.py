@@ -1,5 +1,7 @@
-"""Batched small SPD solves and gram-matrix OLS (counterpart of
-``spark_timeseries_tpu/ops/linalg.py``).
+"""Batched small SPD solves and least squares (counterpart of
+``spark_timeseries_tpu/ops/linalg.py``): the gram-matrix OLS of the lag
+designs, and the QR OLS with its t statistics and R² that the residual
+tests of ``stats`` run.
 
 The LM loop solves one ``(k, k)`` system per lane per iteration
 (``k = 5`` at ARIMA(2,1,2) with intercept).  Like the JAX package, small
@@ -134,3 +136,91 @@ def ols_gram(Xs: torch.Tensor, y: torch.Tensor,
         resid = resid * w          # dead rows carry garbage y: zero them
     sigma2 = (resid * resid).sum(dim=-1) / dof
     return OLSResult(beta, resid, fitted, sigma2, xtx_inv)
+
+
+def _maybe_add_intercept(X: torch.Tensor, add_intercept: bool
+                         ) -> torch.Tensor:
+    """Prepend a ones column (intercept first)."""
+    if not add_intercept:
+        return X
+    return torch.cat([X.new_ones((*X.shape[:-1], 1)), X], dim=-1)
+
+
+def _householder_qty_r(X: torch.Tensor, y: torch.Tensor):
+    """``(Qᵀy (..., p), R (..., p, p))`` of the reduced QR of ``X (..., n,
+    p)`` by Householder reflections unrolled over the ``p`` columns:
+    each step a few reductions over the lane batch, where a batched
+    library QR of many small matrices runs one factorization at a time on
+    a card.  R's diagonal may be negative (as LAPACK's may); the least
+    squares quantities do not depend on its signs."""
+    p = X.shape[-1]
+    cols = list(X.unbind(-1))
+    b = y
+    R = [[torch.zeros_like(y[..., 0])] * p for _ in range(p)]
+    qty = []
+    for k in range(p):
+        a = cols[k][..., k:]
+        norm = torch.sqrt((a * a).sum(dim=-1))
+        alpha = -torch.copysign(norm, a[..., 0])
+        v = torch.cat([(a[..., 0] - alpha)[..., None], a[..., 1:]], dim=-1)
+        vv = (v * v).sum(dim=-1)
+        R[k][k] = alpha
+
+        def reflect(c):
+            f = 2.0 * (v * c).sum(dim=-1) / vv
+            return c - f[..., None] * v
+
+        for j in range(k + 1, p):
+            c = reflect(cols[j][..., k:])
+            R[k][j] = c[..., 0]
+            cols[j] = torch.cat([cols[j][..., :k + 1], c[..., 1:]], dim=-1)
+        bk = reflect(b[..., k:])
+        qty.append(bk[..., 0])
+        b = torch.cat([b[..., :k + 1], bk[..., 1:]], dim=-1)
+    R = torch.stack([torch.stack(row, dim=-1) for row in R], dim=-2)
+    return torch.stack(qty, dim=-1), R
+
+
+def _qr_solve(X: torch.Tensor, y: torch.Tensor):
+    """``(beta, r)`` of least squares by the batched reduced QR of
+    :func:`_householder_qty_r`."""
+    X, y = torch.broadcast_tensors(X, y[..., None])
+    qty, r = _householder_qty_r(X, y[..., 0])
+    beta = torch.linalg.solve_triangular(r, qty[..., None], upper=True)[..., 0]
+    return beta, r
+
+
+def ols(X: torch.Tensor, y: torch.Tensor,
+        add_intercept: bool = False) -> OLSResult:
+    """Least squares by batched QR: ``X (..., n, p)``, ``y (..., n)``;
+    ``sigma2``'s denominator is ``max(n - p, 1)``."""
+    X = _maybe_add_intercept(X, add_intercept)
+    n, p = X.shape[-2], X.shape[-1]
+    beta, r = _qr_solve(X, y)
+    fitted = torch.einsum("...np,...p->...n", X, beta)
+    resid = y - fitted
+    sigma2 = (resid * resid).sum(dim=-1) / max(n - p, 1)
+    eye = torch.eye(p, dtype=X.dtype, device=X.device).expand(r.shape)
+    r_inv = torch.linalg.solve_triangular(r, eye, upper=True)
+    xtx_inv = torch.einsum("...ij,...kj->...ik", r_inv, r_inv)
+    return OLSResult(beta, resid, fitted, sigma2, xtx_inv)
+
+
+def ols_beta(X: torch.Tensor, y: torch.Tensor,
+             add_intercept: bool = False) -> torch.Tensor:
+    """Coefficients only: QR and one triangular solve."""
+    return _qr_solve(_maybe_add_intercept(X, add_intercept), y)[0]
+
+
+def t_statistics(res: OLSResult) -> torch.Tensor:
+    """Per-coefficient t statistics ``beta / se(beta)``."""
+    se = torch.sqrt(res.sigma2[..., None]
+                    * torch.diagonal(res.xtx_inv, dim1=-2, dim2=-1))
+    return res.beta / se
+
+
+def r_squared(res: OLSResult, y: torch.Tensor) -> torch.Tensor:
+    """Coefficient of determination of the fit."""
+    ss_res = (res.residuals ** 2).sum(dim=-1)
+    ss_tot = ((y - y.mean(dim=-1, keepdim=True)) ** 2).sum(dim=-1)
+    return 1.0 - ss_res / ss_tot

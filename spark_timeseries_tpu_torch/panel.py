@@ -379,8 +379,28 @@ class Panel:
     # -- fits ----------------------------------------------------------------
 
     def fit_resilient(self, family: str, *args, engine=None, **kwargs):
-        """Fail-soft batched fit: waits for ``utils/resilience``."""
-        _waits_for("fit_resilient", "2")
+        """Fail-soft batched fit of the panel on its device: per-series
+        health masking, multi-start retry and the family's fallback chain
+        (``"arima"``, args p, d, q; ``"ar"``, args max_lag), so that one
+        pathological series degrades its own lane's status instead of
+        raising.  Extra args and kwargs (``retry=RetryPolicy(...)``,
+        ``fallbacks=...``, arima's ``auto_order=True``) pass through to
+        the family's ``fit_resilient``.  Returns ``(model, outcome)``.
+
+        Routes through :meth:`FitEngine.fit_resilient
+        <spark_timeseries_tpu_torch.engine.FitEngine.fit_resilient>`
+        (``engine``, or a new engine): the series axis pads to its bucket
+        with all-NaN lanes, which the chain skips, and the result is
+        sliced to the real lanes; ``engine=False`` calls the family's
+        chain directly."""
+        from .engine import FitEngine
+        with _metrics.span("panel.fit_resilient"):
+            if engine is False:
+                return FitEngine.resilient_dispatch(family)(
+                    self.values, *args, device=self.device, **kwargs)
+            eng = engine if engine is not None else FitEngine()
+            return eng.fit_resilient(self.values, family, *args,
+                                     device=self.device, **kwargs)
 
     def auto_fit(self, max_p: int = 5, max_d: int = 2, max_q: int = 5,
                  **kwargs):

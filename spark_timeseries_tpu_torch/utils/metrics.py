@@ -1,29 +1,37 @@
-"""Host-side counters and wall-time spans (the part of
-``spark_timeseries_tpu/utils/metrics.py`` that the panel and io tiers
-call).
+"""Host-side counters, gauges, wall-time spans and instant events (the
+part of ``spark_timeseries_tpu/utils/metrics.py`` that the panel, io and
+resilience tiers call).
 
 A process-local :class:`MetricsRegistry` holds named integer counters
-(``panel.h2d_bytes``, ``panel.d2h_bytes``, ``panel.ingested_series``,
-``io.csv_series_loaded``, ...: the JAX package's names) and one wall-time
-record per span path.  :func:`span` nests (paths join with ``/``) and
-marks its scope with ``torch.profiler.record_function``, so the same
-names show in a ``torch.profiler`` trace, as the JAX module's spans show
-in ``jax.profiler`` traces.  The JAX module's gauges, histograms, trace
-ring buffer, telemetry and JAX hooks are not here.
+(``panel.h2d_bytes``, ``panel.d2h_bytes``, ``io.csv_series_loaded``,
+``resilience.*``, ...: the JAX package's names), last-write-wins float
+gauges (``resilience.<family>.frac_recovered``, ...), one wall-time
+record per span path and the newest :func:`trace_instant` markers.
+:func:`span` nests (paths join with ``/``) and marks its scope with
+``torch.profiler.record_function``, so the same names show in a
+``torch.profiler`` trace, as the JAX module's spans show in
+``jax.profiler`` traces.  The JAX module's histograms, trace export,
+telemetry and JAX hooks are not here.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
-__all__ = ["Counter", "MetricsRegistry", "counter", "inc", "snapshot",
-           "reset", "span", "instrumented"]
+__all__ = ["Counter", "MetricsRegistry", "counter", "inc", "set_gauge",
+           "snapshot", "reset", "span", "instrumented", "trace_instant",
+           "events"]
+
+# instant events kept, newest last (the JAX module's trace ring holds spans
+# too; here only the markers)
+EVENTS_KEPT = 4096
 
 
 class Counter:
@@ -44,11 +52,15 @@ class Counter:
 
 
 class MetricsRegistry:
-    """Named counters and span wall times behind one reentrant lock."""
+    """Named counters, gauges, span wall times and instant events behind
+    one reentrant lock."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, float] = {}
+        self._events: collections.deque = collections.deque(
+            maxlen=EVENTS_KEPT)
         # span path -> [count, total_s, min_s, max_s]
         self._spans: Dict[str, list] = {}
 
@@ -62,6 +74,21 @@ class MetricsRegistry:
     def inc(self, name: str, n: int = 1) -> None:
         self.counter(name).inc(n)
 
+    def set_gauge(self, name: str, v: float) -> None:
+        with self._lock:
+            self._gauges[name] = float(v)
+
+    def instant(self, name: str, args: Optional[Dict[str, Any]]) -> None:
+        ev = {"kind": "instant", "name": name, "ts": time.perf_counter()}
+        if args:
+            ev["args"] = dict(args)
+        with self._lock:
+            self._events.append(ev)
+
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._events)
+
     def record_span(self, path: str, seconds: float) -> None:
         with self._lock:
             rec = self._spans.get(path)
@@ -74,12 +101,14 @@ class MetricsRegistry:
                 rec[3] = max(rec[3], seconds)
 
     def snapshot(self) -> Dict[str, Any]:
-        """``{"counters": {name: int}, "spans": {path: {count, total_s,
-        mean_s, min_s, max_s}}}``, the JAX module's keys for both."""
+        """``{"counters": {name: int}, "gauges": {name: float}, "spans":
+        {path: {count, total_s, mean_s, min_s, max_s}}}``, the JAX
+        module's keys for all three."""
         with self._lock:
             counters = {k: c.value for k, c in sorted(self._counters.items())}
+            gauges = dict(sorted(self._gauges.items()))
             spans = {k: list(v) for k, v in sorted(self._spans.items())}
-        return {"counters": counters,
+        return {"counters": counters, "gauges": gauges,
                 "spans": {k: {"count": n, "total_s": tot, "mean_s": tot / n,
                               "min_s": mn, "max_s": mx}
                           for k, (n, tot, mn, mx) in spans.items()}}
@@ -87,7 +116,9 @@ class MetricsRegistry:
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
+            self._gauges.clear()
             self._spans.clear()
+            self._events.clear()
 
 
 _default_registry = MetricsRegistry()
@@ -102,8 +133,25 @@ def inc(name: str, n: int = 1) -> None:
     _default_registry.inc(name, n)
 
 
+def set_gauge(name: str, v: float) -> None:
+    _default_registry.set_gauge(name, v)
+
+
 def snapshot() -> Dict[str, Any]:
     return _default_registry.snapshot()
+
+
+def trace_instant(name: str, args: Optional[Dict[str, Any]] = None) -> None:
+    """Record a zero-duration marker (the resilience chain's fallback
+    stages, stage errors, suspect lanes) with its host-clock time; the
+    newest :data:`EVENTS_KEPT` are kept (:func:`events`)."""
+    _default_registry.instant(name, args)
+
+
+def events() -> List[Dict[str, Any]]:
+    """The kept :func:`trace_instant` markers, oldest first:
+    ``{"kind": "instant", "name", "ts"[, "args"]}``."""
+    return _default_registry.events()
 
 
 def reset() -> None:

@@ -80,8 +80,11 @@ def test_kpsstest_matches_jax(ragged):
     assert crit == want_crit == stats.KPSS_CONSTANT_CRITICAL_VALUES
     assert stats.KPSS_CONSTANT_AND_TREND_CRITICAL_VALUES \
         == jstats.KPSS_CONSTANT_AND_TREND_CRITICAL_VALUES
-    with pytest.raises(NotImplementedError, match="ols"):
-        stats.kpsstest(torch.from_numpy(y), "ct")
+    got_ct, crit_ct = stats.kpsstest(torch.from_numpy(y), "ct")
+    want_ct, _ = jstats.kpsstest(jnp.asarray(y), "ct")
+    np.testing.assert_allclose(got_ct.numpy(), np.asarray(want_ct),
+                               rtol=1e-10)
+    assert crit_ct == stats.KPSS_CONSTANT_AND_TREND_CRITICAL_VALUES
     with pytest.raises(ValueError, match="'c' only"):
         stats.kpsstest(torch.from_numpy(y), "ct",
                        n_valid=torch.full((S,), n))

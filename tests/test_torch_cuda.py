@@ -4,8 +4,10 @@ SSE value and gradient, Holt-Winters box fit) against their plain
 versions, the fits (``auto_fit_panel`` among them) and the streaming
 engine on CUDA against the same calls on the CPU, and the ``Panel`` on
 the card: its fills against the CPU's, ``Panel.stream_fit`` /
-``Panel.auto_fit`` against the engine and ``auto_fit_panel``, and the
-CSV codec built on the card's machine.
+``Panel.auto_fit`` against the engine and ``auto_fit_panel``, the CSV
+codec built on the card's machine, and the fail-soft tier: the CSS
+gradient through the single-pass kernel, the restart loop over the LM-fit
+kernel against the route, ``fit_resilient`` on the card.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -862,3 +864,96 @@ def test_csv_codec_builds_on_this_machine(cuda, tmp_path):
     assert back.keys == p.keys
     assert back.index.to_string() == p.index.to_string()
     _assert_bitwise(back.values, p.values)
+
+
+# -- the fail-soft tier on the card ----------------------------------------
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_css_gradient_through_arma_ne_matches_plain(cuda, ragged):
+    rng = np.random.default_rng(21)
+    S, n = 2048, 90
+    y = torch.from_numpy(_panel(rng, S, n).astype(np.float32)).to(cuda)
+    x = torch.from_numpy((0.1 * rng.normal(size=(S, 5))
+                          + [1.0, 0.2, 0.2, 0.1, 0.1]).astype(np.float32)
+                         ).to(cuda)
+    nv = torch.from_numpy(rng.integers(30, n + 1, size=S)).to(cuda) \
+        if ragged else None
+    before = arma_ne.normal_equations.launches
+    f, g = arma_ne.css_neg_ll_value_and_grad(x, y, 2, 2, 1, n_valid=nv)
+    assert arma_ne.normal_equations.launches == before + 1
+    f0, g0 = arma_ne.css_neg_ll_value_and_grad_plain(x, y, 2, 2, 1,
+                                                     n_valid=nv)
+    # float32 both, the pass's sums in other orders
+    torch.testing.assert_close(f, f0, rtol=1e-5, atol=1e-4)
+    scale = g0.abs().amax(dim=1, keepdim=True) + 1.0
+    assert ((g - g0).abs() <= 1e-4 * scale).all()
+    model = arima.ARIMAModel(2, 0, 2, x)
+    before = arma_ne.normal_equations.launches
+    grad = model.gradient_log_likelihood_css_arma(y)
+    assert arma_ne.normal_equations.launches == before + 1
+    if not ragged:
+        torch.testing.assert_close(grad, -g)
+
+
+def test_restart_loop_over_kernel_matches_route(cuda):
+    from spark_timeseries_tpu_torch.ops import optimize
+
+    rng = np.random.default_rng(22)
+    S, n = 4096, 100
+    y = torch.from_numpy(np.diff(_panel(rng, S, n), axis=1)
+                         .astype(np.float32)).to(cuda)
+    x0 = arima.hannan_rissanen_init(2, 2, y, True)
+    draws = optimize.restart_draws(2, S, 5, torch.float32, cuda, seed=3)
+
+    def restarted(fit):
+        def solve(xs, idx):
+            yy = y if idx is None else y.index_select(0, idx)
+            return fit(xs, yy, 2, 2, 1, max_iter=12)
+        stats = {}
+        res = optimize.solve_with_restarts(solve, x0, 2, 0.25,
+                                           jitter_draws=draws, stats=stats)
+        return res, stats
+
+    before = arma_ne.fit_css_lm.launches
+    kern, ks = restarted(arma_ne.fit_css_lm)
+    assert arma_ne.fit_css_lm.launches - before == ks["solves"]
+    assert ks["solves"] == 1 + len(ks["restart_lanes"]) >= 2
+    route, rs = restarted(arma_ne.fit_css_lm_route)
+    assert rs["restart_lanes"] == ks["restart_lanes"]
+    same = (kern.n_iter == route.n_iter) & (kern.attempts == route.attempts)
+    assert same.double().mean() >= 0.95
+    close = torch.isclose(kern.fun, route.fun, rtol=1e-5, equal_nan=True)
+    assert close.double().mean() >= 0.95
+
+
+def test_fit_resilient_on_cuda_matches_cpu(cuda):
+    from spark_timeseries_tpu_torch.utils import resilience
+
+    rng = np.random.default_rng(23)
+    y = np.cumsum(_panel(rng, 512, 96), axis=1).astype(np.float32)
+    y[0] = np.nan
+    y[1] = 2.0
+    y[2, 30] = np.inf
+    y[3, 40] = np.nan
+    y[4, :90] = np.nan
+    stats = {}
+    model, out = arima.fit_resilient(y, 2, 1, 2, auto_order=True,
+                                     device=cuda, stats=stats)
+    cpu_model, cpu_out = arima.fit_resilient(y, 2, 1, 2, auto_order=True,
+                                             device="cpu")
+    np.testing.assert_array_equal(out.health, cpu_out.health)
+    assert out.counts()["skipped"] == cpu_out.counts()["skipped"] == 4
+    assert stats["lm_fit_launches"] == sum(
+        stats["lm_fit_launches_by_stage"].values()) >= 2
+    usable = np.isin(out.status, (0, 1, 2)).mean()
+    assert usable >= np.isin(cpu_out.status, (0, 1, 2)).mean() - 0.02
+    # a padded bucket through the engine is the direct chain bit for bit
+    via, v_out = FitEngine().fit_resilient(y[:500], "arima", 2, 1, 2,
+                                           auto_order=True, device=cuda)
+    direct, d_out = arima.fit_resilient(y[:500], 2, 1, 2, auto_order=True,
+                                        device=cuda)
+    assert torch.equal(via.coefficients.nan_to_num(7.0),
+                       direct.coefficients.nan_to_num(7.0))
+    np.testing.assert_array_equal(v_out.status, d_out.status)
+    assert resilience.unfittable_mask(out.health)[:5].tolist() == [
+        True, False, True, True, True]

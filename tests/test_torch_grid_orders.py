@@ -20,10 +20,12 @@ from spark_timeseries_tpu.models import base as j_base
 from spark_timeseries_tpu.models import holt_winters as j_hw
 from spark_timeseries_tpu.ops import linalg as j_linalg
 from spark_timeseries_tpu.ops import optimize as j_optimize
+from spark_timeseries_tpu.utils import resilience as j_resilience
 from spark_timeseries_tpu_torch import _build, engine
 from spark_timeseries_tpu_torch.models import (arima, autoregression, base,
                                                convert, holt_winters)
 from spark_timeseries_tpu_torch.ops import arma_ne, linalg, optimize
+from spark_timeseries_tpu_torch.utils import resilience
 
 RESULT_TUPLES = [
     (arima.PanelARIMAFit, j_arima.PanelARIMAFit),
@@ -34,6 +36,10 @@ RESULT_TUPLES = [
     (holt_winters.HoltWintersModel, j_hw.HoltWintersModel),
     (linalg.OLSResult, j_linalg.OLSResult),
     (engine.StreamResult, j_engine.StreamResult),
+    (resilience.FitOutcome, j_resilience.FitOutcome),
+    (resilience.StageResult, j_resilience.StageResult),
+    (resilience.RetryPolicy, j_resilience.RetryPolicy),
+    (resilience.FaultSpec, j_resilience.FaultSpec),
 ]
 
 

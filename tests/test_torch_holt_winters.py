@@ -169,7 +169,8 @@ def test_minimize_box_matches_jax(trials_per_call):
                                rtol=1e-9)
     assert stats["iterations"] == int(np.asarray(want.n_iter).max())
     assert stats["calls"] >= 1 + stats["iterations"]
-    with pytest.raises(NotImplementedError, match="restarts"):
+    # restarts re-solve gathered lanes: without their evaluator it raises
+    with pytest.raises(ValueError, match="evaluator_for"):
         minimize_box(hw_sse.evaluator(inp), torch.from_numpy(x0), 0.0, 1.0,
                      restarts=2)
 

@@ -244,4 +244,4 @@ def test_metrics_spans_nest_and_counters_reset():
     with pytest.raises(ValueError, match=">= 0"):
         metrics.inc("x", -1)
     metrics.reset()
-    assert metrics.snapshot() == {"counters": {}, "spans": {}}
+    assert metrics.snapshot() == {"counters": {}, "gauges": {}, "spans": {}}

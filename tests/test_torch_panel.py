@@ -238,7 +238,6 @@ def test_device_policy_and_waiting_methods(monkeypatch):
     assert Panel(tp.index, tp.values.float(), tp.keys,
                  device="cpu").values.dtype == torch.float32
     for call, item in ((lambda: tp.shard(None), "8"),
-                       (lambda: tp.fit_resilient("arima", 1, 0, 0), "2"),
                        (lambda: tp.backtest(), "6"),
                        (lambda: tp.describe_costs(), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
