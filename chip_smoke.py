@@ -130,10 +130,51 @@ Phases, one JSON line each:
    ``refit_unconverged`` (one LM-fit launch) and the stepwise
    ``auto_fit`` of single series, each timed with CUDA events and held
    against the port's float64 CPU run on 256 lanes.
+17. ``vol_path``: GARCH, AR-GARCH and EGARCH (no kernel: plain PyTorch,
+   EGARCH's derivative pass replayed from a CUDA graph) on a 65,536 x
+   1024 panel from BASELINE config #4's generator (``--seed``), each
+   ``FitEngine().stream_fit`` in 16384-series chunks: series/s,
+   ``converged_pct``, wall per chunk, iterations; ``Panel.stream_fit``
+   of the first chunk bitwise the stream's; the first chunk with 0.2 %
+   each all-NaN, constant, inf and too-short rows through
+   ``FitEngine.fit_resilient`` (skipped = the unfittable rows, health =
+   the CPU's, OK lanes = the plain fit of the same rows, bitwise); the
+   first 256 lanes' float64 neg-LL at the card's parameters against
+   float64 CPU fits (two spawned processes started before
+   ``panel_path``), floor 0.90 within 1e-5.  For EGARCH the resilient
+   chunk runs again under a ``force_nonconverge`` fault that fails
+   every Newton attempt, so that the descent stage runs on every
+   fittable lane: its seconds and peak memory, every fittable lane at
+   the constant stage, and the descent's lanes among the first 256
+   against the float64 CPU Newton optimum (floor 0.90 within 3e-3).
+18. ``ewma_path``: ``FitEngine().stream_fit(values, "ewma")`` of a
+   1,048,576 x 128 random-walk panel (BASELINE config #1's recipe) in
+   131072-series chunks; the first 1024 lanes against a float64 CPU
+   fit, floor 0.90 within 1e-4.
+19. ``hw_resilient_path``: the Holt-Winters panel with 0.2 % each
+   all-NaN, constant, inf and too-short (20 steps) rows through
+   ``stream_fit(resilient=True, retry=RetryPolicy())``: statuses,
+   attempts, usable share beside ``hw_path``'s ``converged_pct``,
+   ``hw_box_fit`` launches = the stages' count and no ``hw_sse``; its
+   first chunk bitwise ``holt_winters.fit_resilient`` and
+   ``Panel.fit_resilient``; the restart driver over ``hw_box_fit``
+   against the one over ``minimize_box`` over ``hw_sse`` on the first
+   4096 healthy lanes at a 30-iteration budget (so that many restart),
+   with the same draws (floors 0.95, 0.95).
+20. ``css_cgd_path``: ``arima.fit(2, 1, 2, chunk, method="css-cgd")``
+   on the first 131072-series chunk: ms, ``arma_ne`` launches =
+   ``stats["ne_launches"]``, BFGS iterations, ``converged_pct`` (no
+   floor); the share of lanes whose neg-LL is within 1e-4 of the css-lm
+   fit's (floor 0.90, held after the kernels line), with the shares
+   where css-cgd ends worse or better; on 256 lanes the BFGS over
+   ``arma_ne`` against the BFGS over the plain pass, both on the card
+   (fun within 1e-5, floor 0.90).
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
-comparison route launches, ``route_launches`` beside it) and, last, the result line.  Any
+comparison route launches, ``route_launches`` beside it), the card's
+name and power limit, the css-cgd floor's check and, last, the result
+line.  Any
 failed check raises, so the script exits non-zero and prints no result
 line; without CUDA it exits 1 before doing anything.
 """
@@ -2115,14 +2156,22 @@ def resilient_panel(panel: np.ndarray, seed: int):
 
 
 def _model_bitwise(a, b) -> bool:
-    """Two ARIMA models' coefficients and diagnostics equal bit for bit."""
+    """Two fitted models' tensor fields (diagnostics included) equal bit
+    for bit."""
     import torch
 
-    fields = [(a.coefficients, b.coefficients)] + [
-        (x, y) for x, y in zip(a.diagnostics, b.diagnostics)
-        if isinstance(x, torch.Tensor)]
-    return all(_bitwise_equal(x.cpu().numpy(), y.cpu().numpy())
-               for x, y in fields)
+    def leaves(m):
+        out = []
+        for v in m:
+            if isinstance(v, torch.Tensor):
+                out.append(v.detach().cpu().numpy())
+            elif isinstance(v, tuple):
+                out.extend(leaves(v))
+        return out
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(_bitwise_equal(x, y)
+                                      for x, y in zip(la, lb))
 
 
 def restart_route_check(part: np.ndarray, lanes: np.ndarray, dev):
@@ -2571,6 +2620,670 @@ def phase_arima_surface(panel, seed, dev, chunk=CHUNK):
     return row
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the volatility and smoothing families, the fail-soft
+# Holt-Winters panel and css-cgd
+# ---------------------------------------------------------------------------
+
+VOL_N_SERIES = 65536      # BASELINE config #4's minute-bar shape, widened
+VOL_N_OBS = 1024
+VOL_CHUNK = 16384         # a GARCH Newton chunk's autograd graph: ~7 GB
+VOL_FAMILIES = ("garch", "argarch", "egarch")
+VOL_REF_LANES = 256       # lanes each family refits on the CPU in float64
+VOL_LL_RTOL = 1e-5        # float64 neg-LL at the card's parameters
+VOL_AGREE_FLOOR = 0.90
+VOL_BAD_SHARE = 0.002     # each kind of pathological row, resilient chunk
+VOL_SHORT_WINDOW = 2      # a too-short row's valid steps (min_len 3)
+VOL_DESCENT_RTOL = 3e-3   # float32 descent's neg-LL vs the f64 Newton's:
+# a first-order descent in float32 stops where its steps no longer move
+# the neg-LL, ~1e-4 above the optimum
+EWMA_N_SERIES = 1_048_576
+EWMA_N_OBS = 128
+EWMA_REF_LANES = 1024
+EWMA_TOL = 1e-4
+EWMA_AGREE_FLOOR = 0.90
+HWR_BAD_SHARE = 0.002
+HWR_SHORT_WINDOW = 20     # under 2·12 + 1 = 25 steps
+HWR_ROUTE_LANES = 4096
+HWR_ROUTE_MAX_ITER = 30   # the route check's per-attempt budget
+HWR_ROUTE_SHARE = (0.95, 0.95)
+CGD_LANES = 256           # BFGS over arma_ne vs over the plain pass
+CGD_LM_RTOL = 1e-4
+CGD_LM_FLOOR = 0.90
+CGD_PLAIN_RTOL = 1e-5
+CGD_PLAIN_FLOOR = 0.90
+
+
+def synthetic_vol_panel(n_series: int, n_obs: int, seed: int = 0,
+                        c=0.1, phi=0.3, omega=0.05, alpha=0.1, beta=0.85):
+    """AR(1)+GARCH(1,1) draws of BASELINE config #4's generator
+    (``benchmarks/bench_suite.py:352-357``, ``ARGARCHModel.sample``: index
+    0 stays 0, the variance starts at ``ω / (1 - α - β)``), float32."""
+    rng = np.random.default_rng([seed, 9])
+    out = np.empty((n_series, n_obs), np.float32)
+    var = np.full(n_series, omega / (1.0 - alpha - beta))
+    eta = np.sqrt(var) * rng.standard_normal(n_series)
+    y = np.zeros(n_series)
+    out[:, 0] = 0.0
+    for i in range(1, n_obs):
+        var = omega + beta * var + alpha * eta * eta
+        eta = np.sqrt(var) * rng.standard_normal(n_series)
+        y = c + phi * y + eta
+        out[:, i] = y
+    return out
+
+
+def synthetic_ewma_panel(n_series: int, n_obs: int, seed: int = 0):
+    """BASELINE config #1's recipe: a cumulative sum of N(0, 1) plus 100
+    (``benchmarks/bench_suite.py:321-324``), float32."""
+    rng = np.random.default_rng([seed, 10])
+    out = rng.standard_normal((n_series, n_obs), dtype=np.float32)
+    np.cumsum(out, axis=1, out=out)
+    out += 100.0
+    return out
+
+
+def _vol_ref_part(seed: int, families):
+    """The float64 CPU fits of the first ``VOL_REF_LANES`` series of the
+    volatility panel (in a spawned process)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import garch
+
+    torch.set_num_threads(1)
+    values = synthetic_vol_panel(VOL_N_SERIES, VOL_N_OBS, seed)[
+        :VOL_REF_LANES].astype(np.float64)
+    fits = {"garch": garch.fit, "argarch": garch.fit_ar_garch,
+            "egarch": garch.fit_egarch}
+    out = {}
+    for family in families:
+        t0 = time.perf_counter()
+        m = fits[family](values, device="cpu")
+        out[family] = {"fun": m.diagnostics.fun.numpy(),
+                       "converged": m.diagnostics.converged.numpy(),
+                       "seconds": time.perf_counter() - t0}
+    return out
+
+
+def start_vol_ref(seed: int):
+    """Start the float64 CPU volatility fits in two spawned processes
+    (EGARCH, the slow one, alone); returns ``(pool, [pending...])``."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    pending = [pool.apply_async(_vol_ref_part, (seed, fams))
+               for fams in (("garch", "argarch"), ("egarch",))]
+    return pool, pending
+
+
+def _vol_neg_ll64(family: str, model, values: np.ndarray) -> np.ndarray:
+    """The float64 negative log likelihood of ``values`` at a fitted
+    model's parameters (the fit's own objective: AR-GARCH's on the AR(1)
+    residuals)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import autoregression, garch
+
+    v = torch.from_numpy(values.astype(np.float64))
+    p = {f: getattr(model, f).double().cpu()
+         for f in model._fields if f != "diagnostics"}
+    if family == "garch":
+        return -garch.GARCHModel(p["omega"], p["alpha"], p["beta"]) \
+            .log_likelihood(v).numpy()
+    if family == "egarch":
+        return -garch.EGARCHModel(p["omega"], p["alpha"], p["beta"],
+                                  p["gamma"]).log_likelihood(v).numpy()
+    resid = autoregression.ARModel(p["c"], p["phi"][:, None]) \
+        .remove_time_dependent_effects(v)
+    return -garch.GARCHModel(p["omega"], p["alpha"], p["beta"]) \
+        .log_likelihood(resid).numpy()
+
+
+def bad_rows(S: int, n: int, share: float, short_window: int, seed: int,
+             stream: int):
+    """Disjoint rows, ``share`` of ``S`` each, for the resilient phases:
+    all-NaN, constant, one inf, too short (only the last ``short_window``
+    steps observed)."""
+    rng = np.random.default_rng([seed, stream])
+    k = max(1, int(S * share))
+    order = rng.permutation(S)
+    kinds = ("all_nan", "constant", "has_inf", "too_short")
+    rows = {kind: np.sort(order[i * k:(i + 1) * k])
+            for i, kind in enumerate(kinds)}
+    cols = rng.integers(0, n, k)
+    return rows, cols
+
+
+def with_bad_rows(values: np.ndarray, rows, inf_cols, short_window: int):
+    out = values.copy()
+    out[rows["all_nan"]] = np.nan
+    out[rows["constant"]] = out[rows["constant"], :1]
+    out[rows["has_inf"], inf_cols] = np.inf
+    out[rows["too_short"], :values.shape[1] - short_window] = np.nan
+    return out
+
+
+def _cat_models(models):
+    """Per-chunk models of one family, concatenated along the lanes."""
+    import torch
+
+    def cat(vals):
+        if isinstance(vals[0], torch.Tensor):
+            return torch.cat(vals)
+        if isinstance(vals[0], tuple):
+            return type(vals[0])(*(cat([v[i] for v in vals])
+                                   for i in range(len(vals[0]))))
+        return vals[0]
+
+    return cat(list(models))
+
+
+def egarch_descent_stage(engine, bad: np.ndarray, dev):
+    """The EGARCH fail-soft chain's descent stage on the card: the
+    resilient first chunk again, under a ``force_nonconverge`` fault that
+    fails every Newton attempt (the first and the policy's restarts), so
+    that every fittable lane reaches the descent.  The stage's own call
+    is timed, and its peak of allocated memory read, by wrapping
+    ``garch.fit_egarch`` for the call's duration.  Returns the row and
+    the descent's model over the fittable rows, and those rows."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import garch as garch_mod
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    real = garch_mod.fit_egarch
+    cap = {}
+
+    def probe(v, *args, **kwargs):
+        if kwargs.get("method") != "descent":
+            return real(v, *args, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = real(v, *args, **kwargs)
+        torch.cuda.synchronize()
+        cap.update(seconds=time.perf_counter() - t0, lanes=v.shape[0],
+                   allocated_before_gib=before / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   peak_reserved_gib=torch.cuda.max_memory_reserved()
+                   / 2**30, model=m)
+        return m
+
+    n_att = res_mod.RetryPolicy().max_restarts + 1
+    garch_mod.fit_egarch = probe
+    try:
+        t0 = time.perf_counter()
+        with res_mod.fault_injection("force_nonconverge", n_attempts=n_att):
+            _, out = engine.fit_resilient(bad, "egarch", device=dev)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+    finally:
+        garch_mod.fit_egarch = real
+    fittable = int((out.status != res_mod.STATUS_SKIPPED).sum())
+    model = cap.pop("model", None)
+    n_iter = None if model is None else \
+        model.diagnostics.n_iter.cpu().numpy()
+    row = {"fault_n_attempts": n_att, "chain_s": chain_s,
+           "statuses": out.counts(), "fittable_lanes": fittable,
+           **{f"descent_{k}": v for k, v in cap.items()},
+           "descent_median_n_iter": None if n_iter is None
+           else float(np.median(n_iter)),
+           "descent_max_n_iter": None if n_iter is None
+           else int(n_iter.max())}
+    rows = np.flatnonzero(out.status != res_mod.STATUS_SKIPPED)
+    check(model is not None and cap["lanes"] == fittable,
+          f"egarch descent stage: ran on {cap.get('lanes')} lanes, "
+          f"{fittable} fittable")
+    check(out.counts().get("fallback", 0) == fittable
+          and bool((out.fallback_used[out.status
+                                      != res_mod.STATUS_SKIPPED] == 2)
+                   .all()),
+          f"egarch under the fault: every fittable lane should end at the "
+          f"constant-log-variance stage, got {out.counts()}")
+    return row, model, rows
+
+
+def phase_vol_path(seed, dev, vol_ref, chunk=VOL_CHUNK):
+    """The volatility families on the card: for each of GARCH, AR-GARCH
+    and EGARCH, ``FitEngine().stream_fit`` of the 65,536 x 1024 panel in
+    ``chunk``-series chunks, ``Panel.stream_fit`` of its first chunk
+    (bitwise), the first chunk with pathological rows through
+    ``FitEngine.fit_resilient`` (skipped = the unfittable rows, health =
+    the CPU's, OK lanes = the plain fit of the same rows, bitwise), for
+    EGARCH the chain's descent stage (:func:`egarch_descent_stage`), and
+    the first 256 lanes' objectives against float64 CPU fits."""
+    import torch
+
+    from spark_timeseries_tpu_torch import Panel
+    from spark_timeseries_tpu_torch import time as ttime
+    from spark_timeseries_tpu_torch.engine import FitEngine, _fit_values
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    panel = synthetic_vol_panel(VOL_N_SERIES, VOL_N_OBS, seed)
+    S, n = panel.shape
+    rows, inf_cols = bad_rows(chunk, n, VOL_BAD_SHARE, VOL_SHORT_WINDOW,
+                              seed, 12)
+    part = panel[:chunk]
+    bad = with_bad_rows(part, rows, inf_cols, VOL_SHORT_WINDOW)
+    index = ttime.uniform("2024-01-02T09:30Z", n, ttime.MinuteFrequency(1))
+    skipped_rows = np.sort(np.concatenate(
+        [rows[k] for k in ("all_nan", "has_inf", "too_short")]))
+    cpu_health = res_mod.classify_series(torch.from_numpy(bad),
+                                         min_len=3).numpy()
+    out = {"phase": "vol_path", "n_series": S, "n_obs": n,
+           "chunk_size": chunk, "families": {}}
+    engine = FitEngine()
+    for family in VOL_FAMILIES:
+        row = {}
+        torch.cuda.synchronize()
+        res = engine.stream_fit(panel, family, chunk_size=chunk, device=dev,
+                                collect=True)
+        check(not res.chunk_failures,
+              f"{family}: chunk failures "
+              f"{[f['error'] for f in res.chunk_failures]}")
+        model = _cat_models(res.models)
+        row.update(wall_s=res.wall_s, series_per_s=res.rate,
+                   n_chunks=res.n_chunks,
+                   chunk_wall_s=res.wall_s / res.n_chunks,
+                   converged_pct=100.0 * res.n_converged / S,
+                   solver_iterations_per_chunk=res.stats[
+                       "solver_iterations"],
+                   median_n_iter=float(model.diagnostics.n_iter.double()
+                                       .median()))
+        # the Panel over the first chunk's rows: the same fit, bitwise
+        tp = Panel(index, torch.from_numpy(part).to(dev),
+                   [f"s{i}" for i in range(chunk)], device=dev)
+        t0 = time.perf_counter()
+        pres = tp.stream_fit(family, chunk_size=chunk, collect=True)
+        row["panel_chunk_s"] = time.perf_counter() - t0
+        row["panel_bitwise_stream"] = _model_bitwise(pres.models[0],
+                                                      res.models[0])
+        # the resilient first chunk
+        t0 = time.perf_counter()
+        rmodel, rout = engine.fit_resilient(bad, family, device=dev)
+        torch.cuda.synchronize()
+        row["resilient_chunk_s"] = time.perf_counter() - t0
+        row["resilient_statuses"] = rout.counts()
+        vals, counts = np.unique(rout.attempts, return_counts=True)
+        row["resilient_attempts"] = {int(a): int(c)
+                                     for a, c in zip(vals, counts)}
+        skipped = rout.status == res_mod.STATUS_SKIPPED
+        row["skipped_is_unfittable"] = bool(np.array_equal(
+            np.flatnonzero(skipped), skipped_rows))
+        row["health_bitwise_cpu"] = _bitwise_equal(rout.health, cpu_health)
+        safe = bad.copy()
+        safe[skipped] = res_mod._placeholder_rows(n, bad.dtype)
+        plain = _fit_values(family, (), torch.from_numpy(safe).to(dev))
+        ok = rout.status == res_mod.STATUS_OK
+        params = [f for f in plain._fields if f != "diagnostics"]
+        row["ok_lanes"] = int(ok.sum())
+        row["ok_bitwise_plain"] = all(_bitwise_equal(
+            getattr(rmodel, f).cpu().numpy()[ok],
+            getattr(plain, f).cpu().numpy()[ok]) for f in params)
+        if family == "egarch":
+            row["descent_stage"], dmodel, drows = egarch_descent_stage(
+                engine, bad, dev)
+        out["families"][family] = row
+        emit({"phase": "vol_path_family", "family": family, **row})
+        check(row["panel_bitwise_stream"],
+              f"{family}: Panel.stream_fit differs from the engine's")
+        check(row["skipped_is_unfittable"] and row["health_bitwise_cpu"],
+              f"{family}: skipped lanes are not the unfittable rows, or "
+              f"health codes differ from the CPU's")
+        check(row["ok_lanes"] > 0 and row["ok_bitwise_plain"],
+              f"{family}: OK lanes differ from the plain fit")
+        check(all(np.isfinite(getattr(model, f).cpu().numpy()).all()
+                  for f in params), f"{family}: non-finite parameters")
+        out["families"][family]["_model"] = model
+
+    # the float64 CPU fits of the first lanes, by objective
+    pool, pending = vol_ref
+    t0 = time.perf_counter()
+    ref = {}
+    for p in pending:
+        ref.update(p.get(timeout=900))
+    out["ref_waited_s"] = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    k = VOL_REF_LANES
+    for family in VOL_FAMILIES:
+        row = out["families"][family]
+        model = row.pop("_model")
+        sub = type(model)(*(v[:k] if hasattr(v, "shape") else v
+                            for v in model[:-1]), None)
+        card = _vol_neg_ll64(family, sub, panel[:k])
+        r = ref[family]
+        both = model.diagnostics.converged[:k].cpu().numpy() & r["converged"]
+        rel = np.abs(card - r["fun"]) / np.abs(r["fun"])
+        share = float(np.mean(rel[both] <= VOL_LL_RTOL)) if both.any() \
+            else 0.0
+        row.update(ref_cpu_f64_s=r["seconds"],
+                   ref_both_converged=int(both.sum()),
+                   ref_neg_ll_agree_share=share,
+                   ref_median_rel_neg_ll=float(np.median(rel[both]))
+                   if both.any() else None)
+        check(share >= VOL_AGREE_FLOOR,
+              f"{family}: only {share:.3f} of {int(both.sum())} lanes "
+              f"converged in both have a float64 neg-LL at the card's "
+              f"parameters within {VOL_LL_RTOL:g} of the float64 fit's "
+              f"(floor {VOL_AGREE_FLOOR})")
+    # the descent stage's lanes among the first k clean rows, against the
+    # float64 CPU Newton optimum of the same rows
+    row = out["families"]["egarch"]["descent_stage"]
+    touched = np.concatenate(list(rows.values()))
+    sel = np.flatnonzero((drows < k) & ~np.isin(drows, touched))
+    sub = type(dmodel)(*(v[sel] for v in dmodel[:-1]), None)
+    lanes = drows[sel]
+    card = _vol_neg_ll64("egarch", sub, panel[lanes])
+    r = ref["egarch"]
+    conv = r["converged"][lanes]
+    gap = (card - r["fun"][lanes]) / np.abs(r["fun"][lanes])
+    share = float(np.mean(np.abs(gap[conv]) <= VOL_DESCENT_RTOL)) \
+        if conv.any() else 0.0
+    row.update({"ref_lanes": int(conv.sum()), "ref_share": share,
+                "ref_share_within_1e-5": float(np.mean(
+                    np.abs(gap[conv]) <= VOL_LL_RTOL)) if conv.any() else 0.0,
+                "ref_median_rel_gap": float(np.median(gap[conv]))
+                if conv.any() else None})
+    check(share >= VOL_AGREE_FLOOR,
+          f"egarch descent stage: only {share:.3f} of {int(conv.sum())} "
+          f"lanes end within {VOL_DESCENT_RTOL:g} of the float64 CPU "
+          f"Newton neg-LL (floor {VOL_AGREE_FLOOR})")
+    emit(out)
+    return out
+
+
+def phase_ewma_path(seed, dev, chunk=CHUNK):
+    """EWMA on the card: ``FitEngine().stream_fit(values, "ewma")`` of a
+    1,048,576 x 128 random-walk panel (BASELINE config #1's recipe) in
+    131072-series chunks, its first 1024 lanes against the float64 CPU
+    fit."""
+    import torch
+
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import ewma
+
+    panel = synthetic_ewma_panel(EWMA_N_SERIES, EWMA_N_OBS, seed)
+    engine = FitEngine()
+    engine.stream_fit(panel[:4096], "ewma", chunk_size=4096, device=dev)
+    res = engine.stream_fit(panel, "ewma", chunk_size=chunk, device=dev,
+                            collect=True)
+    check(not res.chunk_failures,
+          f"ewma: chunk failures {[f['error'] for f in res.chunk_failures]}")
+    a = torch.cat([m.smoothing for m in res.models]).numpy()
+    conv = torch.cat([m.diagnostics.converged for m in res.models]).numpy()
+    k = EWMA_REF_LANES
+    t0 = time.perf_counter()
+    ref = ewma.fit(panel[:k].astype(np.float64), device="cpu")
+    ref_s = time.perf_counter() - t0
+    both = conv[:k] & ref.diagnostics.converged.numpy()
+    diff = np.abs(a[:k] - ref.smoothing.numpy())
+    share = float(np.mean(diff[both] <= EWMA_TOL)) if both.any() else 0.0
+    row = {"phase": "ewma_path", "n_series": res.n_series,
+           "n_obs": EWMA_N_OBS, "chunk_size": chunk,
+           "n_chunks": res.n_chunks, "wall_s": res.wall_s,
+           "series_per_s": res.rate,
+           "converged_pct": 100.0 * res.n_converged / res.n_series,
+           "solver_iterations_per_chunk": res.stats["solver_iterations"],
+           "ref_lanes": k, "ref_cpu_f64_s": ref_s,
+           "ref_both_converged": int(both.sum()),
+           "ref_agree_share": share,
+           "ref_max_abs_diff": float(diff[both].max()) if both.any()
+           else None}
+    emit(row)
+    check(bool(np.isfinite(a).all() and (a[conv] >= 1e-4).all()
+               and (a[conv] <= 1.0).all()),
+          "ewma smoothing not finite or outside [1e-4, 1]")
+    check(share >= EWMA_AGREE_FLOOR,
+          f"ewma: only {share:.3f} of {int(both.sum())} lanes converged in "
+          f"both within {EWMA_TOL:g} of the float64 smoothing (floor "
+          f"{EWMA_AGREE_FLOOR})")
+    return row
+
+
+def hw_restart_route_check(part: np.ndarray, lanes: np.ndarray, dev):
+    """The Holt-Winters restart driver over ``hw_box_fit`` against the
+    same driver over the ``minimize_box`` route over ``hw_sse`` (a launch
+    per trial), on the given rows, with the same draws and a per-attempt
+    budget of ``HWR_ROUTE_MAX_ITER`` iterations (the monthly panel's
+    lanes rarely restart at the default budget)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import holt_winters as hw_mod
+    from spark_timeseries_tpu_torch.ops import hw_sse, optimize
+    from spark_timeseries_tpu_torch.utils.resilience import RetryPolicy
+
+    if lanes.size == 0:
+        return {"lanes": 0}
+    v = torch.from_numpy(part[lanes]).to(dev)
+    inp = hw_sse.prepare(v, HW_PERIOD, "additive")
+    pol = RetryPolicy()
+    x0 = torch.tensor((0.3, 0.1, 0.1), device=dev).expand(v.shape[0], 3)
+    draws = optimize.restart_draws(pol.max_restarts, v.shape[0], 3,
+                                   torch.float32, dev, pol.seed)
+
+    def driver(route):
+        def solve(xs, idx):
+            sub = inp if idx is None else hw_mod._gather_inputs(inp, idx)
+            if route:
+                return optimize.minimize_box(hw_sse.evaluator(sub), xs, 0.0,
+                                             1.0, tol=1e-10,
+                                             max_iter=HWR_ROUTE_MAX_ITER)[:4]
+            return hw_sse.box_fit(sub, xs, 0.0, 1.0, tol=1e-10,
+                                  max_iter=HWR_ROUTE_MAX_ITER)[0][:4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = optimize.solve_with_restarts(solve, x0, pol.max_restarts,
+                                         pol.perturb_scale,
+                                         jitter_draws=draws)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    b0 = hw_sse.box_fit.launches
+    kern, kern_s = driver(False)
+    kern_launches = hw_sse.box_fit.launches - b0
+    s0 = hw_sse.value_and_grad.launches
+    route, route_s = driver(True)
+    agree = _box_agreement(kern, route)
+    agree.update(lanes=int(lanes.size), max_iter=HWR_ROUTE_MAX_ITER,
+                 restarted_lanes=int((kern.attempts > 1).sum()),
+                 kernel_s=kern_s, route_s=route_s,
+                 kernel_box_fit_launches=kern_launches,
+                 route_hw_sse_launches=hw_sse.value_and_grad.launches - s0,
+                 attempts_equal=float((kern.attempts == route.attempts)
+                                      .double().mean()))
+    return agree
+
+
+def phase_hw_resilient_path(hw_panel, plain_converged_pct, seed, dev,
+                            chunk=CHUNK):
+    """The fail-soft Holt-Winters panel: the monthly panel with
+    pathological rows through ``FitEngine().stream_fit(resilient=True,
+    retry=RetryPolicy())``, its ``hw_box_fit`` launches counted over
+    exactly that run; its first chunk against ``fit_resilient`` and
+    ``Panel.fit_resilient`` (bitwise), the restart driver over the
+    kernel against the one over the route."""
+    import torch
+
+    from spark_timeseries_tpu_torch import Panel
+    from spark_timeseries_tpu_torch import time as ttime
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import holt_winters
+    from spark_timeseries_tpu_torch.ops import hw_sse
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    S, n = hw_panel.shape
+    rows, inf_cols = bad_rows(S, n, HWR_BAD_SHARE, HWR_SHORT_WINDOW, seed,
+                              13)
+    panel = with_bad_rows(hw_panel, rows, inf_cols, HWR_SHORT_WINDOW)
+    kw = dict(period=HW_PERIOD, model_type="additive",
+              retry=res_mod.RetryPolicy())
+    engine = FitEngine()
+    engine.stream_fit(panel[:4096], "holt_winters", chunk_size=4096,
+                      device=dev, resilient=True, **kw)
+    hw_sse.box_fit.launches = 0
+    hw_sse.value_and_grad.launches = 0
+    res = engine.stream_fit(panel, "holt_winters", chunk_size=chunk,
+                            device=dev, resilient=True, collect=True, **kw)
+    launches = hw_sse.box_fit.launches
+    sse_launches = hw_sse.value_and_grad.launches
+    st = res.stats
+    statuses = st["resilient_statuses"]
+    usable = sum(statuses.get(k, 0) for k in ("ok", "retried", "fallback"))
+    row = {"phase": "hw_resilient_path", "n_series": S, "n_obs": n,
+           "chunk_size": chunk, "n_chunks": res.n_chunks,
+           "pathological_rows": {k: int(v.size) for k, v in rows.items()},
+           "wall_s": res.wall_s, "series_per_s": res.rate,
+           "statuses": statuses, "usable_pct": 100.0 * usable / S,
+           "plain_hw_path_converged_pct": plain_converged_pct,
+           "attempts_histogram": st["resilient_attempts"],
+           "box_fit_launches_per_chunk": st["box_fit_launches"],
+           "box_fit_launches_by_stage_per_chunk":
+               st["box_fit_launches_by_stage"],
+           "restart_lanes_per_chunk": st["restart_lanes"],
+           "hw_box_fit_launches": launches, "hw_sse_launches": sse_launches}
+    part = panel[:chunk]
+    part_dev = torch.from_numpy(part).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct, out = holt_winters.fit_resilient(
+        part_dev, HW_PERIOD, "additive", retry=res_mod.RetryPolicy(),
+        device=dev)
+    torch.cuda.synchronize()
+    row["chunk_fit_resilient_s"] = time.perf_counter() - t0
+    row["chunk0_bitwise_direct"] = _model_bitwise(res.models[0], direct)
+    index = ttime.uniform("2000-01-01T00:00Z", n, ttime.MonthFrequency(1))
+    tp = Panel(index, part_dev, [f"s{i}" for i in range(chunk)], device=dev)
+    p_model, p_out = tp.fit_resilient("holt_winters", HW_PERIOD, "additive",
+                                      retry=res_mod.RetryPolicy())
+    row["panel_bitwise_direct"] = _model_bitwise(p_model, direct) \
+        and bool(np.array_equal(p_out.status, out.status))
+    skipped = res_mod.unfittable_mask(out.health)
+    healthy = np.flatnonzero(~skipped)[:HWR_ROUTE_LANES]
+    row["restart_vs_route"] = hw_restart_route_check(part, healthy, dev)
+    emit(row)
+
+    check(not res.chunk_failures,
+          f"chunk failures: {[f['error'] for f in res.chunk_failures]}")
+    check(launches > 0 and launches == sum(st["box_fit_launches"]),
+          f"the resilient Holt-Winters path launched hw_box_fit {launches} "
+          f"times, its stages counted {sum(st['box_fit_launches'])}")
+    check(sse_launches == 0, f"the resilient Holt-Winters path launched "
+                             f"hw_sse {sse_launches} times")
+    check(statuses.get("skipped", 0) == sum(
+        rows[k].size for k in ("all_nan", "has_inf", "too_short")),
+          f"skipped {statuses.get('skipped', 0)} lanes, not the "
+          f"unfittable rows")
+    check(row["chunk0_bitwise_direct"],
+          "stream_fit(resilient=True)'s first chunk differs from "
+          "holt_winters.fit_resilient")
+    check(row["panel_bitwise_direct"],
+          "Panel.fit_resilient differs from holt_winters.fit_resilient")
+    rv = row["restart_vs_route"]
+    check(rv["lanes"] > 0 and rv.get("restarted_lanes", 0) > 0
+          and rv["n_iter_equal"] >= HWR_ROUTE_SHARE[0]
+          and rv["fun_within_1e-5"] >= HWR_ROUTE_SHARE[1],
+          f"the Holt-Winters restart driver over the kernel agrees with "
+          f"the route on n_iter {rv.get('n_iter_equal', 0.0):.4f} / fun "
+          f"{rv.get('fun_within_1e-5', 0.0):.4f} of {rv['lanes']} lanes "
+          f"(floors {HWR_ROUTE_SHARE})")
+    return row
+
+
+def phase_css_cgd_path(panel, dev, chunk=CHUNK):
+    """``arima.fit(2, 1, 2, chunk, method="css-cgd")`` on the first chunk
+    of the north-star panel: one ``arma_ne`` launch per BFGS evaluation
+    (counted against ``stats["ne_launches"]``), its neg-LL against the
+    css-lm fit of the same chunk, and on 256 lanes the BFGS over the
+    kernel against the BFGS over the plain pass, both on the card."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne, optimize
+    from spark_timeseries_tpu_torch.ops.univariate import \
+        differences_of_order_d
+
+    part = torch.from_numpy(panel[:chunk]).to(dev)
+    arima.fit(2, 1, 2, part[:1024], method="css-cgd", warn=False,
+              device=dev)                      # warm-up, not counted
+    arma_ne.normal_equations.launches = 0
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cgd = arima.fit(2, 1, 2, part, method="css-cgd", warn=False, device=dev,
+                    stats=st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = arma_ne.normal_equations.launches
+    lm = arima.fit(2, 1, 2, part, warn=False, device=dev)
+    fin_lm = torch.isfinite(lm.coefficients).all(dim=-1).cpu().numpy()
+    nll_cgd = (-cgd.log_likelihood_css(part)).double().cpu().numpy()
+    nll_lm = (-lm.log_likelihood_css(part)).double().cpu().numpy()
+    sane = np.isfinite(nll_cgd) & np.isfinite(nll_lm)
+    rel = np.abs(nll_cgd - nll_lm) / np.abs(nll_lm)
+    lm_share = float(np.mean(rel[sane] <= CGD_LM_RTOL))
+    # the BFGS over the kernel against the BFGS over the plain pass
+    k = CGD_LANES
+    diffed = differences_of_order_d(part[:k], 1)[..., 1:]
+    x0 = arima.hannan_rissanen_init(2, 2, diffed, True)
+
+    def bfgs(vag_fn):
+        def ev_for(idx):
+            y = diffed if idx is None else diffed.index_select(0, idx)
+            return lambda x: vag_fn(x, y, 2, 2, 1)
+        return optimize.minimize_bfgs(ev_for(None), x0, max_iter=500,
+                                      evaluator_for=ev_for)
+
+    kern = bfgs(arma_ne.css_neg_ll_value_and_grad)
+    plain = bfgs(arma_ne.css_neg_ll_value_and_grad_plain)
+    frel = ((kern.fun.double() - plain.fun.double()).abs()
+            / plain.fun.double().abs()).cpu().numpy()
+    fin = np.isfinite(frel)
+    plain_share = float(np.mean(frel[fin] <= CGD_PLAIN_RTOL)) \
+        if fin.any() else 0.0
+    n_iter = cgd.diagnostics.n_iter.cpu().numpy()
+    row = {"phase": "css_cgd_path", "n_series": chunk, "n_obs": N_OBS,
+           "ms": ms, "series_per_s": chunk / (ms / 1e3),
+           "arma_ne_launches": launches, "stats_ne_launches":
+               st["ne_launches"],
+           "bfgs_iterations_max": int(n_iter.max()),
+           "bfgs_iterations_median": float(np.median(n_iter)),
+           "converged_pct": float(100.0 * cgd.diagnostics.converged
+                                  .double().mean()),
+           "lm_converged_pct": float(100.0 * lm.diagnostics.converged
+                                     .double().mean()),
+           "vs_lm_lanes": int(sane.sum()), "vs_lm_share": lm_share,
+           "vs_lm_floor": CGD_LM_FLOOR,
+           "vs_lm_floor_met": lm_share >= CGD_LM_FLOOR,
+           "vs_lm_median_rel": float(np.median(rel[sane])),
+           "cgd_worse_share": float(np.mean(
+               (nll_cgd > nll_lm * (1 + CGD_LM_RTOL))[sane])),
+           "cgd_better_share": float(np.mean(
+               (nll_cgd < nll_lm * (1 - CGD_LM_RTOL))[sane])),
+           "worse_lanes_median_bfgs_iterations": float(np.median(
+               n_iter[sane & (nll_cgd > nll_lm * (1 + CGD_LM_RTOL))]))
+           if (sane & (nll_cgd > nll_lm * (1 + CGD_LM_RTOL))).any()
+           else None,
+           "vs_plain_lanes": k, "vs_plain_share": plain_share,
+           "vs_plain_n_iter_equal": float((kern.n_iter == plain.n_iter)
+                                          .double().mean())}
+    emit(row)
+    # the floor against css-lm is held at the end of main, after the
+    # kernels line, so that a miss still prints every measurement
+    check(launches > 0 and launches == st["ne_launches"],
+          f"css-cgd launched arma_ne {launches} times, its stats counted "
+          f"{st['ne_launches']}")
+    check(bool(np.isfinite(cgd.coefficients.cpu().numpy()[fin_lm]).all()),
+          "css-cgd coefficients not finite where the css-lm fit's are "
+          "(the Hannan-Rissanen init's NaN lanes are NaN in both)")
+    check(plain_share >= CGD_PLAIN_FLOOR,
+          f"the BFGS over arma_ne agrees with the BFGS over the plain pass "
+          f"on fun within {CGD_PLAIN_RTOL:g} on {plain_share:.3f} of {k} "
+          f"lanes (floor {CGD_PLAIN_FLOOR})")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2675,10 +3388,23 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     grid_row = phase_auto_grid_vs_route(screen, dev)
     del screen
 
-    panel_row = phase_panel_path(panel, auto_panel, args.seed, dev)
+    vol_ref = start_vol_ref(args.seed)
+    try:
+        panel_row = phase_panel_path(panel, auto_panel, args.seed, dev)
 
-    res_row = phase_resilient_path(panel, args.seed, dev)
-    surf_row = phase_arima_surface(panel, args.seed, dev)
+        res_row = phase_resilient_path(panel, args.seed, dev)
+        surf_row = phase_arima_surface(panel, args.seed, dev)
+
+        # the slice-9 paths, each driven with the counts set to 0 just
+        # before it and read just after
+        phase_vol_path(args.seed, dev, vol_ref)
+    finally:
+        vol_ref[0].terminate()
+        vol_ref[0].join()
+    phase_ewma_path(args.seed, dev)
+    hwr_row = phase_hw_resilient_path(hw_panel, hw_row["converged_pct"],
+                                      args.seed, dev)
+    cgd_row = phase_css_cgd_path(panel, dev)
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -2711,13 +3437,15 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "launches": main_row["normal_equations_launches"]
         + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"]
-        + res_row["arma_ne_launches"] + surf["arma_ne"],
+        + res_row["arma_ne_launches"] + surf["arma_ne"]
+        + cgd_row["arma_ne_launches"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
             "panel_path": panel_row["arma_ne_launches"],
             "resilient_path": res_row["arma_ne_launches"],
-            "arima_surface": surf["arma_ne"]},
+            "arima_surface": surf["arma_ne"],
+            "css_cgd_path": cgd_row["arma_ne_launches"]},
         "route_launches": lm_row["route_arma_ne_launches"],
         "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
@@ -2739,8 +3467,13 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "name": "hw_sse", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
-        "launches": hw_row["hw_sse_launches"],
-        "route_launches": fit_row["solver_route_hw_sse_launches"],
+        "launches": hw_row["hw_sse_launches"]
+        + hwr_row["hw_sse_launches"],
+        "launches_by_path": {
+            "hw_path": hw_row["hw_sse_launches"],
+            "hw_resilient_path": hwr_row["hw_sse_launches"]},
+        "route_launches": fit_row["solver_route_hw_sse_launches"]
+        + hwr_row["restart_vs_route"]["route_hw_sse_launches"],
         "max_abs_err": hw_max_abs,
         "ms": hw_timing["kernel_ms"], "plain_ms": hw_timing["plain_ms"],
         "bound_ms": hw_timing["bound_us"] / 1e3,
@@ -2748,7 +3481,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "name": "hw_box_fit", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
-        "launches": hw_launches,
+        "launches": hw_launches + hwr_row["hw_box_fit_launches"],
+        "launches_by_path": {
+            "hw_path": hw_launches,
+            "hw_resilient_path": hwr_row["hw_box_fit_launches"]},
         "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],
@@ -2772,6 +3508,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "padded_bound_ms": grid_row["padded_bound_ms"],
         "library_ms": None}]})
     print(smi, flush=True)
+    check(cgd_row["vs_lm_share"] >= CGD_LM_FLOOR,
+          f"css-cgd's neg-LL is within {CGD_LM_RTOL:g} of the css-lm fit's "
+          f"on {cgd_row['vs_lm_share']:.4f} of {cgd_row['vs_lm_lanes']} "
+          f"lanes (floor {CGD_LM_FLOOR}; worse on "
+          f"{cgd_row['cgd_worse_share']:.4f}, better on "
+          f"{cgd_row['cgd_better_share']:.4f})")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -51,8 +51,7 @@ _NOT_PORTED = ("prefetch", "donate", "journal", "job_meta", "deadline_s",
                "job_label")
 
 # the JAX engine's resilient families that wait for their model slices
-_RESILIENT_WAITING = ("arimax", "arx", "ewma", "garch", "argarch", "egarch",
-                      "holt_winters", "regression_arima")
+_RESILIENT_WAITING = ("arimax", "arx", "regression_arima")
 
 
 def series_bucket(n_series: int) -> int:
@@ -79,9 +78,17 @@ _STATICS_BUILDERS = {
          max_iter, retry),
     "ar": lambda max_lag=2, no_intercept=False:
         (int(max_lag), bool(no_intercept)),
+    "ewma": lambda: (),
+    "garch": lambda: (),
+    "argarch": lambda: (),
+    "egarch": lambda: (),
     "holt_winters": lambda period=12, model_type="additive":
         (int(period), str(model_type)),
 }
+
+# families fitted by an iterative solver whose per-lane iterations
+# stream_fit reports as solver_iterations
+_SOLVER_FAMILIES = ("ewma", "garch", "argarch", "egarch")
 
 # families with a ragged engine path: a NaN chunk of any other family is a
 # data failure in stream_fit, as in the JAX engine
@@ -102,13 +109,18 @@ def _fit_values(family: str, statics: tuple, values: torch.Tensor,
     """One batched fit of ``values`` on its own device.  NaN-padded lanes
     are left-aligned and fitted against their valid windows; NaN inside a
     window raises.  ``stats`` receives the solver's counts."""
-    from .models import arima, autoregression, holt_winters
+    from .models import arima, autoregression, ewma, garch, holt_winters
 
     if family == "holt_winters":
         # the direct fit left-aligns its ragged lanes itself
         period, model_type = statics
         return holt_winters.fit(values, period, model_type,
                                 device=values.device, stats=stats)
+    if family in _SOLVER_FAMILIES:
+        fit_fn = {"ewma": ewma.fit, "garch": garch.fit,
+                  "argarch": garch.fit_ar_garch,
+                  "egarch": garch.fit_egarch}[family]
+        return fit_fn(values, device=values.device, stats=stats)
     values, n_valid = ragged_view(values)
 
     if family == "arima":
@@ -173,8 +185,9 @@ class StreamResult(NamedTuple):
     chunk's most iterations of a lane), ``lane_evaluations`` (the value-and-grad passes
     its lanes needed, summed) and ``box_fit_launches`` (1 per chunk on
     CUDA, 0 on the CPU), and on the CPU ``value_and_grad_calls`` (the
-    plain solver's calls; the card's fit makes none), then
-    ``collected_ranges`` with ``collect=True``, ``input_d2h_s`` (the
+    plain solver's calls; the card's fit makes none), for ewma, garch,
+    argarch and egarch per fitted chunk ``solver_iterations`` (the
+    chunk's most iterations of a lane), then ``collected_ranges`` with ``collect=True``, ``input_d2h_s`` (the
     seconds of the input's copy to the host: a tensor on a card) and
     ``device``."""
     n_series: int
@@ -249,8 +262,9 @@ class FitEngine:
         CUDA).  ``kwargs`` are the family's fit parameters (arima:
         ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``/
         ``retry``; ar: ``max_lag``/``no_intercept``; holt_winters:
-        ``period``/``model_type``).  NaN-padded lanes fit their valid
-        windows; NaN inside a window raises."""
+        ``period``/``model_type``; ewma, garch, argarch and egarch take
+        none).  NaN-padded lanes of arima and ar fit their valid windows
+        (holt_winters left-aligns its own); NaN inside a window raises."""
         statics = _statics(family, kwargs)
         dev = resolve_device(device)
         v = as_tensor(values, dev)
@@ -264,16 +278,21 @@ class FitEngine:
 
     @staticmethod
     def resilient_dispatch(family: str) -> Callable:
-        """The family's ``fit_resilient`` (the direct, unbucketed chain):
-        ``arima`` and ``ar``; the JAX engine's other resilient families
-        raise ``NotImplementedError`` until their models are ported."""
-        from .models import arima, autoregression
+        """The family's ``fit_resilient`` (the direct, unbucketed chain);
+        the exogenous-regressor families of the JAX engine raise
+        ``NotImplementedError`` until their models are ported."""
+        from .models import arima, autoregression, ewma, garch, holt_winters
         dispatch = {"arima": arima.fit_resilient,
-                    "ar": autoregression.fit_resilient}
+                    "ar": autoregression.fit_resilient,
+                    "ewma": ewma.fit_resilient,
+                    "garch": garch.fit_resilient,
+                    "argarch": garch.fit_ar_garch_resilient,
+                    "egarch": garch.fit_egarch_resilient,
+                    "holt_winters": holt_winters.fit_resilient}
         if family in _RESILIENT_WAITING:
             raise NotImplementedError(
                 f"the resilient fit of family {family!r} is not ported yet "
-                f"(ROADMAP Queue A item 3)")
+                f"(ROADMAP Queue A item 3b)")
         if family not in dispatch:
             raise ValueError(f"unknown model family {family!r}; expected "
                              f"one of {sorted(dispatch)}")
@@ -334,12 +353,14 @@ class FitEngine:
         launches: List[int] = []
         by_stage: List[Dict[str, int]] = []
         restart_lanes: List[List[int]] = []
+        # the kernel whose launches each chunk's chain counts
+        kernel = {"arima": "lm_fit", "holt_winters": "box_fit"}.get(family)
         t0 = time.perf_counter()
         for start, stop in partition:
             try:
                 part = torch.from_numpy(host[start:stop]).to(dev)
                 st: Dict[str, Any] = {}
-                kw = dict(kwargs, stats=st) if family == "arima" else kwargs
+                kw = dict(kwargs, stats=st) if kernel else kwargs
                 model, outcome = self.fit_resilient(part, family, device=dev,
                                                     **kw)
                 ok = np.isin(outcome.status,
@@ -350,8 +371,8 @@ class FitEngine:
                 vals, counts = np.unique(outcome.attempts, return_counts=True)
                 for a, c in zip(vals.tolist(), counts.tolist()):
                     attempts[a] = attempts.get(a, 0) + c
-                launches.append(st.get("lm_fit_launches", 0))
-                by_stage.append(st.get("lm_fit_launches_by_stage", {}))
+                launches.append(st.get(f"{kernel}_launches", 0))
+                by_stage.append(st.get(f"{kernel}_launches_by_stage", {}))
                 restart_lanes.append(st.get("restart_lanes", []))
                 if collect:
                     models.append(_map_tensors(model, lambda t: t.cpu()))
@@ -369,10 +390,11 @@ class FitEngine:
             "chunk_size": chunk, "resilient": True,
             "resilient_statuses": statuses,
             "resilient_attempts": dict(sorted(attempts.items())),
-            "lm_fit_launches": launches,
-            "lm_fit_launches_by_stage": by_stage,
             "restart_lanes": restart_lanes,
             "input_d2h_s": input_d2h_s, "device": str(dev)}
+        if kernel:
+            stats[f"{kernel}_launches"] = launches
+            stats[f"{kernel}_launches_by_stage"] = by_stage
         if collect:
             stats["collected_ranges"] = ranges
         return StreamResult(n_series, max(n_series - dead_series, 0), conv,
@@ -401,9 +423,10 @@ class FitEngine:
         the other; ``n_converged`` then counts lanes whose status is
         ok / retried / fallback, ``stats["resilient_statuses"]`` the
         statuses, ``stats["resilient_attempts"]`` the attempts histogram,
-        and per chunk ``lm_fit_launches`` (every stage's; on the CPU 0),
-        ``lm_fit_launches_by_stage`` and ``restart_lanes`` (the primary's
-        restarts)."""
+        per chunk ``restart_lanes`` (the primary's restarts) and, for
+        arima, ``lm_fit_launches`` (every stage's; on the CPU 0) and
+        ``lm_fit_launches_by_stage``, for holt_winters ``box_fit_launches``
+        and ``box_fit_launches_by_stage``."""
         not_ported = sorted(set(kwargs) & set(_NOT_PORTED))
         if not_ported:
             raise NotImplementedError(
@@ -471,6 +494,7 @@ class FitEngine:
         collected: Dict[int, Tuple[int, Any]] = {}
         lm_iterations: List[int] = []
         lm_fit_launches: List[int] = []
+        solver_iterations: List[int] = []
         hw_stats: Dict[str, List[int]] = {
             "box_iterations": [], "lane_evaluations": [],
             "box_fit_launches": []}
@@ -521,7 +545,8 @@ class FitEngine:
                 diag = model.diagnostics
                 # the chunk's one host sync: every count it reports
                 reads = [diag.converged[:n_real].sum()]
-                if lm_path or family == "holt_winters":
+                if lm_path or family == "holt_winters" \
+                        or family in _SOLVER_FAMILIES:
                     reads.append(diag.n_iter.max().long())
                 if family == "holt_winters":
                     reads.append(solver["evaluations"].sum())
@@ -530,6 +555,8 @@ class FitEngine:
                 if lm_path:
                     lm_iterations.append(counts[1])
                     lm_fit_launches.append(solver.get("lm_fit_launches", 0))
+                if family in _SOLVER_FAMILIES:
+                    solver_iterations.append(counts[1])
                 if family == "holt_winters":
                     hw_stats["box_iterations"].append(counts[1])
                     hw_stats["lane_evaluations"].append(counts[2])
@@ -558,6 +585,8 @@ class FitEngine:
                                  "device": str(dev)}
         if family == "holt_winters":
             stats.update(hw_stats)
+        if family in _SOLVER_FAMILIES:
+            stats["solver_iterations"] = solver_iterations
         models = None
         if collect:
             keys = sorted(collected)

@@ -11,9 +11,10 @@ likelihood, AIC, gradient, Hessian, AR(∞) form, time-dependent effects
 and sampling; the stationarity/invertibility root checks; the stepwise
 :func:`auto_fit` and the batched :func:`auto_fit_panel`; and the fail-soft
 :func:`fit_resilient` (health masking, retry, the fallback chain ARIMA ->
-auto-order -> AR -> mean).  Not ported yet: ``method="css-cgd"`` (BFGS),
-``objective="exact"`` and ``log_likelihood_exact`` (the state-space
-slice), ``fit_long`` and ``segment_fit_outputs`` (the long-series slice).
+auto-order -> AR -> mean), and the batched BFGS ``method="css-cgd"``.
+Not ported yet: ``objective="exact"`` and ``log_likelihood_exact`` (the
+state-space slice), ``fit_long`` and ``segment_fit_outputs`` (the
+long-series slice).
 
 Coefficients are laid out ``[intercept?, AR..., MA...]`` as in the JAX
 package, panels series-major ``(n_series, n_obs)``.
@@ -34,7 +35,8 @@ from ..ops.arma_ne import (check_kernel_order, css_cost,
                            normal_equations_plain)
 from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram, spd_solve
-from ..ops.optimize import MinimizeResult, _solve_with_policy, minimize_box
+from ..ops.optimize import (MinimizeResult, _solve_with_policy, minimize_bfgs,
+                            minimize_box)
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from ..ops.univariate import (differences_of_order_d,
@@ -621,7 +623,13 @@ def fit(p: int, d: int, q: int, ts,
     - ``"css-bobyqa"``: the projected gradient of ``ops.optimize.
       minimize_box`` over the CSS negative log likelihood and its
       gradient (``ops.arma_ne.css_neg_ll_value_and_grad``: on the card
-      one ``arma_ne`` launch per trial), 500 iterations by default.
+      one ``arma_ne`` launch per trial), 500 iterations by default;
+    - ``"css-cgd"``: the batched BFGS of ``ops.optimize.minimize_bfgs``
+      over the same value and gradient (on the card one ``arma_ne``
+      launch per evaluation, over the lanes still running), 500
+      iterations by default; as in the JAX package, every lane stops at
+      a gradient ∞-norm under 1e-5 (``jax.scipy.optimize.minimize`` drops
+      the ``tol`` it is given).
 
     ``q == 0`` (without ``user_init_params``) is the AR fast path: a
     direct OLS, every finite lane converged in 0 iterations.  NaN-padded
@@ -651,10 +659,12 @@ def fit(p: int, d: int, q: int, ts,
     ``stats`` (a dict), when the fit runs the LM solver, receives
     ``lm_fit_launches`` (the LM-fit kernel's launches: one per attempt
     on CUDA, 0 on the CPU) and ``restart_lanes`` (lanes re-solved at
-    each restart).
+    each restart); on css-cgd ``ne_launches`` (``arma_ne`` launches: one
+    per evaluation on CUDA, 0 on the CPU), ``bfgs_calls`` and
+    ``restart_lanes``.
 
-    Not ported yet (raise ``NotImplementedError``): ``method="css-cgd"``
-    (BFGS, ROADMAP Queue A item 3) and ``objective="exact"`` (item 4).
+    Not ported yet (raises ``NotImplementedError``): ``objective="exact"``
+    (ROADMAP Queue A item 4).
     """
     if objective == "exact":
         raise NotImplementedError(
@@ -663,11 +673,7 @@ def fit(p: int, d: int, q: int, ts,
     if objective != "css":
         raise ValueError(f"unknown objective {objective!r}; expected "
                          f"'css' or 'exact'")
-    if method == "css-cgd":
-        raise NotImplementedError(
-            "method 'css-cgd' (batched BFGS) is not ported yet (ROADMAP "
-            "Queue A item 3); fit with 'css-lm' or 'css-bobyqa'")
-    if method not in ("css-lm", "css-bobyqa"):
+    if method not in ("css-lm", "css-bobyqa", "css-cgd"):
         raise ValueError(f"unknown method {method!r}")
     rk = _resilience.retry_kwargs(retry)
     if max_iter is None and retry is not None and retry.max_iter is not None:
@@ -782,11 +788,21 @@ def fit(p: int, d: int, q: int, ts,
             return lambda x: css_neg_ll_value_and_grad(x, yy, p, q, icpt,
                                                        n_valid=vv)
 
-        res = minimize_box(evaluator_for(None), x0, -math.inf, math.inf,
-                           tol=1e-10,
-                           max_iter=max_iter if max_iter is not None
-                           else 500, evaluator_for=evaluator_for,
-                           jitter_draws=_restart_draws, **rk)
+        mi = max_iter if max_iter is not None else 500
+        if method == "css-cgd":
+            res = minimize_bfgs(evaluator_for(None), x0, tol=1e-7,
+                                max_iter=mi, evaluator_for=evaluator_for,
+                                jitter_draws=_restart_draws, stats=solver,
+                                **rk)
+            if stats is not None:
+                stats["ne_launches"] = solver["calls"] if x0.is_cuda else 0
+                stats["bfgs_calls"] = solver["calls"]
+                stats["restart_lanes"] = solver["restart_lanes"]
+        else:
+            res = minimize_box(evaluator_for(None), x0, -math.inf, math.inf,
+                               tol=1e-10, max_iter=mi,
+                               evaluator_for=evaluator_for,
+                               jitter_draws=_restart_draws, **rk)
     res = MinimizeResult(
         res.x.reshape(*lanes, dim), res.fun.reshape(lanes),
         res.converged.reshape(lanes), res.n_iter.reshape(lanes),

@@ -16,6 +16,8 @@ from ..utils.resilience import FitOutcome, RetryPolicy
 from .arima import ARIMAModel, PanelARIMAFit
 from .autoregression import ARModel
 from .base import FitDiagnostics
+from .ewma import EWMAModel
+from .garch import ARGARCHModel, EGARCHModel, GARCHModel
 from .holt_winters import HoltWintersModel
 
 
@@ -94,6 +96,48 @@ def holt_winters_from_numpy(model_type: str, period: int, alpha, beta,
                             as_tensor(alpha, dev), as_tensor(beta, dev),
                             as_tensor(gamma, dev),
                             _diagnostics(diagnostics, dev))
+
+
+def ewma_from_numpy(smoothing, diagnostics: Optional[Sequence] = None,
+                    device=None) -> EWMAModel:
+    """The port's :class:`EWMAModel` from numpy ``smoothing`` (a scalar
+    or ``(n_series,)``)."""
+    dev = resolve_device(device)
+    return EWMAModel(as_tensor(smoothing, dev), _diagnostics(diagnostics,
+                                                             dev))
+
+
+def garch_from_numpy(omega, alpha, beta,
+                     diagnostics: Optional[Sequence] = None,
+                     device=None) -> GARCHModel:
+    """The port's :class:`GARCHModel` from numpy ``omega``, ``alpha`` and
+    ``beta`` (scalars or ``(n_series,)``)."""
+    dev = resolve_device(device)
+    return GARCHModel(as_tensor(omega, dev), as_tensor(alpha, dev),
+                      as_tensor(beta, dev), _diagnostics(diagnostics, dev))
+
+
+def ar_garch_from_numpy(c, phi, omega, alpha, beta,
+                        diagnostics: Optional[Sequence] = None,
+                        device=None) -> ARGARCHModel:
+    """The port's :class:`ARGARCHModel` from numpy ``c``, ``phi``,
+    ``omega``, ``alpha`` and ``beta``."""
+    dev = resolve_device(device)
+    return ARGARCHModel(*(as_tensor(v, dev)
+                          for v in (c, phi, omega, alpha, beta)),
+                        diagnostics=_diagnostics(diagnostics, dev))
+
+
+def egarch_from_numpy(omega, alpha, beta, gamma=0.0,
+                      diagnostics: Optional[Sequence] = None,
+                      device=None) -> EGARCHModel:
+    """The port's :class:`EGARCHModel` from numpy ``omega``, ``alpha``,
+    ``beta`` and ``gamma``."""
+    dev = resolve_device(device)
+    omega = as_tensor(omega, dev)
+    return EGARCHModel(omega, as_tensor(alpha, dev), as_tensor(beta, dev),
+                       torch.as_tensor(gamma, dtype=omega.dtype, device=dev),
+                       diagnostics=_diagnostics(diagnostics, dev))
 
 
 def retry_policy_from(policy) -> RetryPolicy:

@@ -8,10 +8,10 @@ prediction bands.  :func:`fit` minimizes the SSE over ``[0, 1]³`` with
 the per-lane projected gradient of ``ops.hw_sse.box_fit`` — on CUDA, one
 launch of the hand-written persistent kernel for the whole fit; on the
 CPU, its plain version (``ops.optimize.minimize_box`` over the fused
-value-and-grad pass).
-
-Not ported yet (ROADMAP Queue A item 3): ``retry`` (raises
-``NotImplementedError``), ``fit_resilient`` and ``fit_panel``.
+value-and-grad pass).  ``retry`` re-solves the unconverged lanes from
+jittered starts, one more box fit over those lanes alone each restart;
+:func:`fit_resilient` is the fail-soft chain box -> mid-box start ->
+naive model.
 """
 
 from __future__ import annotations
@@ -22,9 +22,11 @@ import torch
 
 from .._device import as_tensor, resolve_device
 from ..ops import hw_sse
+from ..ops.optimize import _solve_with_policy
 from ..ops.hw_sse import _kernel  # noqa: F401  (the JAX module's helper)
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
+from ..utils import resilience as _resilience
 from .base import FitDiagnostics, diagnostics_from, normal_quantile
 
 
@@ -164,10 +166,21 @@ class HoltWintersModel(NamedTuple):
         return point, point - half, point + half
 
 
+def _gather_inputs(inp: hw_sse.HWInputs, lanes: torch.Tensor
+                   ) -> hw_sse.HWInputs:
+    """The prepared panel's rows of ``lanes`` (time-major, so columns)."""
+    return inp._replace(
+        y=inp.y.index_select(1, lanes).contiguous(),
+        init=inp.init.index_select(1, lanes).contiguous(),
+        n_valid=None if inp.n_valid is None
+        else inp.n_valid.index_select(0, lanes).contiguous())
+
+
 def fit(ts, period: int, model_type: str = "additive",
         init=(0.3, 0.1, 0.1), tol: float = 1e-10,
         max_iter: Optional[int] = None, retry=None, device=None,
-        stats: Optional[dict] = None) -> HoltWintersModel:
+        stats: Optional[dict] = None,
+        _restart_draws=None) -> HoltWintersModel:
     """Fit ``(alpha, beta, gamma)`` by minimizing the SSE over ``[0, 1]³``
     with the batched projected gradient from the R-style
     ``(0.3, 0.1, 0.1)`` start (default ``max_iter`` 1000).
@@ -177,21 +190,31 @@ def fit(ts, period: int, model_type: str = "additive",
     a card; pass ``device="cpu"`` for the CPU, float32 or float64).  The
     solve is ``ops.hw_sse.box_fit``: on the card one launch of the
     persistent box-fit kernel, on the CPU the plain solver, several trials
-    per call (``ops.hw_sse.CPU_TRIAL_LANES``).  ``stats`` (a dict,
-    optional) receives ``evaluations``, the ``(S,)`` value-and-grad passes
-    each lane needed, and the route's counts: ``box_fit_launches`` on the
-    card, the solver's ``calls``/``iterations``/``trials`` on the CPU.
+    per call (``ops.hw_sse.CPU_TRIAL_LANES``).
+
+    ``retry`` (a ``utils.resilience.RetryPolicy``) re-solves the lanes
+    that did not converge from jittered starts
+    (``ops.optimize.solve_with_restarts``): attempt 0 is the plain fit,
+    bit for bit, and each restart one box fit over the failing lanes
+    alone, their prepared rows gathered (on the card one box-fit launch
+    each); the per-lane count lands in ``diagnostics.attempts``.  The
+    jitter comes from ``retry.seed`` (``ops.optimize.restart_draws``), or
+    ``_restart_draws (R, S, 3)`` hands the draws in; ``max_iter``
+    defaults to ``retry.max_iter`` when set.
+
+    ``stats`` (a dict, optional) receives ``evaluations``, the ``(S,)``
+    value-and-grad passes each lane needed over its attempts, and
+    ``restart_lanes`` (lanes re-solved at each restart); on CUDA
+    ``box_fit_launches`` (the box-fit kernel's launches, one per attempt)
+    and ``box_fit_launches_per_attempt``, on the CPU the plain solver's
+    ``calls``, ``iterations`` and ``trials``.
 
     NaN-padded panels (leading/trailing padding per lane) fit directly:
     valid windows are left-aligned and the SSE weighted to them.  Lanes
     with fewer than ``2 * period + 1`` valid observations get NaN
     parameters and ``diagnostics.converged == False``; interior gaps
-    raise.  ``retry`` (multi-start) is not ported yet and raises.
+    raise.
     """
-    if retry is not None:
-        raise NotImplementedError(
-            "retry (multi-start Holt-Winters fits) is not ported yet "
-            "(ROADMAP Queue A item 3)")
     hw_sse.check_model_type(model_type)
     dev = resolve_device(device)
     ts, obs_len = ragged_view(as_tensor(ts, dev))
@@ -201,9 +224,41 @@ def fit(ts, period: int, model_type: str = "additive",
                          None if obs_len is None else obs_len.reshape(-1))
     S = lanes.shape[0]
     x0 = torch.tensor(init, dtype=ts.dtype, device=dev).expand(S, 3)
-    res, _ = hw_sse.box_fit(
-        inp, x0, 0.0, 1.0, tol=tol,
-        max_iter=1000 if max_iter is None else max_iter, stats=stats)
+    rk = _resilience.retry_kwargs(retry)
+    if max_iter is None:
+        max_iter = retry.max_iter if retry is not None \
+            and retry.max_iter is not None else 1000
+    evaluations = torch.zeros((S,), dtype=torch.int32, device=dev)
+    per_attempt = []
+    solver_counts = {}
+
+    def solve(xs, idx):
+        st: dict = {}
+        res, ev = hw_sse.box_fit(inp if idx is None
+                                 else _gather_inputs(inp, idx),
+                                 xs, 0.0, 1.0, tol=tol, max_iter=max_iter,
+                                 stats=st)
+        if idx is None:
+            evaluations.add_(ev)
+        else:
+            evaluations.index_add_(0, idx, ev)
+        per_attempt.append(st.get("box_fit_launches", 0))
+        for key in ("calls", "iterations", "trials"):
+            if key in st:
+                solver_counts[key] = solver_counts.get(key, 0) + st[key]
+        return res[:4]
+
+    policy: dict = {}
+    res = _solve_with_policy(solve, x0, rk.get("restarts", 0),
+                             rk.get("restart_scale", 0.25),
+                             rk.get("restart_seed", 0), _restart_draws,
+                             policy)
+    if stats is not None:
+        stats.update(solver_counts, evaluations=evaluations,
+                     restart_lanes=policy["restart_lanes"])
+        if x0.is_cuda:
+            stats.update(box_fit_launches=sum(per_attempt),
+                         box_fit_launches_per_attempt=per_attempt)
     ok = torch.isfinite(res.x).all(dim=-1, keepdim=True)
     p = torch.where(ok, res.x, x0)
     conv = diagnostics_from(res, ok)
@@ -212,10 +267,20 @@ def fit(ts, period: int, model_type: str = "additive",
                             "Holt-Winters fit (two init periods + 1)")
         p, conv_mask = apply_short_quarantine(p, conv.converged, short)
         conv = conv._replace(converged=conv_mask)
-    conv = FitDiagnostics(*(t.reshape(batch) for t in conv[:3]))
+    conv = FitDiagnostics(*(t.reshape(batch) for t in conv[:3]),
+                          None if conv.attempts is None
+                          else conv.attempts.reshape(batch))
     p = p.reshape(*batch, 3)
     return HoltWintersModel(model_type, period, p[..., 0], p[..., 1],
                             p[..., 2], diagnostics=conv)
+
+
+def fit_panel(panel, period: int, model_type: str = "additive",
+              **kwargs) -> HoltWintersModel:
+    """Batched fit of a :class:`~spark_timeseries_tpu_torch.panel.Panel`
+    on its device."""
+    return fit(panel.values, period, model_type, device=panel.device,
+               **kwargs)
 
 
 def _naive_seasonal_model(v, period: int,
@@ -245,3 +310,47 @@ def _naive_seasonal_model(v, period: int,
     return m._replace(diagnostics=FitDiagnostics(
         ok, torch.zeros(sse.shape, dtype=torch.int32, device=sse.device),
         sse))
+
+
+def _add_launches(stats: Optional[dict], stage: str, n: int) -> None:
+    if stats is not None:
+        by = stats.setdefault("box_fit_launches_by_stage", {})
+        by[stage] = by.get(stage, 0) + int(n)
+        stats["box_fit_launches"] = stats.get("box_fit_launches", 0) + int(n)
+
+
+def fit_resilient(ts, period: int, model_type: str = "additive",
+                  retry: Optional[_resilience.RetryPolicy] = None,
+                  device=None, stats: Optional[dict] = None, **kwargs):
+    """Fail-soft batched Holt-Winters on ``device`` (``None`` means CUDA):
+    the box fit with multi-start retry -> a mid-box restart ``init=(0.5,
+    0.3, 0.3)`` -> the naive ``α = 1`` model, each stage on the lanes
+    still failing, gathered.  ``ts (n_series, n)``; returns ``(model,
+    FitOutcome)``.  ``stats`` receives ``box_fit_launches`` (every
+    stage's, on CUDA; 0 on the CPU), ``box_fit_launches_by_stage`` and
+    the primary's ``restart_lanes``."""
+    if retry is None:
+        retry = _resilience.RetryPolicy()
+    dev = resolve_device(device)
+    values = as_tensor(ts, dev)
+    if stats is not None:
+        stats["box_fit_launches"] = 0
+
+    def stage(name, **pinned):
+        def run(v):
+            st: dict = {}
+            m = fit(v, period, model_type, device=dev, stats=st,
+                    **_resilience.override_kwargs(kwargs, **pinned))
+            _add_launches(stats, name, st.get("box_fit_launches", 0))
+            if stats is not None and name == "box":
+                stats["restart_lanes"] = st["restart_lanes"]
+            return m
+        return run
+
+    chain = [
+        ("box", stage("box", retry=retry)),
+        ("box_midstart", stage("box_midstart", init=(0.5, 0.3, 0.3))),
+        ("naive", lambda v: _naive_seasonal_model(v, period, model_type)),
+    ]
+    return _resilience.resilient_fit(values, chain, min_len=2 * period + 1,
+                                     family="holt_winters")

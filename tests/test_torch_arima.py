@@ -199,7 +199,6 @@ def test_cuda_requests_the_kernel_cannot_take_raise(monkeypatch):
 
 def test_unported_options_raise():
     y = _arima_panel(np.random.default_rng(8), 4, 40)
-    for kwargs, what in (({"method": "css-cgd"}, "css-cgd"),
-                         ({"objective": "exact"}, "exact")):
+    for kwargs, what in (({"objective": "exact"}, "exact"),):
         with pytest.raises(NotImplementedError, match=what):
             arima.fit(2, 1, 2, y, warn=False, device="cpu", **kwargs)

@@ -957,3 +957,113 @@ def test_fit_resilient_on_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(v_out.status, d_out.status)
     assert resilience.unfittable_mask(out.health)[:5].tolist() == [
         True, False, True, True, True]
+
+
+def test_css_cgd_counts_one_arma_ne_launch_per_evaluation(cuda):
+    """``method="css-cgd"`` on the card: every BFGS evaluation is one
+    ``arma_ne`` launch over the lanes still running, as its stats say;
+    the BFGS over the kernel agrees with the BFGS over the plain pass."""
+    from spark_timeseries_tpu_torch.ops import optimize
+    from spark_timeseries_tpu_torch.ops.univariate import \
+        differences_of_order_d
+    rng = np.random.default_rng(31)
+    y = torch.from_numpy(np.cumsum(_panel(rng, 512, 96), axis=1)
+                         .astype(np.float32)).to(cuda)
+    arma_ne.normal_equations.launches = 0
+    st = {}
+    m = arima.fit(2, 1, 2, y, method="css-cgd", warn=False, device=cuda,
+                  stats=st)
+    assert arma_ne.normal_equations.launches == st["ne_launches"] > 0
+    lm = arima.fit(2, 1, 2, y, warn=False, device=cuda)
+    fin = torch.isfinite(lm.coefficients).all(dim=-1)
+    assert torch.isfinite(m.coefficients[fin]).all()
+    diffed = differences_of_order_d(y, 1)[..., 1:]
+    x0 = arima.hannan_rissanen_init(2, 2, diffed, True)
+
+    def bfgs(fn):
+        def ev_for(idx):
+            yy = diffed if idx is None else diffed.index_select(0, idx)
+            return lambda x: fn(x, yy, 2, 2, 1)
+        return optimize.minimize_bfgs(ev_for(None), x0,
+                                      evaluator_for=ev_for)
+
+    kern = bfgs(arma_ne.css_neg_ll_value_and_grad)
+    plain = bfgs(arma_ne.css_neg_ll_value_and_grad_plain)
+    rel = (kern.fun - plain.fun).abs() / plain.fun.abs()
+    assert (rel <= 1e-5).double().mean() >= 0.9
+
+
+def test_holt_winters_retry_on_cuda(cuda):
+    """``holt_winters.fit(retry=...)`` on the card: attempt 0 is the plain
+    fit bit for bit, each restart one ``hw_box_fit`` launch over the
+    gathered failing lanes."""
+    from spark_timeseries_tpu_torch.utils.resilience import RetryPolicy
+    rng = np.random.default_rng(32)
+    t = np.arange(72)
+    y = (100 + 0.5 * t + 10 * np.sin(2 * np.pi * t / 12)
+         + rng.normal(0, 2, (2048, 72))).astype(np.float32)
+    hw_sse.box_fit.launches = 0
+    st = {}
+    got = holt_winters.fit(y, 12, max_iter=20, retry=RetryPolicy(),
+                           device=cuda, stats=st)
+    assert hw_sse.box_fit.launches == st["box_fit_launches"] \
+        == 1 + len(st["restart_lanes"]) >= 2
+    plain = holt_winters.fit(y, 12, max_iter=20, device=cuda)
+    first = got.diagnostics.attempts == 1
+    assert torch.equal(got.alpha[first], plain.alpha[first])
+
+
+@pytest.mark.parametrize("family", ["ewma", "garch", "argarch", "egarch"])
+def test_new_families_stream_on_cuda(cuda, family):
+    """The volatility and smoothing families through the engine on the
+    card: each chunk bitwise the direct fit, parameters finite, objectives
+    near the CPU's float64 fit of the same rows."""
+    from spark_timeseries_tpu_torch.models import ewma, garch
+    rng = np.random.default_rng(33)
+    y = rng.standard_t(6, size=(512, 256)) * 0.5
+    if family == "ewma":
+        y = np.cumsum(y, axis=1) + 100.0
+    y = y.astype(np.float32)
+    direct = {"ewma": ewma.fit, "garch": garch.fit,
+              "argarch": garch.fit_ar_garch,
+              "egarch": garch.fit_egarch}[family]
+    res = FitEngine().stream_fit(y, family, chunk_size=256, collect=True,
+                                 device=cuda)
+    assert not res.chunk_failures
+    want = direct(torch.from_numpy(y[:256]).to(cuda), device=cuda)
+    got = res.models[0]
+    for f in want._fields:
+        if f != "diagnostics":
+            assert torch.equal(getattr(got, f), getattr(want, f).cpu())
+            assert torch.isfinite(getattr(got, f)).all()
+    ref = direct(y[:64].astype(np.float64), device="cpu")
+    both = (got.diagnostics.converged[:64] & ref.diagnostics.converged)
+    rel = ((got.diagnostics.fun[:64].double() - ref.diagnostics.fun).abs()
+           / ref.diagnostics.fun.abs())[both]
+    assert both.sum() >= 16 and (rel <= 1e-4).double().mean() >= 0.9
+
+
+def test_egarch_graph_replay_is_the_eager_pass(cuda):
+    """The CUDA-graph replay of the EGARCH derivative pass equals the
+    eager pass to float32 rounding, also on fewer lanes than it was
+    captured at, and a fit through it is reproducible bit for bit (the
+    resilient and Panel checks of ``chip_smoke.py`` rely on that)."""
+    from spark_timeseries_tpu_torch.models import garch
+    rng = np.random.default_rng(34)
+    y = torch.from_numpy((rng.standard_t(6, size=(1024, 128)) * 0.5)
+                         .astype(np.float32)).to(cuda)
+    x = torch.from_numpy(np.c_[rng.normal(-0.3, 0.1, 1024),
+                               rng.uniform(0.05, 0.3, 1024),
+                               rng.uniform(0.5, 2.0, 1024),
+                               rng.normal(0, 0.1, 1024)]
+                         .astype(np.float32)).to(cuda)
+    rep = garch._ReplayedDerivatives(2)
+    want = garch._egarch_derivatives(x, y, 2)
+    for lanes in (1024, 300):
+        for g, w in zip(rep(x[:lanes], y[:lanes]), want):
+            torch.testing.assert_close(g, w[:lanes], rtol=1e-4, atol=1e-3,
+                                       equal_nan=True)
+    a = garch.fit_egarch(y, device=cuda)
+    b = garch.fit_egarch(y, device=cuda)
+    for f in ("omega", "alpha", "beta", "gamma"):
+        assert torch.equal(getattr(a, f), getattr(b, f))

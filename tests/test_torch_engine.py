@@ -102,10 +102,74 @@ def test_stream_fit_rejects_what_the_port_lacks(monkeypatch):
         engine.FitEngine().stream_fit(y, "arima", journal="j.jsonl",
                                       device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        engine.FitEngine().stream_fit(y, "ewma", device="cpu")
+        engine.FitEngine().stream_fit(y, "arimax", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.FitEngine().stream_fit(y, "arima")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="float32"):
         engine.FitEngine().stream_fit(y, "arima", device="cuda")
+
+
+@pytest.mark.parametrize("family", ["ewma", "garch", "argarch", "egarch"])
+def test_stream_fit_is_the_direct_fit(family):
+    """The new engine families: each chunk of ``stream_fit`` is the
+    family's direct fit of those rows, bit for bit, and the engine's fit
+    the same; a NaN chunk is a data failure (no ragged path)."""
+    from spark_timeseries_tpu_torch.models import ewma, garch
+    rng = np.random.default_rng(21)
+    y = rng.standard_t(6, size=(16, 96)) * 0.5
+    if family == "ewma":
+        y = np.cumsum(y, axis=1) + 100.0
+    direct = {"ewma": ewma.fit, "garch": garch.fit,
+              "argarch": garch.fit_ar_garch,
+              "egarch": garch.fit_egarch}[family]
+    res = engine.FitEngine().stream_fit(y, family, chunk_size=8,
+                                        collect=True, device="cpu")
+    assert res.n_chunks == 2 and not res.chunk_failures
+    assert len(res.stats["solver_iterations"]) == 2
+    conv = 0
+    for (a, b), got in zip(res.stats["collected_ranges"], res.models):
+        want = direct(y[a:b], device="cpu")
+        for f in want._fields:
+            if f != "diagnostics":
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(got.diagnostics.n_iter, want.diagnostics.n_iter)
+        conv += int(want.diagnostics.converged.sum())
+    assert res.n_converged == conv
+    one = engine.FitEngine().fit(y[:8], family, device="cpu")
+    assert torch.equal(one[0], res.models[0][0])
+    bad = y.copy()
+    bad[3, :4] = np.nan
+    res = engine.FitEngine().stream_fit(bad, family, chunk_size=8,
+                                        device="cpu")
+    assert [f["kind"] for f in res.chunk_failures] == ["data"]
+
+
+@pytest.mark.parametrize("family", ["holt_winters", "ewma", "garch",
+                                    "argarch", "egarch"])
+def test_resilient_dispatch_covers_the_new_families(family):
+    """``resilient_dispatch`` reaches each family's chain, and
+    ``fit_resilient`` pads to the bucket without changing a lane."""
+    rng = np.random.default_rng(22)
+    y = rng.standard_t(6, size=(6, 48)) * 0.5
+    if family in ("ewma", "holt_winters"):
+        y = np.cumsum(y, axis=1) + 100.0
+    y[0] = np.nan
+    kw = {"period": 4} if family == "holt_winters" else {}
+    fn = engine.FitEngine.resilient_dispatch(family)
+    rp = None
+    from spark_timeseries_tpu_torch.utils.resilience import RetryPolicy
+    rp = RetryPolicy(max_restarts=0, max_iter=10)
+    m1, o1 = fn(y, retry=rp, device="cpu", **kw)
+    m2, o2 = engine.FitEngine().fit_resilient(y, family, retry=rp,
+                                              device="cpu", **kw)
+    assert o1.status[0] == o2.status[0] == 3          # skipped
+    np.testing.assert_array_equal(o1.status, o2.status)
+    np.testing.assert_array_equal(np.nan_to_num(o1.params, nan=7.0),
+                                  np.nan_to_num(o2.params, nan=7.0))
+    for waiting in ("arimax", "arx", "regression_arima"):
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            engine.FitEngine.resilient_dispatch(waiting)
+    assert engine._RESILIENT_WAITING == ("arimax", "arx",
+                                         "regression_arima")

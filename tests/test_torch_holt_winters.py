@@ -284,8 +284,6 @@ def test_naive_seasonal_model_matches_jax():
 
 def test_fit_rejects_what_the_port_lacks(monkeypatch):
     y = _panel(np.random.default_rng(7), 4, 20, 4)
-    with pytest.raises(NotImplementedError, match="retry"):
-        hw.fit(y, 4, retry=object(), device="cpu")
     with pytest.raises(ValueError, match="Invalid model type"):
         hw.fit(y, 4, "banana", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -461,3 +459,76 @@ def test_fit_on_cpu_runs_the_plain_box_fit(monkeypatch):
                                            for st in chunks]
     assert res.stats["value_and_grad_calls"] == [st["calls"]
                                                  for st in chunks]
+
+
+def _jax_draws(seed, S, k, restarts):
+    keys = jax.random.split(jax.random.PRNGKey(seed), S)
+    return np.stack([
+        np.asarray(jax.vmap(lambda kk, a=a: jax.random.normal(
+            jax.random.fold_in(kk, a), (k,), jnp.float64))(keys))
+        for a in range(1, restarts + 1)])
+
+
+def test_fit_retry_matches_jax_given_its_draws(monkeypatch):
+    """``fit(retry=...)``: attempt 0 is the plain fit bit for bit, each
+    restart one box fit over the failing lanes' gathered rows; with the
+    JAX package's draws handed in, attempts and results are the JAX
+    restart loop's."""
+    from spark_timeseries_tpu.utils import resilience as jres
+    from spark_timeseries_tpu_torch.utils import resilience as res
+    rng = np.random.default_rng(11)
+    S, n, m = 16, 40, 4
+    y = _panel(rng, S, n, m)
+    draws = _jax_draws(0, S, 3, 2)
+    want = _jax_fit(monkeypatch, y, m, "additive", max_iter=8,
+                    retry=jres.RetryPolicy())
+    stats = {}
+    got = hw.fit(y, m, "additive", max_iter=8, retry=res.RetryPolicy(),
+                 device="cpu", stats=stats, _restart_draws=draws)
+    att = got.diagnostics.attempts.numpy()
+    np.testing.assert_array_equal(att, np.asarray(want.diagnostics.attempts))
+    assert att.max() > 1                      # the restarts really ran
+    _assert_fits_agree(got, want)
+    assert "box_fit_launches" not in stats    # no card
+    assert stats["restart_lanes"][0] == int((att > 1).sum())
+    plain = hw.fit(y, m, "additive", max_iter=8, device="cpu")
+    first = att == 1
+    for name in ("alpha", "beta", "gamma"):
+        assert torch.equal(getattr(got, name)[torch.as_tensor(first)],
+                           getattr(plain, name)[torch.as_tensor(first)])
+
+
+def test_fit_resilient_matches_jax(monkeypatch):
+    rng = np.random.default_rng(12)
+    S, n, m = 12, 40, 4
+    y = _panel(rng, S, n, m)
+    y[0] = np.nan
+    y[1] = 5.0                                 # constant
+    y[2, 7] = np.inf
+    y[3, :-6] = np.nan                         # too short
+    y[4, :3] = np.nan                          # a late start
+    monkeypatch.setenv("STS_HW_FUSED", "1")
+    jm, jo = jhw.fit_resilient(jnp.asarray(y), m, max_iter=20)
+    stats = {}
+    tm, to = engine.FitEngine.resilient_dispatch("holt_winters")(
+        y, m, max_iter=20, device="cpu", stats=stats)
+    np.testing.assert_array_equal(to.status, np.asarray(jo.status))
+    np.testing.assert_array_equal(to.health, np.asarray(jo.health))
+    np.testing.assert_array_equal(to.fallback_used,
+                                  np.asarray(jo.fallback_used))
+    usable = np.isin(to.status, (0, 1, 2))
+    assert usable.sum() >= 8
+    # restarted lanes start from other draws than the JAX package's
+    same = usable & (to.attempts == 1)
+    np.testing.assert_allclose(to.params[same], np.asarray(jo.params)[same],
+                               atol=1e-8)
+    assert set(stats["box_fit_launches_by_stage"]) <= {"box", "box_midstart"}
+    # through the engine's bucketing and the stream: the same lanes
+    pm, po = engine.FitEngine().fit_resilient(y, "holt_winters", m,
+                                              max_iter=20, device="cpu")
+    np.testing.assert_array_equal(po.status, to.status)
+    res = engine.FitEngine().stream_fit(y, "holt_winters", period=m,
+                                        max_iter=20, resilient=True,
+                                        chunk_size=S, device="cpu")
+    assert res.stats["box_fit_launches"] == [0]
+    assert sum(res.stats["resilient_statuses"].values()) == S

@@ -320,7 +320,7 @@ def test_stream_fit_resilient_equals_the_direct_chain_per_chunk():
     assert res.n_converged == ok
     assert sum(res.stats["resilient_attempts"].values()) == 20
     with pytest.raises(NotImplementedError, match="item 3"):
-        engine.FitEngine().stream_fit(y, "holt_winters", resilient=True,
+        engine.FitEngine().stream_fit(y, "arimax", resilient=True,
                                       device="cpu")
 
 
