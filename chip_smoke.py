@@ -169,6 +169,37 @@ Phases, one JSON line each:
    where css-cgd ends worse or better; on 256 lanes the BFGS over
    ``arma_ne`` against the BFGS over the plain pass, both on the card
    (fun within 1e-5, floor 0.90).
+21. ``regarima_path``: BASELINE config #5 (``bench_suite.py:365-375``'s
+   generator at 131,072 x 256: three shared random-walk regressors, AR(1)
+   errors at 0.6): ``regression_arima.fit_cochrane_orcutt(y, X, 10)``,
+   ``stats.adftest(y, 4)`` and ``stats.kpsstest(y, "c")``: series/s,
+   Cochrane-Orcutt rounds; against the port's float64 CPU run of the
+   first 256 lanes (the same stopping decision, floor 0.95; β and ρ
+   within 1e-3 of the lane's largest entry, floor 0.90; ADF and KPSS
+   within 1e-3, floor 0.99); the first 16384 rows with 0.2 % each
+   all-NaN, constant, inf and too-short rows through
+   ``FitEngine().fit_resilient`` (skipped = the unfittable rows, health
+   = the CPU's, OK lanes = the plain fit, Panel = the engine, bitwise).
+22. ``arimax_path``: ``arimax.fit(2, 1, 2, chunk, X, 1)`` (css-lm) of
+   each 131072-series chunk of the north-star panel plus ``X @ β`` (two
+   shared random walks from ``--seed``): one ``arma_lm_fit`` launch a
+   chunk and no ``arma_ne``; the first chunk's refine against
+   ``fit_css_lm_route`` on the same adjusted series and starts (floors
+   0.95); the model's CSS likelihood and gradient (one ``arma_css``
+   and one ``arma_ne`` launch); the first 256 lanes against a float64
+   CPU fit by objective (floor 0.90 within 1e-5); the first chunk with
+   pathological rows through ``fit_resilient(..., retry=RetryPolicy())``
+   (launches = the stages' count, OK lanes = the plain fit, bitwise).
+23. ``exact_path``: ``arima.fit(2, 1, 2, chunk, objective="exact")`` on
+   the first 131072 series (one ``arma_lm_fit`` launch, then BFGS on the
+   Kalman likelihood): seconds, iterations, calls, kernels a
+   value-and-gradient evaluation (``torch.profiler``), peak memory;
+   every finite lane's exact log likelihood at least its CSS start's;
+   256 lanes against the float64 CPU exact fit (floor 0.90 within
+   1e-5); ``log_likelihood_exact`` against float64 on 4096 lanes (floor
+   0.99 within 1e-4 on the stationary, invertible ones).  The float64
+   CPU fits of 22 and 23 run in two spawned processes started before
+   ``ewma_path``.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
@@ -3284,6 +3315,597 @@ def phase_css_cgd_path(panel, dev, chunk=CHUNK):
     return row
 
 
+# -- slice 10: the exogenous-regressor families and the exact likelihood ---
+
+REG_N_SERIES = 131072     # BASELINE config #5's 8192 series x 16
+REG_N_OBS = 256
+REG_K = 3
+REG_MAX_ITER = 10
+REG_REF_LANES = 256
+REG_RES_ROWS = 16384      # the resilient check's rows
+REG_BAD_SHARE = 0.002
+REG_SHORT_WINDOW = 4      # under the chain's min_len k + 3 = 6
+REG_DECISION_FLOOR = 0.95
+REG_COEF_RTOL = 1e-3
+REG_COEF_FLOOR = 0.90
+REG_TEST_RTOL = 1e-3
+REG_TEST_FLOOR = 0.99
+ARX_K = 2                 # shared random-walk regressors of the ARIMAX panel
+ARX_LAG = 1
+ARX_REF_LANES = 256
+ARX_LL_RTOL = 1e-5
+ARX_LL_FLOOR = 0.90
+ARX_ROUTE_SHARE = (0.95, 0.95)
+ARX_SHORT_WINDOW = 10     # under the chain's min_len d + 2·2 + 3 + 4 = 12
+EXACT_LANES = CHUNK       # the first chunk of the north-star panel
+EXACT_REF_LANES = 256
+EXACT_LL_RTOL = 1e-5
+EXACT_LL_FLOOR = 0.90
+EXACT_CARD_RTOL = 1e-4
+EXACT_CARD_LANES = 4096
+EXACT_CARD_FLOOR = 0.99
+
+
+def synthetic_regarima_panel(n_series: int, n_obs: int, seed: int = 0,
+                             k: int = REG_K):
+    """BASELINE config #5's generator (``benchmarks/bench_suite.py:
+    365-375``): ``k`` shared random-walk regressors ``X (n_obs, k)``, one
+    shared ``β ~ N(0, 1)``, AR(1) errors at φ = 0.6; float32 ``(y, X)``."""
+    rng = np.random.default_rng([seed, 13])
+    X = rng.normal(size=(n_obs, k)).cumsum(axis=0)
+    beta = rng.normal(size=k)
+    e = np.zeros((n_series, n_obs), np.float32)
+    w = rng.standard_normal((n_series, n_obs), dtype=np.float32)
+    for t in range(1, n_obs):
+        e[:, t] = 0.6 * e[:, t - 1] + w[:, t]
+    return (e + (X @ beta).astype(np.float32)[None]), X.astype(np.float32)
+
+
+def arimax_regressors(n_obs: int, seed: int, k: int = ARX_K):
+    """``X (n_obs, k)`` shared random walks and ``β (k,)`` from ``seed``,
+    float32: the ARIMAX panel is the north-star panel plus ``X @ β``."""
+    rng = np.random.default_rng([seed, 14])
+    X = rng.normal(size=(n_obs, k)).cumsum(axis=0).astype(np.float32)
+    return X, rng.normal(size=k).astype(np.float32)
+
+
+def _slice10_ref_part(what: str, values: np.ndarray, X):
+    """The float64 CPU fits of slice 10's reference lanes (in a spawned
+    process): ``"arimax"`` the ARIMAX(2,1,2) fit, ``"exact"`` the exact
+    ARIMA(2,1,2) fit."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima, arimax
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    v = values.astype(np.float64)
+    if what == "arimax":
+        m = arimax.fit(2, 1, 2, v, X.astype(np.float64), ARX_LAG,
+                       device="cpu")
+    else:
+        m = arima.fit(2, 1, 2, v, objective="exact", warn=False,
+                      device="cpu")
+    return {"coefficients": m.coefficients.numpy(),
+            "fun": m.diagnostics.fun.numpy(),
+            "converged": m.diagnostics.converged.numpy(),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_slice10_ref(panel: np.ndarray, seed: int):
+    """Start the float64 CPU ARIMAX and exact fits of the first lanes of
+    the north-star panel (plus ``X @ β`` for ARIMAX) in two spawned
+    processes; returns ``(pool, {what: pending})``."""
+    import multiprocessing
+
+    X, beta = arimax_regressors(panel.shape[1], seed)
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    pending = {
+        "arimax": pool.apply_async(_slice10_ref_part, (
+            "arimax", panel[:ARX_REF_LANES] + X @ beta, X)),
+        "exact": pool.apply_async(_slice10_ref_part, (
+            "exact", panel[:EXACT_REF_LANES], None))}
+    return pool, pending
+
+
+def phase_regarima_path(seed, dev, n_series=REG_N_SERIES):
+    """BASELINE config #5 on the card: ``regression_arima.
+    fit_cochrane_orcutt(y, X, 10)``, ``stats.adftest(y, 4)`` and
+    ``stats.kpsstest(y, "c")`` over the 131,072 x 256 panel; against the
+    port's float64 CPU run of the first 256 lanes; the first 16384 rows
+    with pathological rows through ``FitEngine().fit_resilient(...,
+    "regression_arima", X)`` and ``Panel.fit_resilient``."""
+    import torch
+
+    from spark_timeseries_tpu_torch import Panel, stats
+    from spark_timeseries_tpu_torch import time as ttime
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import regression_arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    y, X = synthetic_regarima_panel(n_series, REG_N_OBS, seed)
+    S, n = y.shape
+    Xd = torch.from_numpy(X).to(dev)
+    part = torch.from_numpy(y[:4096]).to(dev)           # warm-up
+    regression_arima.fit_cochrane_orcutt(part, Xd, REG_MAX_ITER, device=dev)
+    stats.adftest(part, 4)
+    stats.kpsstest(part, "c")
+    counts0 = (arma_ne.fit_css_lm.launches,
+               arma_ne.normal_equations.launches, arma_ne.css_cost.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yd = torch.from_numpy(y).to(dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    st = {}
+    t1 = time.perf_counter()
+    m = regression_arima.fit_cochrane_orcutt(yd, Xd, REG_MAX_ITER,
+                                             device=dev, stats=st)
+    torch.cuda.synchronize()
+    co_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    adf, adf_p = stats.adftest(yd, 4)
+    kpss, _ = stats.kpsstest(yd, "c")
+    torch.cuda.synchronize()
+    tests_s = time.perf_counter() - t2
+    launches = tuple(b - a for a, b in zip(counts0, (
+        arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches,
+        arma_ne.css_cost.launches)))
+    n_iter = m.diagnostics.n_iter.cpu().numpy()
+    # the port's float64 CPU run of the first lanes
+    k = REG_REF_LANES
+    y64 = torch.from_numpy(y[:k].astype(np.float64))
+    X64 = torch.from_numpy(X.astype(np.float64))
+    t3 = time.perf_counter()
+    ref = regression_arima.fit_cochrane_orcutt(y64, X64, REG_MAX_ITER,
+                                               device="cpu")
+    ref_adf, _ = stats.adftest(y64, 4)
+    ref_kpss, _ = stats.kpsstest(y64, "c")
+    ref_s = time.perf_counter() - t3
+    same = (m.diagnostics.n_iter[:k].cpu().numpy()
+            == ref.diagnostics.n_iter.numpy()) \
+        & (m.diagnostics.converged[:k].cpu().numpy()
+           == ref.diagnostics.converged.numpy())
+    card = torch.cat([m.regression_coeff[:k],
+                      m.arima_coeff[:k, None]], dim=1).double().cpu()
+    want = torch.cat([ref.regression_coeff, ref.arima_coeff[:, None]], dim=1)
+    scale = want.abs().amax(dim=1)
+    coef_ok = ((card - want).abs().amax(dim=1)
+               <= REG_COEF_RTOL * scale).numpy()
+    coef_share = float(coef_ok[same].mean()) if same.any() else 0.0
+
+    def test_share(got, ref_stat):
+        got = got[:k].double().cpu()
+        return float(torch.isclose(got, ref_stat, rtol=REG_TEST_RTOL,
+                                   atol=0.0).double().mean())
+
+    adf_share = test_share(adf, ref_adf)
+    kpss_share = test_share(kpss, ref_kpss)
+    row = {"phase": "regarima_path", "n_series": S, "n_obs": n, "k": REG_K,
+           "max_iter": REG_MAX_ITER, "h2d_s": h2d_s,
+           "cochrane_orcutt_s": co_s, "adf_kpss_s": tests_s,
+           "series_per_s": S / (co_s + tests_s),
+           "series_per_s_with_h2d": S / (h2d_s + co_s + tests_s),
+           "co_rounds": st["co_rounds"],
+           "co_iterations_max": int(n_iter.max()),
+           "co_iterations_median": float(np.median(n_iter)),
+           "converged_pct": float(100.0 * m.diagnostics.converged.double()
+                                  .mean()),
+           "rho_median": float(m.arima_coeff.double().median()),
+           "adf_reject_5pct_share": float((adf_p < 0.05).double().mean()),
+           "arma_lm_fit_launches": launches[0],
+           "arma_ne_launches": launches[1],
+           "arma_css_launches": launches[2],
+           "ref_lanes": k, "ref_cpu_f64_s": ref_s,
+           "same_decision_share": float(same.mean()),
+           "coef_within_share": coef_share,
+           "adf_within_share": adf_share, "kpss_within_share": kpss_share}
+    # the resilient first rows
+    r = REG_RES_ROWS
+    rows, inf_cols = bad_rows(r, n, REG_BAD_SHARE, REG_SHORT_WINDOW, seed,
+                              15)
+    bad = with_bad_rows(y[:r], rows, inf_cols, REG_SHORT_WINDOW)
+    skipped_rows = np.sort(np.concatenate(
+        [rows[kk] for kk in ("all_nan", "has_inf", "too_short")]))
+    engine = FitEngine()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    rmodel, rout = engine.fit_resilient(bad, "regression_arima", X,
+                                        device=dev)
+    torch.cuda.synchronize()
+    res_s = time.perf_counter() - t4
+    skipped = rout.status == res_mod.STATUS_SKIPPED
+    cpu_health = res_mod.classify_series(torch.from_numpy(bad),
+                                         min_len=REG_K + 3).numpy()
+    safe = bad.copy()
+    safe[skipped] = res_mod._placeholder_rows(n, bad.dtype)
+    plain = regression_arima.fit_cochrane_orcutt(
+        torch.from_numpy(safe).to(dev), Xd, REG_MAX_ITER, device=dev)
+    ok = rout.status == res_mod.STATUS_OK
+    index = ttime.uniform("2020-01-06T00:00Z", n,
+                          ttime.BusinessDayFrequency(1))
+    tp = Panel(index, torch.from_numpy(bad).to(dev),
+               [f"s{i}" for i in range(r)], device=dev)
+    pmodel, pout = tp.fit_resilient("regression_arima", X)
+    row.update({
+        "resilient_rows": r, "resilient_s": res_s,
+        "resilient_statuses": rout.counts(),
+        "skipped_is_unfittable": bool(np.array_equal(
+            np.flatnonzero(skipped), skipped_rows)),
+        "health_bitwise_cpu": _bitwise_equal(rout.health, cpu_health),
+        "ok_lanes": int(ok.sum()),
+        "ok_bitwise_plain": all(_bitwise_equal(
+            getattr(rmodel, f).cpu().numpy()[ok],
+            getattr(plain, f).cpu().numpy()[ok])
+            for f in ("regression_coeff", "arima_coeff")),
+        "panel_bitwise_engine": _model_bitwise(pmodel, rmodel)
+        and _bitwise_equal(pout.status, rout.status)})
+    emit(row)
+    check(launches == (0, 0, 0),
+          f"regarima_path launched ARMA kernels {launches}")
+    check(bool(np.isfinite(m.regression_coeff.cpu().numpy()).all()
+               and np.isfinite(adf.cpu().numpy()).all()
+               and np.isfinite(kpss.cpu().numpy()).all()),
+          "regarima_path: non-finite coefficients or test statistics")
+    check(row["same_decision_share"] >= REG_DECISION_FLOOR,
+          f"regarima_path: the same Cochrane-Orcutt stopping decision as "
+          f"the float64 CPU run on {row['same_decision_share']:.3f} of "
+          f"{k} lanes (floor {REG_DECISION_FLOOR})")
+    check(coef_share >= REG_COEF_FLOOR,
+          f"regarima_path: β and ρ within {REG_COEF_RTOL:g} of the lane's "
+          f"largest entry on {coef_share:.3f} of the lanes with the same "
+          f"decision (floor {REG_COEF_FLOOR})")
+    check(min(adf_share, kpss_share) >= REG_TEST_FLOOR,
+          f"regarima_path: ADF / KPSS within {REG_TEST_RTOL:g} of float64 on "
+          f"{adf_share:.3f} / {kpss_share:.3f} of lanes (floor "
+          f"{REG_TEST_FLOOR})")
+    check(row["skipped_is_unfittable"] and row["health_bitwise_cpu"],
+          "regarima_path: skipped lanes are not the unfittable rows, or "
+          "health codes differ from the CPU's")
+    check(row["ok_lanes"] > 0 and row["ok_bitwise_plain"],
+          "regarima_path: OK lanes differ from the plain fit")
+    check(row["panel_bitwise_engine"],
+          "regarima_path: Panel.fit_resilient differs from the engine's")
+    return row
+
+
+def _css_neg_ll64(models, values: np.ndarray, X: np.ndarray) -> np.ndarray:
+    """Float64 ARIMAX CSS neg-LL of ``values`` at each model's
+    coefficients: the ARMA slice's CSS likelihood on the series adjusted
+    by the model's own exogenous part."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arimax
+
+    coefs = torch.as_tensor(models, dtype=torch.float64)
+    m = arimax.ARIMAXModel(2, 1, 2, ARX_LAG, coefs)
+    v = torch.from_numpy(values.astype(np.float64))
+    diffed = v[:, 1:] - v[:, :-1]
+    adjusted = diffed - m.xreg_contribution(X.astype(np.float64))
+    return (-m.log_likelihood_css_arma(adjusted)).numpy()
+
+
+def phase_arimax_path(panel, seed, dev, ref, chunk=CHUNK):
+    """ARIMAX(2,1,2) with two shared random-walk regressors (lag 1 and
+    the current values) on the card: ``arimax.fit`` (css-lm) of each
+    131072-series chunk of the north-star panel plus ``X @ β``, the
+    LM-fit kernel once a chunk; the first chunk's refine against
+    ``fit_css_lm_route`` on the same adjusted series and starts; the
+    first 256 lanes against the float64 CPU fit by objective; the first
+    chunk with pathological rows through ``FitEngine().fit_resilient(...,
+    "arimax", X, 2, 1, 2, 1, retry=RetryPolicy())``."""
+    import torch
+
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import arima, arimax
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    from spark_timeseries_tpu_torch.utils import resilience as res_mod
+
+    X, beta = arimax_regressors(panel.shape[1], seed)
+    Xd = torch.from_numpy(X).to(dev)
+    shift = X @ beta
+    S, n = panel.shape
+    arimax.fit(2, 1, 2, torch.from_numpy(panel[:1024] + shift).to(dev), Xd,
+               ARX_LAG, device=dev)                  # warm-up, not counted
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    arma_ne.css_cost.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = 0
+    first = None
+    for s in range(0, S, chunk):
+        part = torch.from_numpy(panel[s:s + chunk] + shift).to(dev)
+        m = arimax.fit(2, 1, 2, part, Xd, ARX_LAG, device=dev)
+        conv += int(m.diagnostics.converged.sum())
+        if first is None:
+            first = (part, m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (arma_ne.fit_css_lm.launches,
+                arma_ne.normal_equations.launches,
+                arma_ne.css_cost.launches)
+    part, m = first
+    # the first chunk's refine against the route on the same inputs
+    init, _, adjusted = arimax._refine_inputs(2, 1, 2, part, Xd, ARX_LAG,
+                                              True, True)
+    kern = arma_ne.fit_css_lm(init, adjusted, 2, 2, 1)
+    r0 = arma_ne.normal_equations.launches
+    route = arma_ne.fit_css_lm_route(init, adjusted, 2, 2, 1)
+    route_launches = arma_ne.normal_equations.launches - r0
+    agree = _lm_agreement(kern, route)
+    fin = torch.isfinite(kern[0]).all(dim=1, keepdim=True)
+    kept = torch.where(fin, kern[0], init)
+    refine_is_fit = _bitwise_equal(kept.cpu().numpy(),
+                                   m.coefficients[:, :5].cpu().numpy())
+    # the model's CSS likelihood and its gradient on the first chunk's
+    # adjusted series: one arma_css and one arma_ne launch, counted apart
+    c0 = (arma_ne.css_cost.launches, arma_ne.normal_equations.launches)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ll = m.log_likelihood_css_arma(adjusted)
+    grad = m.gradient_log_likelihood_css_arma(adjusted)
+    torch.cuda.synchronize()
+    methods_ms = (time.perf_counter() - t1) * 1e3
+    methods_launches = (arma_ne.css_cost.launches - c0[0],
+                        arma_ne.normal_equations.launches - c0[1])
+    sub = arimax.ARIMAXModel(2, 1, 2, ARX_LAG,
+                             m.coefficients[:ARX_REF_LANES].double().cpu())
+    ll64 = sub.log_likelihood_css_arma(adjusted[:ARX_REF_LANES].double()
+                                       .cpu())
+    # an explosive or non-invertible lane's residuals grow until float32
+    # rounding sets their leading digits: stationary, invertible lanes
+    arma = arima.ARIMAModel(2, 1, 2, sub.arma_coefficients)
+    sane = torch.from_numpy(arma.is_stationary() & arma.is_invertible())
+    ll_close = float(torch.isclose(ll[:ARX_REF_LANES].double().cpu(), ll64,
+                                   rtol=1e-4, atol=0.0)[sane].double().mean())
+    # the float64 CPU fit of the first lanes, by objective
+    pool, pending = ref
+    t1 = time.perf_counter()
+    r = pending["arimax"].get(timeout=900)
+    waited = time.perf_counter() - t1
+    k = ARX_REF_LANES
+    vals = panel[:k] + shift
+    card = _css_neg_ll64(m.coefficients[:k].cpu().numpy(), vals, X)
+    f64 = _css_neg_ll64(r["coefficients"], vals, X)
+    both = m.diagnostics.converged[:k].cpu().numpy() & r["converged"]
+    rel = np.abs(card - f64) / np.abs(f64)
+    ll_share = float(np.mean(rel[both] <= ARX_LL_RTOL)) if both.any() \
+        else 0.0
+    # the resilient first chunk
+    rows, inf_cols = bad_rows(chunk, n, REG_BAD_SHARE, ARX_SHORT_WINDOW,
+                              seed, 16)
+    bad = with_bad_rows(panel[:chunk] + shift, rows, inf_cols,
+                        ARX_SHORT_WINDOW)
+    skipped_rows = np.sort(np.concatenate(
+        [rows[kk] for kk in ("all_nan", "has_inf", "too_short")]))
+    c0 = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    st = {}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rmodel, rout = FitEngine().fit_resilient(
+        bad, "arimax", X, 2, 1, 2, ARX_LAG, retry=res_mod.RetryPolicy(),
+        device=dev, stats=st)
+    torch.cuda.synchronize()
+    res_s = time.perf_counter() - t2
+    res_launches = (arma_ne.fit_css_lm.launches - c0[0],
+                    arma_ne.normal_equations.launches - c0[1])
+    skipped = rout.status == res_mod.STATUS_SKIPPED
+    min_len = 1 + max(2 * 2 + 3 + 4, ARX_LAG + 2, 3)
+    cpu_health = res_mod.classify_series(torch.from_numpy(bad),
+                                         min_len=min_len).numpy()
+    safe = bad.copy()
+    safe[skipped] = res_mod._placeholder_rows(n, bad.dtype)
+    plain = arimax.fit(2, 1, 2, torch.from_numpy(safe).to(dev), Xd, ARX_LAG,
+                       device=dev)
+    ok = rout.status == res_mod.STATUS_OK
+    row = {"phase": "arimax_path", "n_series": S, "n_obs": n,
+           "chunk_size": chunk, "n_chunks": -(-S // chunk), "wall_s": wall,
+           "series_per_s": S / wall, "converged_pct": 100.0 * conv / S,
+           "arma_lm_fit_launches": launches[0],
+           "arma_ne_launches": launches[1],
+           "arma_css_launches": launches[2],
+           "vs_route": agree, "route_arma_ne_launches": route_launches,
+           "refine_bitwise_fit": refine_is_fit,
+           "methods_ms": methods_ms,
+           "methods_arma_css_launches": methods_launches[0],
+           "methods_arma_ne_launches": methods_launches[1],
+           "methods_ll_vs_f64_within_1e-4": ll_close,
+           "methods_sane_lanes": int(sane.sum()),
+           "methods_grad_xreg_zero": bool((grad[:, 5:] == 0).all()),
+           "ref_lanes": k, "ref_cpu_f64_s": r["seconds"],
+           "ref_waited_s": waited, "ref_both_converged": int(both.sum()),
+           "ref_neg_ll_agree_share": ll_share,
+           "ref_median_rel_neg_ll": float(np.median(rel[both]))
+           if both.any() else None,
+           "resilient_s": res_s, "resilient_statuses": rout.counts(),
+           "resilient_attempts": {int(a): int(c) for a, c in zip(
+               *np.unique(rout.attempts, return_counts=True))},
+           "resilient_arma_lm_fit_launches": res_launches[0],
+           "resilient_arma_ne_launches": res_launches[1],
+           "resilient_stats_launches": {
+               "lm_fit": st["lm_fit_launches"],
+               "lm_fit_by_stage": st["lm_fit_launches_by_stage"],
+               "ne": st["ne_launches"],
+               "ne_by_stage": st["ne_launches_by_stage"]},
+           "skipped_is_unfittable": bool(np.array_equal(
+               np.flatnonzero(skipped), skipped_rows)),
+           "health_bitwise_cpu": _bitwise_equal(rout.health, cpu_health),
+           "ok_lanes": int(ok.sum()),
+           "ok_bitwise_plain": _bitwise_equal(
+               rmodel.coefficients.cpu().numpy()[ok],
+               plain.coefficients.cpu().numpy()[ok])}
+    emit(row)
+    check(launches[0] == row["n_chunks"] and launches[1] == 0,
+          f"arimax_path launched arma_lm_fit {launches[0]} times (one per "
+          f"chunk: {row['n_chunks']}) and arma_ne {launches[1]} (0)")
+    check(refine_is_fit,
+          "arimax_path: the first chunk's refine is not the LM-fit launch "
+          "on the adjusted series")
+    check(methods_launches == (1, 1) and row["methods_grad_xreg_zero"]
+          and ll_close >= 0.99,
+          f"arimax_path methods: launches (arma_css, arma_ne) "
+          f"{methods_launches}, expected (1, 1); CSS log likelihood within "
+          f"1e-4 of float64 on {ll_close:.3f} of {int(sane.sum())} "
+          f"stationary, invertible lanes (floor 0.99)")
+    check(agree["n_iter_equal"] >= ARX_ROUTE_SHARE[0]
+          and agree["fun_within_1e-5"] >= ARX_ROUTE_SHARE[1],
+          f"arimax_path: the LM-fit kernel vs the route: {agree} (floors "
+          f"{ARX_ROUTE_SHARE})")
+    check(ll_share >= ARX_LL_FLOOR,
+          f"arimax_path: only {ll_share:.3f} of {int(both.sum())} lanes "
+          f"converged in both have a float64 CSS neg-LL at the card's "
+          f"parameters within {ARX_LL_RTOL:g} of the float64 fit's (floor "
+          f"{ARX_LL_FLOOR})")
+    check(res_launches == (st["lm_fit_launches"], st["ne_launches"]),
+          f"arimax_path resilient: launches {res_launches}, the stages "
+          f"counted {(st['lm_fit_launches'], st['ne_launches'])}")
+    check(row["skipped_is_unfittable"] and row["health_bitwise_cpu"],
+          "arimax_path resilient: skipped lanes are not the unfittable "
+          "rows, or health codes differ from the CPU's")
+    check(row["ok_lanes"] > 0 and row["ok_bitwise_plain"],
+          "arimax_path resilient: OK lanes differ from the plain fit")
+    return row
+
+
+def _exact_launches_per_eval(part, dev):
+    """Kernels one value-and-gradient evaluation of the exact objective
+    launches at ``part``'s lane count (``torch.profiler``'s CUDA events),
+    and the host-side operator count; None where the profiler shows no
+    device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops.optimize import value_and_grad_of
+    from spark_timeseries_tpu_torch.statespace.convert import \
+        arma_concentrated_neg_ll
+
+    diffed = part[:, 1:] - part[:, :-1]
+    x = arima.fit(2, 1, 2, part, warn=False, device=dev).coefficients
+    vag, _ = value_and_grad_of(
+        lambda xx, yy: arma_concentrated_neg_ll(xx, yy, 2, 2, 1), diffed)
+    vag(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vag(x)
+        torch.cuda.synchronize()
+    evs = prof.events()
+    dev_type = torch.autograd.DeviceType.CUDA
+    kernels = sum(1 for e in evs if e.device_type == dev_type)
+    ops = sum(1 for e in evs if e.device_type != dev_type
+              and e.name.startswith("aten::"))
+    return (kernels or None), ops
+
+
+def phase_exact_path(panel, dev, ref, lanes=EXACT_LANES):
+    """``arima.fit(2, 1, 2, chunk, objective="exact")`` on the north-star
+    panel's first chunk: the CSS fit (one LM-fit launch), then the BFGS
+    refine on the Kalman likelihood; seconds, iterations, calls, kernels
+    a value-and-gradient evaluation, peak memory; every finite lane's
+    exact log likelihood at least its CSS start's; 256 lanes against the
+    float64 CPU exact fit; ``log_likelihood_exact`` against float64."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    part = torch.from_numpy(panel[:lanes]).to(dev)
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    st = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    exact = arima.fit(2, 1, 2, part, objective="exact", warn=False,
+                      device=dev, stats=st)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = (arma_ne.fit_css_lm.launches,
+                arma_ne.normal_equations.launches)
+    css = arima.fit(2, 1, 2, part, warn=False, device=dev)
+    ll_css = css.log_likelihood_exact(part)
+    ll_ex = -exact.diagnostics.fun
+    fin = torch.isfinite(ll_ex) & torch.isfinite(ll_css)
+    monotone = float((ll_ex[fin] >= ll_css[fin]).double().mean())
+    n_iter = exact.diagnostics.n_iter.cpu().numpy()
+    # the float64 CPU exact fit of the first lanes, by objective
+    pool, pending = ref
+    t1 = time.perf_counter()
+    r = pending["exact"].get(timeout=900)
+    waited = time.perf_counter() - t1
+    k = EXACT_REF_LANES
+    v64 = torch.from_numpy(panel[:k].astype(np.float64))
+    card64 = -arima.ARIMAModel(
+        2, 1, 2, exact.coefficients[:k].double().cpu()
+    ).log_likelihood_exact(v64).numpy()
+    both = np.isfinite(card64) & np.isfinite(r["fun"])
+    rel = np.abs(card64 - r["fun"]) / np.abs(r["fun"])
+    ref_share = float(np.mean(rel[both] <= EXACT_LL_RTOL)) if both.any() \
+        else 0.0
+    # log_likelihood_exact on the card against float64 at its parameters
+    kc = EXACT_CARD_LANES
+    sub = arima.ARIMAModel(2, 1, 2, exact.coefficients[:kc])
+    t2 = time.perf_counter()
+    ll_card = sub.log_likelihood_exact(part[:kc])
+    torch.cuda.synchronize()
+    ll_ms = (time.perf_counter() - t2) * 1e3
+    sub64 = arima.ARIMAModel(2, 1, 2, sub.coefficients.double().cpu())
+    ll64 = sub64.log_likelihood_exact(
+        torch.from_numpy(panel[:kc].astype(np.float64)))
+    sane = torch.from_numpy(sub64.is_stationary() & sub64.is_invertible())
+    close = torch.isclose(ll_card.double().cpu(), ll64, rtol=EXACT_CARD_RTOL,
+                          atol=0.0)
+    card_share = float(close[sane].double().mean()) if sane.any() else 0.0
+    kernels, ops = _exact_launches_per_eval(part, dev)
+    row = {"phase": "exact_path", "lanes": lanes, "n_obs": panel.shape[1],
+           "seconds": seconds, "series_per_s": lanes / seconds,
+           "bfgs_iterations_max": int(n_iter.max()),
+           "bfgs_iterations_median": float(np.median(n_iter)),
+           "exact_calls": st["exact_calls"],
+           "bfgs_reported_apart_lanes": st["exact_reported_apart"],
+           "kernels_per_evaluation": kernels,
+           "host_ops_per_evaluation": ops,
+           "peak_gib": peak / 2**30,
+           "allocated_before_gib": before / 2**30,
+           "arma_lm_fit_launches": launches[0],
+           "arma_ne_launches": launches[1],
+           "converged_pct": float(100.0 * exact.diagnostics.converged
+                                  .double().mean()),
+           "finite_lanes": int(fin.sum()), "monotone_share": monotone,
+           "median_ll_gain": float((ll_ex - ll_css)[fin].double().median()),
+           "ref_lanes": k, "ref_cpu_f64_s": r["seconds"],
+           "ref_waited_s": waited, "ref_both_finite": int(both.sum()),
+           "ref_neg_ll_agree_share": ref_share,
+           "ref_median_rel_neg_ll": float(np.median(rel[both]))
+           if both.any() else None,
+           "ll_exact_lanes": kc, "ll_exact_ms": ll_ms,
+           "ll_exact_sane_lanes": int(sane.sum()),
+           "ll_exact_within_share": card_share}
+    emit(row)
+    check(launches[0] == 1,
+          f"exact_path launched arma_lm_fit {launches[0]} times (1: the "
+          f"CSS stage)")
+    check(monotone == 1.0,
+          f"exact_path: the exact log likelihood is below the CSS fit's on "
+          f"{1.0 - monotone:.4f} of {int(fin.sum())} finite lanes")
+    check(ref_share >= EXACT_LL_FLOOR,
+          f"exact_path: only {ref_share:.3f} of {int(both.sum())} lanes "
+          f"have a float64 exact neg-LL at the card's parameters within "
+          f"{EXACT_LL_RTOL:g} of the float64 CPU exact fit's (floor "
+          f"{EXACT_LL_FLOOR})")
+    check(card_share >= EXACT_CARD_FLOOR,
+          f"exact_path: log_likelihood_exact on the card within "
+          f"{EXACT_CARD_RTOL:g} of float64 on {card_share:.4f} of "
+          f"{int(sane.sum())} stationary, invertible lanes (floor "
+          f"{EXACT_CARD_FLOOR})")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3401,10 +4023,22 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     finally:
         vol_ref[0].terminate()
         vol_ref[0].join()
-    phase_ewma_path(args.seed, dev)
-    hwr_row = phase_hw_resilient_path(hw_panel, hw_row["converged_pct"],
-                                      args.seed, dev)
-    cgd_row = phase_css_cgd_path(panel, dev)
+    # the slice-10 float64 CPU references run while the card works on
+    # the next phases
+    s10_ref = start_slice10_ref(panel, args.seed)
+    try:
+        phase_ewma_path(args.seed, dev)
+        hwr_row = phase_hw_resilient_path(hw_panel, hw_row["converged_pct"],
+                                          args.seed, dev)
+        cgd_row = phase_css_cgd_path(panel, dev)
+        # the slice-10 paths, each driven with the counts set to 0 just
+        # before it and read just after
+        phase_regarima_path(args.seed, dev)
+        arx_row = phase_arimax_path(panel, args.seed, dev, s10_ref)
+        exact_row = phase_exact_path(panel, dev, s10_ref)
+    finally:
+        s10_ref[0].terminate()
+        s10_ref[0].join()
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -3420,12 +4054,18 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces_solver": "spark_timeseries_tpu/ops/pallas_arma.py:463 "
                            "(fit_css_lm)",
         "launches": lm_launches + panel_row["arma_lm_fit_launches"]
-        + res_lm + surf["arma_lm_fit"],
+        + res_lm + surf["arma_lm_fit"] + arx_row["arma_lm_fit_launches"]
+        + arx_row["resilient_arma_lm_fit_launches"]
+        + exact_row["arma_lm_fit_launches"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
             "resilient_path": res_lm,
-            "arima_surface": surf["arma_lm_fit"]},
+            "arima_surface": surf["arma_lm_fit"],
+            "arimax_path": arx_row["arma_lm_fit_launches"],
+            "arimax_path_resilient":
+                arx_row["resilient_arma_lm_fit_launches"],
+            "exact_path": exact_row["arma_lm_fit_launches"]},
         # lanes stopped by the iteration cap end anywhere along a ridge
         "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
@@ -3438,15 +4078,23 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "launches": main_row["normal_equations_launches"]
         + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"]
         + res_row["arma_ne_launches"] + surf["arma_ne"]
-        + cgd_row["arma_ne_launches"],
+        + cgd_row["arma_ne_launches"] + arx_row["arma_ne_launches"]
+        + arx_row["resilient_arma_ne_launches"]
+        + arx_row["methods_arma_ne_launches"]
+        + exact_row["arma_ne_launches"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
             "panel_path": panel_row["arma_ne_launches"],
             "resilient_path": res_row["arma_ne_launches"],
             "arima_surface": surf["arma_ne"],
-            "css_cgd_path": cgd_row["arma_ne_launches"]},
-        "route_launches": lm_row["route_arma_ne_launches"],
+            "css_cgd_path": cgd_row["arma_ne_launches"],
+            "arimax_path": arx_row["arma_ne_launches"],
+            "arimax_path_resilient": arx_row["resilient_arma_ne_launches"],
+            "arimax_methods": arx_row["methods_arma_ne_launches"],
+            "exact_path": exact_row["arma_ne_launches"]},
+        "route_launches": lm_row["route_arma_ne_launches"]
+        + arx_row["route_arma_ne_launches"],
         "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_us"] / 1e3,
@@ -3455,11 +4103,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
         "replaces": "docs/experiments/arma_pallas.py:67",
         "launches": css_launches + res_row["arma_css_launches"]
-        + surf["arma_css"],
+        + surf["arma_css"] + arx_row["arma_css_launches"]
+        + arx_row["methods_arma_css_launches"],
         "launches_by_path": {
             "hw_path": css_launches,
             "resilient_path": res_row["arma_css_launches"],
-            "arima_surface": surf["arma_css"]},
+            "arima_surface": surf["arma_css"],
+            "arimax_path": arx_row["arma_css_launches"],
+            "arimax_methods": arx_row["methods_arma_css_launches"]},
         "max_abs_err": css_max_abs,
         "ms": css["kernel_ms"], "plain_ms": css["plain_ms"],
         "bound_ms": css["bound_us"] / 1e3,

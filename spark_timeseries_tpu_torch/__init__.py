@@ -18,7 +18,12 @@ order selection (``models.arima.auto_fit_panel``, with
 ``stats.kpsstest``), the batched Holt-Winters fit
 (``models.holt_winters.fit``) and the streaming fit engine
 (``engine.FitEngine.fit`` / ``stream_fit``, families ``arima``, ``ar``
-and ``holt_winters``) with the ops they need.
+and ``holt_winters``) with the ops they need; the volatility and
+smoothing families; the exogenous-regressor families
+(``models.autoregression_x``, ``models.arimax``,
+``models.regression_arima``); and the state-space core (``statespace``:
+the Kalman filter and the exact likelihood that
+``models.arima.fit(objective="exact")`` maximizes).
 
 Device policy: the entry points take ``device=None``, which means CUDA.
 Without a card they raise unless the caller passes ``device="cpu"``.

@@ -50,9 +50,6 @@ _NOT_PORTED = ("prefetch", "donate", "journal", "job_meta", "deadline_s",
                "degrade", "degrade_floor", "fused", "on_progress",
                "job_label")
 
-# the JAX engine's resilient families that wait for their model slices
-_RESILIENT_WAITING = ("arimax", "arx", "regression_arima")
-
 
 def series_bucket(n_series: int) -> int:
     """Series-axis bucket: next power of two, floor 8."""
@@ -278,21 +275,20 @@ class FitEngine:
 
     @staticmethod
     def resilient_dispatch(family: str) -> Callable:
-        """The family's ``fit_resilient`` (the direct, unbucketed chain);
-        the exogenous-regressor families of the JAX engine raise
-        ``NotImplementedError`` until their models are ported."""
-        from .models import arima, autoregression, ewma, garch, holt_winters
+        """The family's ``fit_resilient`` (the direct, unbucketed
+        chain)."""
+        from .models import (arima, arimax, autoregression, autoregression_x,
+                             ewma, garch, holt_winters, regression_arima)
         dispatch = {"arima": arima.fit_resilient,
+                    "arimax": arimax.fit_resilient,
                     "ar": autoregression.fit_resilient,
+                    "arx": autoregression_x.fit_resilient,
                     "ewma": ewma.fit_resilient,
                     "garch": garch.fit_resilient,
                     "argarch": garch.fit_ar_garch_resilient,
                     "egarch": garch.fit_egarch_resilient,
-                    "holt_winters": holt_winters.fit_resilient}
-        if family in _RESILIENT_WAITING:
-            raise NotImplementedError(
-                f"the resilient fit of family {family!r} is not ported yet "
-                f"(ROADMAP Queue A item 3b)")
+                    "holt_winters": holt_winters.fit_resilient,
+                    "regression_arima": regression_arima.fit_resilient}
         if family not in dispatch:
             raise ValueError(f"unknown model family {family!r}; expected "
                              f"one of {sorted(dispatch)}")
@@ -304,8 +300,11 @@ class FitEngine:
         lanes, run the family's ``fit_resilient`` chain on ``device``
         (``None`` means CUDA), and slice the padding back off.  Padding
         lanes classify as unfittable, so every stage skips them: the real
-        lanes are the unbucketed chain's results bit for bit.  Returns
-        ``(model, FitOutcome)`` for the real lanes."""
+        lanes are the unbucketed chain's results bit for bit.  Only the
+        series axis pads: the exogenous families' shared ``(n_obs, k)``
+        designs (``arimax``, ``arx``, ``regression_arima``, passed in
+        ``args``) keep their rows.  Returns ``(model, FitOutcome)`` for
+        the real lanes."""
         fit_fn = self.resilient_dispatch(family)
         dev = resolve_device(device)
         v = as_tensor(values, dev)

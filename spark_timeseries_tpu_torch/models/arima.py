@@ -9,12 +9,13 @@ with multi-start retry (``retry=``); the AR fast path, ragged (NaN-padded)
 panels and short-lane quarantine; the model's forecasts with bands,
 likelihood, AIC, gradient, Hessian, AR(∞) form, time-dependent effects
 and sampling; the stationarity/invertibility root checks; the stepwise
-:func:`auto_fit` and the batched :func:`auto_fit_panel`; and the fail-soft
+:func:`auto_fit` and the batched :func:`auto_fit_panel`; the fail-soft
 :func:`fit_resilient` (health masking, retry, the fallback chain ARIMA ->
-auto-order -> AR -> mean), and the batched BFGS ``method="css-cgd"``.
-Not ported yet: ``objective="exact"`` and ``log_likelihood_exact`` (the
-state-space slice), ``fit_long`` and ``segment_fit_outputs`` (the
-long-series slice).
+auto-order -> AR -> mean); the batched BFGS ``method="css-cgd"``; and the
+exact Gaussian likelihood (``objective="exact"``,
+``ARIMAModel.log_likelihood_exact``) through the Kalman filter of
+``statespace``.  Not ported yet: ``fit_long`` and
+``segment_fit_outputs`` (the long-series slice).
 
 Coefficients are laid out ``[intercept?, AR..., MA...]`` as in the JAX
 package, panels series-major ``(n_series, n_obs)``.
@@ -36,7 +37,7 @@ from ..ops.arma_ne import (check_kernel_order, css_cost,
 from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram, spd_solve
 from ..ops.optimize import (MinimizeResult, _solve_with_policy, minimize_bfgs,
-                            minimize_box)
+                            minimize_box, value_and_grad_of)
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from ..ops.univariate import (differences_of_order_d,
@@ -435,6 +436,23 @@ class ARIMAModel(NamedTuple):
                                         self._like(diffed), self.p, self.q,
                                         self._icpt)
 
+    def log_likelihood_exact(self, ts) -> torch.Tensor:
+        """Exact (σ²-concentrated) Gaussian log likelihood on an
+        *undifferenced* series, by the stationary-initialized Kalman
+        filter (``statespace.convert.arma_concentrated_neg_ll``).  Unlike
+        :meth:`log_likelihood_css` it keeps the first ``max(p, q)``
+        observations, weighted by the stationary prior: the objective
+        ``fit(..., objective="exact")`` maximizes."""
+        from ..statespace.convert import arma_concentrated_neg_ll
+        diffed = differences_of_order_d(self._like(ts), self.d)[..., self.d:]
+        params, y = _broadcast(self.coefficients, diffed)
+        batch = params.shape[:-1]
+        k = params.shape[-1]
+        out = -arma_concentrated_neg_ll(params.reshape(-1, k),
+                                        y.reshape(-1, y.shape[-1]), self.p,
+                                        self.q, self._icpt)
+        return out.reshape(batch)
+
     def forecast(self, ts, n_future: int) -> torch.Tensor:
         """Fitted 1-step-ahead historicals followed by ``n_future``
         forecast periods."""
@@ -663,16 +681,39 @@ def fit(p: int, d: int, q: int, ts,
     per evaluation on CUDA, 0 on the CPU), ``bfgs_calls`` and
     ``restart_lanes``.
 
-    Not ported yet (raises ``NotImplementedError``): ``objective="exact"``
-    (ROADMAP Queue A item 4).
+    ``objective="exact"`` upgrades the estimate from CSS to the exact
+    Gaussian maximum likelihood: the CSS fit above becomes the start of a
+    batched BFGS (``tol=1e-9``, 200 iterations unless ``max_iter`` or
+    ``retry.max_iter`` says otherwise) on the σ²-concentrated Kalman
+    likelihood (``statespace.convert.arma_concentrated_neg_ll``: the
+    stationary initial distribution, no dropped leading residuals), its
+    gradient by autograd through the filter.  Per lane the better of the
+    refined point and the CSS start under the exact objective is kept,
+    so the exact log likelihood never falls below the CSS solution's;
+    ``diagnostics.fun`` then holds the exact negative log likelihood.
+    ``stats`` also receives ``exact_calls`` (value-and-gradient calls of
+    the refine; each is one filter pass forward and back) and
+    ``exact_reported_apart`` (lanes whose BFGS-reported value was not
+    the objective at their point, see :func:`_exact_refine`).
     """
-    if objective == "exact":
-        raise NotImplementedError(
-            "objective='exact' (the Kalman-likelihood refine) is not ported "
-            "yet (ROADMAP Queue A item 4)")
-    if objective != "css":
+    if objective not in ("css", "exact"):
         raise ValueError(f"unknown objective {objective!r}; expected "
                          f"'css' or 'exact'")
+    if objective == "exact":
+        base = fit(p, d, q, ts, include_intercept, method, user_init_params,
+                   warn=False, max_iter=max_iter, retry=retry,
+                   n_valid=n_valid, device=device, stats=stats,
+                   _restart_draws=_restart_draws)
+        # the refine honors the retry policy's iteration cap as the CSS
+        # solve does
+        if max_iter is None and retry is not None \
+                and retry.max_iter is not None:
+            max_iter = retry.max_iter
+        model = _exact_refine(base, as_tensor(ts, resolve_device(device)),
+                              n_valid=n_valid, max_iter=max_iter,
+                              stats=stats)
+        _warn_stationarity_invertibility(model, warn)
+        return model
     if method not in ("css-lm", "css-bobyqa", "css-cgd"):
         raise ValueError(f"unknown method {method!r}")
     rk = _resilience.retry_kwargs(retry)
@@ -819,6 +860,74 @@ def fit(p: int, d: int, q: int, ts,
                        diagnostics=diag._replace(converged=conv_mask))
     _warn_stationarity_invertibility(model, warn)
     return model
+
+
+def _exact_refine(base: ARIMAModel, ts: torch.Tensor, n_valid=None,
+                  max_iter: Optional[int] = None,
+                  stats: Optional[dict] = None) -> ARIMAModel:
+    """Refine a CSS-fitted model under the exact Kalman likelihood: the
+    batched BFGS on ``statespace.convert.arma_concentrated_neg_ll`` from
+    the CSS coefficients, keeping per lane the refined point only where
+    it is finite and no worse than the start under the exact objective
+    (NaN comparisons are False, so a NaN lane, a quarantined one among
+    them, keeps its start).
+
+    The refined point is judged by the objective evaluated at it, not by
+    the BFGS's reported ``fun``: where a lane's last line search fails
+    in its zoom, jax's BFGS (which ``minimize_bfgs`` copies) moves the
+    lane a full step but reports the value at the bracket's low end, so
+    the two disagree there (in float32 on a few lanes in a thousand,
+    some of them worse than the start or NaN; PERF.md §6).  Where they
+    agree, as on every lane of the float64 parity tests, this is the
+    JAX package's rule."""
+    from ..statespace.convert import arma_concentrated_neg_ll
+
+    p, q, icpt = base.p, base.q, base._icpt
+    init = base.coefficients
+    k = init.shape[-1]
+    if k == 0:
+        return base
+    if n_valid is not None:
+        obs_len = torch.as_tensor(n_valid, device=ts.device)
+    else:
+        ts, obs_len = ragged_view(ts)
+    diffed = differences_of_order_d(ts, base.d)[..., base.d:]
+    lanes = torch.broadcast_shapes(init.shape[:-1], diffed.shape[:-1])
+    x0 = init.expand(*lanes, k).reshape(-1, k)
+    y = diffed.expand(*lanes, diffed.shape[-1]).reshape(-1, diffed.shape[-1])
+    extra = () if obs_len is None else (
+        torch.clamp(obs_len - base.d, min=0).expand(lanes).reshape(-1),)
+
+    def neg_ll(x, yy, *v):
+        return arma_concentrated_neg_ll(x, yy, p, q, icpt,
+                                        n_valid=v[0] if v else None)
+
+    vag, ev_for = value_and_grad_of(neg_ll, y, *extra)
+    st: dict = {}
+    res = minimize_bfgs(vag, x0, tol=1e-9,
+                        max_iter=max_iter if max_iter is not None else 200,
+                        evaluator_for=ev_for, stats=st)
+    with torch.no_grad():
+        f_init = neg_ll(x0, y, *extra)
+        f_end = neg_ll(res.x, y, *extra)
+    if stats is not None:
+        stats["exact_calls"] = st["calls"]
+        # lanes whose BFGS-reported value is not the objective at their
+        # point (beyond 1e-4 relative, or finite on one side only)
+        apart = ~torch.isclose(res.fun, f_end, rtol=1e-4, atol=0.0,
+                               equal_nan=True)
+        stats["exact_reported_apart"] = int(apart.sum())
+    improved = torch.isfinite(f_end) & torch.isfinite(res.x).all(dim=-1) \
+        & (f_end <= f_init)
+    params = torch.where(improved[:, None], res.x, x0)
+    fun = torch.where(improved, f_end, f_init)
+    base_conv = base.diagnostics.converged.expand(lanes).reshape(-1) \
+        if base.diagnostics is not None else torch.isfinite(f_init)
+    converged = torch.where(improved, res.converged, base_conv)
+    diag = FitDiagnostics((converged & torch.isfinite(fun)).reshape(lanes),
+                          res.n_iter.reshape(lanes), fun.reshape(lanes))
+    return ARIMAModel(base.p, base.d, base.q, params.reshape(*lanes, k),
+                      base.has_intercept, diagnostics=diag)
 
 
 def fit_panel(panel, p: int, d: int, q: int, engine=None,

@@ -14,11 +14,14 @@ import torch
 from .._device import as_tensor, resolve_device
 from ..utils.resilience import FitOutcome, RetryPolicy
 from .arima import ARIMAModel, PanelARIMAFit
+from .arimax import ARIMAXModel
 from .autoregression import ARModel
+from .autoregression_x import ARXModel
 from .base import FitDiagnostics
 from .ewma import EWMAModel
 from .garch import ARGARCHModel, EGARCHModel, GARCHModel
 from .holt_winters import HoltWintersModel
+from .regression_arima import RegressionARIMAModel
 
 
 def _diagnostics(diagnostics: Optional[Sequence], device
@@ -138,6 +141,61 @@ def egarch_from_numpy(omega, alpha, beta, gamma=0.0,
     return EGARCHModel(omega, as_tensor(alpha, dev), as_tensor(beta, dev),
                        torch.as_tensor(gamma, dtype=omega.dtype, device=dev),
                        diagnostics=_diagnostics(diagnostics, dev))
+
+
+def arx_from_numpy(c, coefficients, y_max_lag: int, x_max_lag: int,
+                   includes_original_x: bool = True,
+                   diagnostics: Optional[Sequence] = None,
+                   device=None) -> ARXModel:
+    """The port's :class:`ARXModel` from numpy ``c (...)`` and
+    ``coefficients (..., y_max_lag + k·x_max_lag [+ k])``."""
+    dev = resolve_device(device)
+    return ARXModel(as_tensor(c, dev), as_tensor(coefficients, dev),
+                    int(y_max_lag), int(x_max_lag), bool(includes_original_x),
+                    _diagnostics(diagnostics, dev))
+
+
+def arimax_from_numpy(p: int, d: int, q: int, xreg_max_lag: int,
+                      coefficients, include_original_xreg: bool = True,
+                      has_intercept: bool = True,
+                      diagnostics: Optional[Sequence] = None,
+                      device=None) -> ARIMAXModel:
+    """The port's :class:`ARIMAXModel` from numpy coefficients ``(...,
+    1 + p + q + n_xreg)`` (the intercept slot always present)."""
+    dev = resolve_device(device)
+    return ARIMAXModel(int(p), int(d), int(q), int(xreg_max_lag),
+                       as_tensor(coefficients, dev),
+                       bool(include_original_xreg), bool(has_intercept),
+                       _diagnostics(diagnostics, dev))
+
+
+def regression_arima_from_numpy(regression_coeff, arima_coeff,
+                                diagnostics: Optional[Sequence] = None,
+                                device=None) -> RegressionARIMAModel:
+    """The port's :class:`RegressionARIMAModel` from numpy
+    ``regression_coeff (..., 1 + k)`` and ``arima_coeff (...)`` (rho)."""
+    dev = resolve_device(device)
+    return RegressionARIMAModel(as_tensor(regression_coeff, dev), (1, 0, 0),
+                                as_tensor(arima_coeff, dev),
+                                _diagnostics(diagnostics, dev))
+
+
+def statespace_from_numpy(ssm, meta=None, state=None, device=None):
+    """The port's ``(StateSpace, SSMeta, FilterState)`` from objects with
+    their fields (the JAX package's, read with ``np.asarray``); ``meta``
+    and ``state`` are optional and come back None when not given."""
+    from ..statespace.ssm import FilterState, SSMeta, StateSpace
+    dev = resolve_device(device)
+    t_ssm = StateSpace(*(as_tensor(np.asarray(f), dev) for f in ssm))
+    t_meta = None if meta is None else SSMeta(
+        str(meta.family), str(meta.mode), int(meta.d_order), int(meta.m))
+    t_state = None
+    if state is not None:
+        fields = [np.asarray(f) for f in state]
+        t_state = FilterState(
+            *(as_tensor(f, dev) for f in fields[:-1]),
+            torch.as_tensor(fields[-1], dtype=torch.int32, device=dev))
+    return t_ssm, t_meta, t_state
 
 
 def retry_policy_from(policy) -> RetryPolicy:

@@ -40,3 +40,14 @@ def lag_matvec(x: torch.Tensor, coef: torch.Tensor,
     if out is None:
         return x.new_zeros((*x.shape[:-1], n))[..., :n - max_lag]
     return out
+
+
+def lag_matrix_multi(x: torch.Tensor, max_lag: int,
+                     include_original: bool = False) -> torch.Tensor:
+    """Lag each column of ``x (..., n, k)`` and concatenate:
+    ``(..., n - max_lag, k * cols)`` in the order ``[a_-1 a_-2 b_-1 b_-2
+    ...]`` (column by column, lags ascending)."""
+    per_col = lag_matrix(x.transpose(-1, -2), max_lag, include_original)
+    # (..., k, rows, cols) -> (..., rows, k, cols) -> flatten the last two
+    per_col = per_col.movedim(-3, -2)
+    return per_col.reshape(*per_col.shape[:-2], -1)

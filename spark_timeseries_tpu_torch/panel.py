@@ -381,9 +381,12 @@ class Panel:
     def fit_resilient(self, family: str, *args, engine=None, **kwargs):
         """Fail-soft batched fit of the panel on its device: per-series
         health masking, multi-start retry and the family's fallback chain
-        (``"arima"``, args p, d, q; ``"ar"``, args max_lag; ``"ewma"``,
-        ``"garch"``, ``"argarch"``, ``"egarch"``; ``"holt_winters"``, args
-        period, model_type), so that one pathological series degrades its
+        (``"arima"``, args p, d, q; ``"arimax"``, args xreg, p, d, q,
+        xreg_max_lag; ``"ar"``, args max_lag; ``"arx"``, args x,
+        y_max_lag, x_max_lag; ``"ewma"``, ``"garch"``, ``"argarch"``,
+        ``"egarch"``; ``"holt_winters"``, args period, model_type;
+        ``"regression_arima"``, args regressors), so that one
+        pathological series degrades its
         own lane's status instead of raising.  Extra args and kwargs (``retry=RetryPolicy(...)``,
         ``fallbacks=...``, arima's ``auto_order=True``) pass through to
         the family's ``fit_resilient``.  Returns ``(model, outcome)``.

@@ -298,8 +298,8 @@ def chunk_fault(mode: str, chunk_index: int):
 
 
 def serving_fault(mode: str):
-    """The serving tier's fault hook: waits for item 4."""
-    _waits("serving_fault (the serving tier's faults)", "4")
+    """The serving tier's fault hook: waits for item 4b."""
+    _waits("serving_fault (the serving tier's faults)", "4b")
 
 
 def fleet_fault(mode: str):

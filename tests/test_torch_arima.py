@@ -198,7 +198,15 @@ def test_cuda_requests_the_kernel_cannot_take_raise(monkeypatch):
 
 
 def test_unported_options_raise():
+    """What the port has not ported is absent or raises: the long-series
+    fits (ROADMAP Queue A item 5).  ``objective="exact"`` is ported (its
+    parity tests are ``test_torch_arima_exact.py``): it runs, and an
+    unknown objective raises."""
     y = _arima_panel(np.random.default_rng(8), 4, 40)
-    for kwargs, what in (({"objective": "exact"}, "exact"),):
-        with pytest.raises(NotImplementedError, match=what):
-            arima.fit(2, 1, 2, y, warn=False, device="cpu", **kwargs)
+    assert not hasattr(arima, "fit_long")
+    assert not hasattr(arima, "segment_fit_outputs")
+    m = arima.fit(2, 1, 2, y, warn=False, device="cpu", objective="exact",
+                  max_iter=3)
+    assert m.coefficients.shape == (4, 5)
+    with pytest.raises(ValueError, match="objective"):
+        arima.fit(2, 1, 2, y, warn=False, device="cpu", objective="full")

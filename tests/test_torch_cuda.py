@@ -962,7 +962,12 @@ def test_fit_resilient_on_cuda_matches_cpu(cuda):
 def test_css_cgd_counts_one_arma_ne_launch_per_evaluation(cuda):
     """``method="css-cgd"`` on the card: every BFGS evaluation is one
     ``arma_ne`` launch over the lanes still running, as its stats say;
-    the BFGS over the kernel agrees with the BFGS over the plain pass."""
+    the BFGS over the kernel agrees with the BFGS over the plain pass.
+    A lane agrees when both ``fun`` are NaN (its float32 objective is
+    NaN at the start, so both runs stay there) or both are finite and
+    within 1e-5; the finite lanes part only where float32 rounding,
+    amplified along a failing line search, sends the two runs apart
+    (``tools/torch_cgd_miss_trace.py``; PERF.md §6)."""
     from spark_timeseries_tpu_torch.ops import optimize
     from spark_timeseries_tpu_torch.ops.univariate import \
         differences_of_order_d
@@ -989,8 +994,12 @@ def test_css_cgd_counts_one_arma_ne_launch_per_evaluation(cuda):
 
     kern = bfgs(arma_ne.css_neg_ll_value_and_grad)
     plain = bfgs(arma_ne.css_neg_ll_value_and_grad_plain)
+    both_nan = torch.isnan(kern.fun) & torch.isnan(plain.fun)
+    both_fin = torch.isfinite(kern.fun) & torch.isfinite(plain.fun)
     rel = (kern.fun - plain.fun).abs() / plain.fun.abs()
-    assert (rel <= 1e-5).double().mean() >= 0.9
+    close = both_fin & (rel <= 1e-5)
+    assert (close | both_nan).double().mean() >= 0.9
+    assert close[both_fin].double().mean() >= 0.9
 
 
 def test_holt_winters_retry_on_cuda(cuda):
@@ -1067,3 +1076,112 @@ def test_egarch_graph_replay_is_the_eager_pass(cuda):
     b = garch.fit_egarch(y, device=cuda)
     for f in ("omega", "alpha", "beta", "gamma"):
         assert torch.equal(getattr(a, f), getattr(b, f))
+
+
+def _arimax_rows(rng, S, n):
+    """ARIMA(2,1,2) rows plus two shared random-walk regressors, float32."""
+    x = np.cumsum(rng.normal(size=(n, 2)), axis=0)
+    y = np.cumsum(_panel(rng, S, n), axis=1) + x @ [0.8, -0.5]
+    return y.astype(np.float32), x.astype(np.float32)
+
+
+def test_arimax_css_lm_is_one_lm_fit_launch(cuda):
+    """ARIMAX's css-lm refine on the card is one LM-fit launch over the
+    xreg-adjusted series (no ``arma_ne``); its lanes agree with the
+    float64 CPU fit by objective where both converged."""
+    from spark_timeseries_tpu_torch.models import arimax
+    y, x = _arimax_rows(np.random.default_rng(35), 2048, 96)
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    st = {}
+    m = arimax.fit(2, 1, 2, torch.from_numpy(y).to(cuda), x, 1, device=cuda,
+                   stats=st)
+    assert arma_ne.fit_css_lm.launches == st["lm_fit_launches"] == 1
+    assert arma_ne.normal_equations.launches == 0
+    ref = arimax.fit(2, 1, 2, y[:128].astype(np.float64),
+                     x.astype(np.float64), 1, device="cpu")
+    both = (m.diagnostics.converged[:128].cpu()
+            & ref.diagnostics.converged)
+    # fun is the residual sum of squares at each fit's own optimum
+    rel = ((m.diagnostics.fun[:128].cpu().double() - ref.diagnostics.fun)
+           .abs() / ref.diagnostics.fun.abs())[both]
+    assert both.sum() >= 64 and (rel <= 1e-3).double().mean() >= 0.9
+
+
+def test_arimax_css_cgd_counts_one_arma_ne_launch_per_evaluation(cuda):
+    """ARIMAX's css-cgd on the card: one ``arma_ne`` launch per BFGS
+    evaluation, as its stats say, and no LM-fit launch."""
+    from spark_timeseries_tpu_torch.models import arimax
+    y, x = _arimax_rows(np.random.default_rng(36), 1024, 96)
+    arma_ne.fit_css_lm.launches = 0
+    arma_ne.normal_equations.launches = 0
+    st = {}
+    m = arimax.fit(2, 1, 2, torch.from_numpy(y).to(cuda), x, 1,
+                   method="css-cgd", device=cuda, stats=st)
+    assert arma_ne.normal_equations.launches == st["ne_launches"] > 0
+    assert arma_ne.fit_css_lm.launches == 0
+    assert torch.isfinite(m.coefficients).all(dim=-1).double().mean() > 0.9
+
+
+def test_statespace_filter_on_cuda_matches_cpu_float64(cuda):
+    """``stationary_covariance`` and ``filter_panel`` (a NaN tick and a
+    ragged lane included) in float32 on the card against float64 on the
+    CPU, within float32 tolerance."""
+    from spark_timeseries_tpu_torch.statespace import convert, kalman, ssm
+    rng = np.random.default_rng(37)
+    S, n = 4096, 120
+    phi = rng.uniform(-0.4, 0.4, size=(S, 2))
+    theta = rng.uniform(-0.4, 0.4, size=(S, 2))
+    c = rng.normal(size=S)
+    ys = rng.normal(size=(S, n))
+    ys[3, 17] = np.nan
+    w = np.ones((S, n))
+    w[5, 90:] = 0.0
+    out = {}
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        model = convert.companion_arma(
+            torch.from_numpy(phi).to(dev, dt),
+            torch.from_numpy(theta).to(dev, dt),
+            torch.from_numpy(c).to(dev, dt))
+        meta = ssm.SSMeta("arima", "exact", 0, model.state_dim)
+        st0 = ssm.initial_state(model, meta)
+        res = kalman.filter_panel(model, st0,
+                                  torch.from_numpy(ys).to(dev, dt), meta,
+                                  weights=torch.from_numpy(w).to(dev, dt))
+        out[str(dev)] = (st0.P.cpu().double(), res.loglik.cpu().double(),
+                         kalman.concentrated_loglik(res.state).cpu()
+                         .double())
+    got, want = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-3)
+
+
+def test_exact_objective_on_cuda_is_monotone_against_css(cuda):
+    """``arima.fit(objective="exact")`` on the card: one LM-fit launch for
+    its CSS stage, then the BFGS refine; no lane's exact log likelihood
+    (the fit's reported ``-diagnostics.fun``) falls below its CSS
+    start's, and recomputing it agrees to float32 rounding on the
+    stationary, invertible lanes (elsewhere the filter's recursion grows
+    until rounding sets its leading digits)."""
+    rng = np.random.default_rng(38)
+    y = torch.from_numpy(np.cumsum(_panel(rng, 2048, 96), axis=1)
+                         .astype(np.float32)).to(cuda)
+    arma_ne.fit_css_lm.launches = 0
+    st = {}
+    exact = arima.fit(2, 1, 2, y, objective="exact", warn=False,
+                      device=cuda, stats=st)
+    assert arma_ne.fit_css_lm.launches == st["lm_fit_launches"] == 1
+    css = arima.fit(2, 1, 2, y, warn=False, device=cuda)
+    ll_ex = -exact.diagnostics.fun
+    ll_css = css.log_likelihood_exact(y)
+    both = torch.isfinite(ll_ex) & torch.isfinite(ll_css)
+    # a CSS start with an explosive AR part has no stationary prior: its
+    # exact log likelihood is NaN in both (~14 % of these lanes)
+    assert both.double().mean() > 0.75
+    assert (ll_ex[both] >= ll_css[both]).all()
+    sane = both & torch.from_numpy(exact.is_stationary()
+                                   & exact.is_invertible()).to(cuda)
+    assert sane.double().mean() > 0.5
+    torch.testing.assert_close(exact.log_likelihood_exact(y)[sane],
+                               ll_ex[sane], rtol=1e-4, atol=1e-3)

@@ -168,8 +168,12 @@ def test_resilient_dispatch_covers_the_new_families(family):
     np.testing.assert_array_equal(o1.status, o2.status)
     np.testing.assert_array_equal(np.nan_to_num(o1.params, nan=7.0),
                                   np.nan_to_num(o2.params, nan=7.0))
-    for waiting in ("arimax", "arx", "regression_arima"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            engine.FitEngine.resilient_dispatch(waiting)
-    assert engine._RESILIENT_WAITING == ("arimax", "arx",
-                                         "regression_arima")
+    # the exogenous-regressor families dispatch to their own chains
+    from spark_timeseries_tpu_torch.models import (arimax, autoregression_x,
+                                                   regression_arima)
+    assert engine.FitEngine.resilient_dispatch("arimax") \
+        is arimax.fit_resilient
+    assert engine.FitEngine.resilient_dispatch("arx") \
+        is autoregression_x.fit_resilient
+    assert engine.FitEngine.resilient_dispatch("regression_arima") \
+        is regression_arima.fit_resilient

@@ -228,4 +228,13 @@ def test_port_imports_neither_jax_nor_the_reference():
                                                        src):
             offenders.append(f"{path.name}: dynamic import")
     assert len(_port_sources()) > 10
+    # the state-space core and the exogenous-regressor families are held
+    names = {p.relative_to(_PORT).as_posix() for p in _port_sources()}
+    assert {"spark_timeseries_tpu_torch/statespace/ssm.py",
+            "spark_timeseries_tpu_torch/statespace/kalman.py",
+            "spark_timeseries_tpu_torch/statespace/convert.py",
+            "spark_timeseries_tpu_torch/models/arimax.py",
+            "spark_timeseries_tpu_torch/models/autoregression_x.py",
+            "spark_timeseries_tpu_torch/models/regression_arima.py",
+            "chip_smoke.py"} <= names
     assert not offenders, offenders

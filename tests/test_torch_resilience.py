@@ -319,9 +319,13 @@ def test_stream_fit_resilient_equals_the_direct_chain_per_chunk():
     assert res.stats["resilient_statuses"] == statuses
     assert res.n_converged == ok
     assert sum(res.stats["resilient_attempts"].values()) == 20
-    with pytest.raises(NotImplementedError, match="item 3"):
-        engine.FitEngine().stream_fit(y, "arimax", resilient=True,
-                                      device="cpu")
+    # the exogenous families' chains need their design: streamed without
+    # it, every chunk fails on its own (a TypeError, recorded), as in the
+    # JAX engine
+    res = engine.FitEngine().stream_fit(y, "arimax", resilient=True,
+                                        chunk_size=8, device="cpu")
+    assert len(res.chunk_failures) == res.n_chunks == 3
+    assert {f["error_type"] for f in res.chunk_failures} == {"TypeError"}
 
 
 def test_ar_fit_resilient_matches_jax():
