@@ -12,9 +12,11 @@ Phases, one JSON line each:
    source, all started together.  Then the Holt-Winters panel is made and
    four CPU worker processes start refitting 1024 of its lanes in float64
    (they run while the card works; ``hw_path`` reads them).
-3. ``kernel_vs_plain``: ``ops.arma_ne.normal_equations`` (the CUDA kernel)
-   against ``normal_equations_plain`` in float32 on the card and in
-   float64 on the CPU, at the main path's chunk shape.
+3. ``kernel_vs_plain``: ``ops.arma_ne.normal_equations`` (the
+   series-major CUDA kernel) against ``normal_equations_plain`` in float32 on the card and in
+   float64 on the CPU, at the main path's chunk shape; the time-major
+   kernel it replaced (``normal_equations_time_major``) against the
+   same float32 plain pass.
 4. ``main_path``: ``FitEngine().stream_fit`` of a 1,048,576 x 128
    float32 ARIMA(2,1,2) panel in 131072-series chunks on the card, the
    LM-fit kernel's and the single-pass kernel's launches counted over
@@ -23,8 +25,9 @@ Phases, one JSON line each:
    one warm chunk's steps timed apart with CUDA events (H2D,
    differencing, Hannan-Rissanen init, the LM-fit kernel, quarantine and
    model build, D2H).
-5. ``timing``: CUDA-event times of the single-pass kernel and of its
-   plain version, its bound, and the LM-fit kernel's time a chunk.
+5. ``timing``: CUDA-event times of the single-pass kernel (the
+   series-major one; the time-major one it replaced beside it) and of its
+   plain version, their bounds, and the LM-fit kernel's time a chunk.
 6. ``lm_fit_vs_route``: on the first 131072-lane ARIMA chunk, the LM-fit
    kernel (``ops.arma_ne.fit_css_lm``, a thread a lane; block sizes
    64/128/256) against the batched LM over the single-pass kernel (``fit_css_lm_route``, one launch per iteration,
@@ -35,7 +38,8 @@ Phases, one JSON line each:
    card on the chunk's first 256 lanes.
 7. ``css_cost_vs_plain``: ``ops.arma_ne.css_cost`` (the cost-only kernel)
    against ``css_cost_plain``, dense and ragged, at the ARIMA chunk shape,
-   for AR orders in registers and one past them (the runtime-p form).
+   for AR orders in registers and one past them (the runtime-p form); the
+   time-major kernel it replaced against the same float32 plain pass.
 8. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the Holt-Winters
    kernel) against ``value_and_grad_plain`` in float32 on the card and in
    float64 on the CPU: additive period 12 dense and ragged,
@@ -49,8 +53,8 @@ Phases, one JSON line each:
    the float64 CPU refit compared by objective.
 10. ``hw_timing``: CUDA-event times of the single-pass Holt-Winters
    kernel and the cost-only ARMA kernel (three orders: two with the AR
-   order in registers, one in the runtime-p form), their plain versions
-   and their bounds.
+   order in registers, one in the runtime-p form; series-major, the
+   time-major one beside it), their plain versions and their bounds.
 11. ``hw_fit_vs_solver``: on the first 131072-lane Holt-Winters chunk,
    the box-fit kernel (``ops.hw_sse.box_fit``, block sizes 64/128/256)
    against the batched solver over the single-pass kernel
@@ -129,7 +133,8 @@ Phases, one JSON line each:
    effects and the residual tests, ``adftest``, KPSS ``"ct"``,
    ``refit_unconverged`` (one LM-fit launch) and the stepwise
    ``auto_fit`` of single series, each timed with CUDA events and held
-   against the port's float64 CPU run on 256 lanes.
+   against the port's float64 CPU run on 256 lanes; the widths of the
+   one-pass launches (power-of-two buckets).
 17. ``vol_path``: GARCH, AR-GARCH and EGARCH (no kernel: plain PyTorch,
    EGARCH's derivative pass replayed from a CUDA graph) on a 65,536 x
    1024 panel from BASELINE config #4's generator (``--seed``), each
@@ -163,7 +168,7 @@ Phases, one JSON line each:
    with the same draws (floors 0.95, 0.95).
 20. ``css_cgd_path``: ``arima.fit(2, 1, 2, chunk, method="css-cgd")``
    on the first 131072-series chunk: ms, ``arma_ne`` launches =
-   ``stats["ne_launches"]``, BFGS iterations, ``converged_pct`` (no
+   ``stats["ne_launches"]`` and their widths, BFGS iterations, ``converged_pct`` (no
    floor); the share of lanes whose neg-LL is within 1e-4 of the css-lm
    fit's (floor 0.90, held after the kernels line), with the shares
    where css-cgd ends worse or better; on 256 lanes the BFGS over
@@ -189,7 +194,8 @@ Phases, one JSON line each:
    and one ``arma_ne`` launch); the first 256 lanes against a float64
    CPU fit by objective (floor 0.90 within 1e-5); the first chunk with
    pathological rows through ``fit_resilient(..., retry=RetryPolicy())``
-   (launches = the stages' count, OK lanes = the plain fit, bitwise).
+   (launches = the stages' count and the ``arma_ne`` launches' widths,
+   OK lanes = the plain fit, bitwise).
 23. ``exact_path``: ``arima.fit(2, 1, 2, chunk, objective="exact")`` on
    the first 131072 series (one ``arma_lm_fit`` launch, then BFGS on the
    Kalman likelihood): seconds, iterations, calls, kernels a
@@ -200,12 +206,26 @@ Phases, one JSON line each:
    0.99 within 1e-4 on the stationary, invertible ones).  The float64
    CPU fits of 22 and 23 run in two spawned processes started before
    ``ewma_path``.
+24. ``ne_rows_timing``: the series-major one-pass kernels
+   (``arma_ne_rows_kernel``, ``arma_css_rows_kernel``) against the
+   time-major ones they replaced, at (2,1,2)+c on the differenced chunk
+   (``n_obs`` 127), dense and ragged, at S = 131072 and the median and
+   90th-percentile widths of the launches of 16, 20 and 22: every lane
+   bit for bit; CUDA-event medians in turns (old, new, new, old) of each
+   kernel alone and of each call (``normal_equations``,
+   ``css_neg_ll_value_and_grad``, ``css_cost``), new against old; the
+   bounds; the device operations of one call (``torch.profiler``), one
+   for ``normal_equations`` and for ``css_cost``.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
-comparison route launches, ``route_launches`` beside it), the card's
-name and power limit, the css-cgd floor's check and, last, the result
-line.  Any
+comparison route launches, ``route_launches`` beside it; the time-major
+one-pass kernels, which only the comparisons launch, with
+``comparison_only``, their launches counted over the path phases, each
+run with their counts set to 0 just before it, and checked to be 0, and
+their errors against the same plain passes as the series-major
+kernels'), the card's name and power limit, the css-cgd floor's check
+and, last, the result line.  Any
 failed check raises, so the script exits non-zero and prints no result
 line; without CUDA it exits 1 before doing anything.
 """
@@ -422,12 +442,14 @@ def ne_flops_per_step(p: int, q: int, icpt: int, ragged: bool) -> int:
 
 
 def ne_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int,
-               ragged: bool):
+               ragged: bool, packed: bool = False):
     """Least time of one kernel call on the card: bytes it must move
-    (y, params, n_valid read once, the packed output written once) over
-    the HBM rate, and its FLOPs over the fp32 rate; the larger wins."""
+    (y, params, n_valid read once, the output written once: JᵀJ with both
+    triangles, Jᵀr and sse, or with ``packed`` the time-major kernel's
+    packed triangle) over the HBM rate, and its FLOPs over the fp32 rate;
+    the larger wins."""
     k = icpt + p + q
-    n_out = 1 + k * (k + 1) // 2 + k
+    n_out = 1 + (k * (k + 1) // 2 if packed else k * k) + k
     n_bytes = 4 * S * (n_obs + k + n_out + (1 if ragged else 0))
     flops = ne_flops_per_step(p, q, icpt, ragged) * (n_obs - max(p, q)) * S
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
@@ -481,7 +503,7 @@ def phase_kernel_vs_plain(panel, seed, dev):
 
     from spark_timeseries_tpu_torch.ops import arma_ne
 
-    rows, max_abs = [], 0.0
+    rows, max_abs, tm_max_abs = [], 0.0, 0.0
     for name, (p, q, icpt), y, params, nv in ne_cases(panel, seed):
         y_d = torch.from_numpy(y).to(dev)
         prm_d = torch.from_numpy(params).to(dev)
@@ -489,6 +511,11 @@ def phase_kernel_vs_plain(panel, seed, dev):
         got = arma_ne.normal_equations(prm_d, y_d, p, q, icpt, n_valid=nv_d)
         plain = arma_ne.normal_equations_plain(prm_d, y_d, p, q, icpt,
                                                n_valid=nv_d)
+        # the time-major kernel the series-major one replaced (its
+        # comparison, never launched on a path), against the same plain
+        # pass
+        tm = arma_ne.normal_equations_time_major(prm_d, y_d, p, q, icpt,
+                                                 n_valid=nv_d)
         ref64 = arma_ne.normal_equations_plain(
             torch.from_numpy(params).double(), torch.from_numpy(y).double(),
             p, q, icpt,
@@ -497,19 +524,23 @@ def phase_kernel_vs_plain(panel, seed, dev):
             torch.cuda.synchronize()
         vs_plain = _ne_errors(got, plain)
         vs_f64 = _ne_errors(got, ref64)
+        tm_vs_plain = _ne_errors(tm, plain)
         if name == "arima(2,1,2)+c":
             max_abs = max((a - b).abs().max().item()
                           for a, b in zip(got, plain))
+            tm_max_abs = max((a - b).abs().max().item()
+                             for a, b in zip(tm, plain))
         row = {"case": name, "S": y.shape[0], "n_obs": y.shape[1],
                "vs_plain_f32": vs_plain, "vs_plain_f64_cpu": vs_f64,
-               "tol": NE_TOL}
+               "time_major_vs_plain_f32": tm_vs_plain, "tol": NE_TOL}
         rows.append(row)
-        for label, errs in (("plain f32", vs_plain), ("plain f64", vs_f64)):
+        for label, errs in (("plain f32", vs_plain), ("plain f64", vs_f64),
+                            ("plain f32 (time-major kernel)", tm_vs_plain)):
             for key, err in errs.items():
                 check(err <= NE_TOL,
                       f"{name}: kernel vs {label} {key} error {err:.3g} > "
                       f"{NE_TOL:g}")
-    return rows, max_abs
+    return rows, max_abs, tm_max_abs
 
 
 def phase_main_path(panel, dev, n_refit=N_REFIT, chunk=CHUNK):
@@ -647,9 +678,45 @@ def arima_chunk_steps(part: np.ndarray, dev):
     return steps
 
 
+def _widths(wrapper) -> dict:
+    """A one-pass wrapper's histogram of launch widths (lanes, by their
+    power-of-two bucket) since it was last cleared."""
+    return {str(k): v for k, v in sorted(wrapper.widths.items())}
+
+
+class ComparisonLaunches:
+    """The launches of the time-major one-pass kernels, kept as the
+    series-major kernels' comparison, on the paths: each path phase runs
+    through :meth:`run`, which sets their counts to 0 just before it and
+    reads them just after.  Launches made to compare kernels outside the
+    path phases are not counted."""
+
+    def __init__(self, arma_ne):
+        self.wrappers = {
+            "arma_ne_time_major": arma_ne.normal_equations_time_major,
+            "arma_css_time_major": arma_ne.css_cost_time_major}
+        self.total = dict.fromkeys(self.wrappers, 0)
+        self.by_path = {name: {} for name in self.wrappers}
+
+    def run(self, path: str, phase, *args):
+        for wrapper in self.wrappers.values():
+            wrapper.launches = 0
+        out = phase(*args)
+        for name, wrapper in self.wrappers.items():
+            self.total[name] += wrapper.launches
+            self.by_path[name][path] = wrapper.launches
+        return out
+
+
 def _event_ms(fn, reps: int):
     """Median CUDA-event time of ``fn()`` over ``reps`` calls, after two
     warm-up calls."""
+    return float(np.median(_event_times(fn, reps)))
+
+
+def _event_times(fn, reps: int):
+    """CUDA-event times of ``fn()`` over ``reps`` calls, after two warm-up
+    calls."""
     import torch
 
     for _ in range(2):
@@ -663,7 +730,7 @@ def _event_ms(fn, reps: int):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
 
 
 def first_chunk_init(panel, dev, chunk=CHUNK):
@@ -689,20 +756,28 @@ def phase_timing(panel, seed, dev, lm_chunk):
     S, n_obs = y.shape
     y_t, prm_t = y_d.T.contiguous(), prm_d.T.contiguous()
     kernel_ms = _event_ms(
+        lambda: arma_ne._ne_rows(prm_d, y_d, None, None, p, q, icpt), 20)
+    time_major_ms = _event_ms(
         lambda: arma_ne._launch(prm_t, y_t, None, p, q, icpt), 20)
     plain_ms = _event_ms(
         lambda: arma_ne._packed_plain(prm_t, y_t, None, p, q, icpt), 3)
     bound_s, bound_by, n_bytes, flops = ne_bound_s(S, n_obs, p, q, icpt,
                                                    False)
+    tm_bound_s = ne_bound_s(S, n_obs, p, q, icpt, False, packed=True)[0]
     # the LM-fit kernel on the chunk from its Hannan-Rissanen init
     lm_y, lm_init = lm_chunk
     lm_ms = _event_ms(lambda: arma_ne.fit_css_lm(lm_init, lm_y, p, q, icpt),
                       5)
     return {"phase": "timing", "case": name, "S": S, "n_obs": n_obs,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_us": bound_s * 1e6, "bound_by": bound_by,
-            "bytes": n_bytes, "flops": flops,
+            "kernel": "arma_ne_rows", "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_us": bound_s * 1e6,
+            "bound_by": bound_by, "bytes": n_bytes, "flops": flops,
             "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
+            "tile": arma_ne.rows_tile(S, n_obs, p, q, icpt, False,
+                                      dev)._asdict(),
+            "time_major_kernel_ms": time_major_ms,
+            "time_major_bound_us": tm_bound_s * 1e6,
+            "time_major_share_of_bound": tm_bound_s * 1e3 / time_major_ms,
             "lm_fit_ms_a_chunk": lm_ms}
 
 
@@ -953,13 +1028,15 @@ def phase_css_cost_vs_plain(panel, seed, dev):
 
     from spark_timeseries_tpu_torch.ops import arma_ne
 
-    rows, max_abs = [], 0.0
+    rows, max_abs, tm_max_abs = [], 0.0, 0.0
     for name, (p, q, icpt), y, params, nv in css_cases(panel, seed):
         y_d = torch.from_numpy(y).to(dev)
         prm_d = torch.from_numpy(params).to(dev)
         nv_d = None if nv is None else torch.from_numpy(nv).to(dev)
         got = arma_ne.css_cost(prm_d, y_d, p, q, icpt, n_valid=nv_d)
         plain = arma_ne.css_cost_plain(prm_d, y_d, p, q, icpt, n_valid=nv_d)
+        tm = arma_ne.css_cost_time_major(prm_d, y_d, p, q, icpt,
+                                         n_valid=nv_d)
         ref64 = arma_ne.css_cost_plain(
             torch.from_numpy(params).double(), torch.from_numpy(y).double(),
             p, q, icpt,
@@ -970,14 +1047,18 @@ def phase_css_cost_vs_plain(panel, seed, dev):
                         / ref.double().cpu().abs()).max().item()
                 for label, ref in (("plain f32", plain),
                                    ("plain f64", ref64))}
+        errs["plain f32 (time-major kernel)"] = (
+            (tm.double().cpu() - plain.double().cpu()).abs()
+            / plain.double().cpu().abs()).max().item()
         if name == "arima(2,1,2)+c":
             max_abs = (got - plain).abs().max().item()
+            tm_max_abs = (tm - plain).abs().max().item()
         rows.append({"case": name, "S": y.shape[0], "n_obs": y.shape[1],
                      "rel_err": errs, "tol": CSS_TOL})
         for label, err in errs.items():
             check(err <= CSS_TOL, f"{name}: css kernel vs {label} relative "
                                   f"error {err:.3g} > {CSS_TOL:g}")
-    return rows, max_abs
+    return rows, max_abs, tm_max_abs
 
 
 def _hw_errors(got, ref):
@@ -1210,9 +1291,12 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
                                                          seed):
         if nv is not None or (p, q, icpt) not in CSS_TIMED:
             continue
-        cy_t = torch.from_numpy(cy).to(dev).T.contiguous()
-        cprm_t = torch.from_numpy(cparams).to(dev).T.contiguous()
+        cy_d = torch.from_numpy(cy).to(dev)
+        cprm_d = torch.from_numpy(cparams).to(dev)
+        cy_t, cprm_t = cy_d.T.contiguous(), cprm_d.T.contiguous()
         css_ms = _event_ms(
+            lambda: arma_ne._css_rows(cprm_d, cy_d, None, p, q, icpt), 20)
+        css_tm_ms = _event_ms(
             lambda: arma_ne._css_launch(cprm_t, cy_t, None, p, q, icpt), 20)
         css_plain_ms = _event_ms(
             lambda: arma_ne._packed_plain(cprm_t, cy_t, None, p, q, icpt,
@@ -1220,7 +1304,9 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
         c_bound_s, c_bound_by, c_bytes, c_flops = css_bound_s(
             cy.shape[0], cy.shape[1], p, q, icpt)
         css.append({"case": c_name, "S": cy.shape[0], "n_obs": cy.shape[1],
-                    "kernel_ms": css_ms, "plain_ms": css_plain_ms,
+                    "kernel": "arma_css_rows", "kernel_ms": css_ms,
+                    "time_major_kernel_ms": css_tm_ms,
+                    "plain_ms": css_plain_ms,
                     "bound_us": c_bound_s * 1e6, "bound_by": c_bound_by,
                     "bytes": c_bytes, "flops": c_flops,
                     "share_of_bound": c_bound_s * 1e3 / css_ms})
@@ -2525,15 +2611,23 @@ def phase_arima_surface(panel, seed, dev, chunk=CHUNK):
     counters = (arma_ne.fit_css_lm, arma_ne.normal_equations,
                 arma_ne.css_cost)
     totals = {"arma_lm_fit": 0, "arma_ne": 0, "arma_css": 0}
+    # the widths of the counted one-pass launches, by power-of-two bucket
+    widths = {"arma_ne": {}, "arma_css": {}}
 
     def counted(fn):
         for c in counters:
             c.launches = 0
+            if c is not arma_ne.fit_css_lm:
+                c.widths.clear()
         out = fn()
         torch.cuda.synchronize()
         got = dict(zip(totals, (c.launches for c in counters)))
         for k2, v in got.items():
             totals[k2] += v
+        for key, c in (("arma_ne", arma_ne.normal_equations),
+                       ("arma_css", arma_ne.css_cost)):
+            for b, n in _widths(c).items():
+                widths[key][b] = widths[key].get(b, 0) + n
         return out, got
 
     grad = "gradient_log_likelihood_css_arma"
@@ -2625,6 +2719,7 @@ def phase_arima_surface(panel, seed, dev, chunk=CHUNK):
         "ms": float(np.median(t_ms)), "series": SURF_AUTO_SERIES,
         "launches": got_all, "orders_equal_share": same / SURF_AUTO_SERIES}
     row["launches"] = totals
+    row["widths"] = widths
     emit(row)
 
     for name, m in row["methods"].items():
@@ -3239,6 +3334,7 @@ def phase_css_cgd_path(panel, dev, chunk=CHUNK):
     arima.fit(2, 1, 2, part[:1024], method="css-cgd", warn=False,
               device=dev)                      # warm-up, not counted
     arma_ne.normal_equations.launches = 0
+    arma_ne.normal_equations.widths.clear()
     st = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3247,6 +3343,7 @@ def phase_css_cgd_path(panel, dev, chunk=CHUNK):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = arma_ne.normal_equations.launches
+    widths = _widths(arma_ne.normal_equations)
     lm = arima.fit(2, 1, 2, part, warn=False, device=dev)
     fin_lm = torch.isfinite(lm.coefficients).all(dim=-1).cpu().numpy()
     nll_cgd = (-cgd.log_likelihood_css(part)).double().cpu().numpy()
@@ -3277,7 +3374,7 @@ def phase_css_cgd_path(panel, dev, chunk=CHUNK):
     row = {"phase": "css_cgd_path", "n_series": chunk, "n_obs": N_OBS,
            "ms": ms, "series_per_s": chunk / (ms / 1e3),
            "arma_ne_launches": launches, "stats_ne_launches":
-               st["ne_launches"],
+               st["ne_launches"], "arma_ne_widths": widths,
            "bfgs_iterations_max": int(n_iter.max()),
            "bfgs_iterations_median": float(np.median(n_iter)),
            "converged_pct": float(100.0 * cgd.diagnostics.converged
@@ -3681,6 +3778,7 @@ def phase_arimax_path(panel, seed, dev, ref, chunk=CHUNK):
     skipped_rows = np.sort(np.concatenate(
         [rows[kk] for kk in ("all_nan", "has_inf", "too_short")]))
     c0 = (arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches)
+    arma_ne.normal_equations.widths.clear()
     st = {}
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -3691,6 +3789,7 @@ def phase_arimax_path(panel, seed, dev, ref, chunk=CHUNK):
     res_s = time.perf_counter() - t2
     res_launches = (arma_ne.fit_css_lm.launches - c0[0],
                     arma_ne.normal_equations.launches - c0[1])
+    res_widths = _widths(arma_ne.normal_equations)
     skipped = rout.status == res_mod.STATUS_SKIPPED
     min_len = 1 + max(2 * 2 + 3 + 4, ARX_LAG + 2, 3)
     cpu_health = res_mod.classify_series(torch.from_numpy(bad),
@@ -3724,6 +3823,7 @@ def phase_arimax_path(panel, seed, dev, ref, chunk=CHUNK):
                *np.unique(rout.attempts, return_counts=True))},
            "resilient_arma_lm_fit_launches": res_launches[0],
            "resilient_arma_ne_launches": res_launches[1],
+           "resilient_arma_ne_widths": res_widths,
            "resilient_stats_launches": {
                "lm_fit": st["lm_fit_launches"],
                "lm_fit_by_stage": st["lm_fit_launches_by_stage"],
@@ -3906,6 +4006,211 @@ def phase_exact_path(panel, dev, ref, lanes=EXACT_LANES):
     return row
 
 
+# -- slice 11: the series-major one-pass kernels ---------------------------
+
+NE_ROWS_WIDTHS = (1024, 4096, 16384)   # while no path's widths are known
+NE_ROWS_REPS = 10          # launches a turn; two turns each version
+
+
+def width_quantiles(hists):
+    """The median and 90th-percentile launch widths (power-of-two
+    buckets) over launch-width histograms; None without launches."""
+    counts = {}
+    for h in hists:
+        for b, n in h.items():
+            counts[int(b)] = counts.get(int(b), 0) + n
+    total = sum(counts.values())
+    if not total:
+        return None
+    out, cum = [], 0
+    for b in sorted(counts):
+        cum += counts[b]
+        while len(out) < 2 and cum >= (0.5, 0.9)[len(out)] * total:
+            out.append(b)
+    return tuple(out)
+
+
+def _in_turns(old, new, reps):
+    """CUDA-event medians of ``old()`` and ``new()`` over two turns each,
+    in the order old, new, new, old."""
+    t_old = _event_times(old, reps)
+    t_new = _event_times(new, reps) + _event_times(new, reps)
+    t_old += _event_times(old, reps)
+    return float(np.median(t_old)), float(np.median(t_new))
+
+
+def _cuda_ops(fn):
+    """Device operations (kernels, copies, fills) one ``fn()`` runs,
+    from ``torch.profiler``; their names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_ms(fn, reps: int):
+    """Median device duration of the one kernel ``fn()`` launches, over
+    ``reps`` calls (``torch.profiler``'s CUDA events): the kernel's own
+    time, without the host's launch in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return float(np.median(durs)) / 1e3 if durs else None
+
+
+def _bits_equal(got, want) -> bool:
+    import torch
+
+    return all(torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def phase_ne_rows_timing(panel, seed, dev, ne_hists, css_hists):
+    """The series-major one-pass kernels against the time-major ones they
+    replaced, at (2,1,2)+c on the main path's differenced chunk (n_obs
+    127), dense and ragged, at S = 131072 and at the median and
+    90th-percentile launch widths of the paths' histograms: bit for bit
+    on every lane; CUDA-event medians in turns of each kernel alone and
+    of each call (``normal_equations``, ``css_neg_ll_value_and_grad``,
+    ``css_cost``) new against old; the bounds; the device operations a
+    call runs (``torch.profiler``)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    name, (p, q, icpt), y, params, _ = ne_cases(panel, seed)[0]
+    nv = ne_cases(panel, seed)[1][4]
+    y_all = torch.from_numpy(y).to(dev)
+    prm_all = torch.from_numpy(params).to(dev)
+    nv_all = torch.from_numpy(nv).to(dev)
+    S_max, n_obs = y.shape
+    ne_q, css_q = width_quantiles(ne_hists), width_quantiles(css_hists)
+    picked = [w for qs in (ne_q, css_q) if qs for w in qs]
+    widths = sorted({S_max} | {min(w, S_max) for w in
+                               (picked or NE_ROWS_WIDTHS)})
+    rows, all_bitwise = [], True
+    for S in widths:
+        for ragged in (False, True):
+            yy, prm = y_all[:S], prm_all[:S]
+            v = nv_all[:S] if ragged else None
+            y_t, prm_t = yy.T.contiguous(), prm.T.contiguous()
+            new = arma_ne.normal_equations(prm, yy, p, q, icpt, n_valid=v)
+            old = arma_ne.normal_equations_time_major(prm, yy, p, q, icpt,
+                                                      n_valid=v)
+            css_new = arma_ne.css_cost(prm, yy, p, q, icpt, n_valid=v)
+            css_old = arma_ne.css_cost_time_major(prm, yy, p, q, icpt,
+                                                  n_valid=v)
+            torch.cuda.synchronize()
+            bitwise = {"normal_equations": _bits_equal(new, old),
+                       "css_cost": _bits_equal((css_new,), (css_old,))}
+            all_bitwise &= all(bitwise.values())
+            pairs = {
+                "ne_kernel": (
+                    lambda: arma_ne._launch(prm_t, y_t, v, p, q, icpt),
+                    lambda: arma_ne._ne_rows(prm, yy, v, None, p, q, icpt)),
+                "normal_equations": (
+                    lambda: arma_ne.normal_equations_time_major(
+                        prm, yy, p, q, icpt, n_valid=v),
+                    lambda: arma_ne.normal_equations(prm, yy, p, q, icpt,
+                                                     n_valid=v)),
+                "css_neg_ll_value_and_grad": (
+                    lambda: arma_ne._css_neg_ll(
+                        arma_ne.normal_equations_time_major, prm, yy, p, q,
+                        icpt, v),
+                    lambda: arma_ne.css_neg_ll_value_and_grad(
+                        prm, yy, p, q, icpt, n_valid=v)),
+                "css_kernel": (
+                    lambda: arma_ne._css_launch(prm_t, y_t, v, p, q, icpt),
+                    lambda: arma_ne._css_rows(prm, yy, v, p, q, icpt)),
+                "css_cost": (
+                    lambda: arma_ne.css_cost_time_major(prm, yy, p, q, icpt,
+                                                        n_valid=v),
+                    lambda: arma_ne.css_cost(prm, yy, p, q, icpt,
+                                             n_valid=v))}
+            ms = {}
+            for key, (f_old, f_new) in pairs.items():
+                t_old, t_new = _in_turns(f_old, f_new, NE_ROWS_REPS)
+                ms[key] = {"old": t_old, "new": t_new}
+                if key.endswith("_kernel"):
+                    # the kernel's own time, without its host launch
+                    ms[key]["old_device"] = _device_ms(f_old,
+                                                       2 * NE_ROWS_REPS)
+                    ms[key]["new_device"] = _device_ms(f_new,
+                                                       2 * NE_ROWS_REPS)
+            ne_b = ne_bound_s(S, n_obs, p, q, icpt, ragged)
+            ne_b_old = ne_bound_s(S, n_obs, p, q, icpt, ragged, packed=True)
+            css_b = css_bound_s(S, n_obs, p, q, icpt)
+            css_b_s = css_b[0] if not ragged else max(
+                (css_b[2] + 4 * S) / PEAK_BYTES_S,
+                css_b[3] / PEAK_FP32_FLOPS)
+            rows.append({
+                "S": S, "ragged": ragged, "bitwise": bitwise, "ms": ms,
+                "ne_tile": arma_ne.rows_tile(S, n_obs, p, q, icpt, False,
+                                             dev)._asdict(),
+                "css_tile": arma_ne.rows_tile(S, n_obs, p, q, icpt, True,
+                                              dev)._asdict(),
+                "ne_bound_ms": ne_b[0] * 1e3, "ne_bound_by": ne_b[1],
+                "ne_time_major_bound_ms": ne_b_old[0] * 1e3,
+                "ne_share_of_bound": ne_b[0] * 1e3 / ms["ne_kernel"]["new"],
+                "ne_time_major_share_of_bound":
+                    ne_b_old[0] * 1e3 / ms["ne_kernel"]["old"],
+                "css_bound_ms": css_b_s * 1e3,
+                "css_share_of_bound": css_b_s * 1e3 / ms["css_kernel"]["new"],
+                "css_time_major_share_of_bound":
+                    css_b_s * 1e3 / ms["css_kernel"]["old"]})
+    # the device operations of one call at the full width, old and new
+    yy, prm = y_all, prm_all
+    ops = {
+        "normal_equations": {
+            "old": _cuda_ops(lambda: arma_ne.normal_equations_time_major(
+                prm, yy, p, q, icpt)),
+            "new": _cuda_ops(lambda: arma_ne.normal_equations(
+                prm, yy, p, q, icpt))},
+        "css_cost": {
+            "old": _cuda_ops(lambda: arma_ne.css_cost_time_major(
+                prm, yy, p, q, icpt)),
+            "new": _cuda_ops(lambda: arma_ne.css_cost(prm, yy, p, q,
+                                                      icpt))},
+        "css_neg_ll_value_and_grad": {
+            "old": _cuda_ops(lambda: arma_ne._css_neg_ll(
+                arma_ne.normal_equations_time_major, prm, yy, p, q, icpt,
+                None)),
+            "new": _cuda_ops(lambda: arma_ne.css_neg_ll_value_and_grad(
+                prm, yy, p, q, icpt))}}
+    row = {"phase": "ne_rows_timing", "case": name, "n_obs": n_obs,
+           "widths": widths, "ne_width_quantiles": ne_q,
+           "css_width_quantiles": css_q, "reps": 2 * NE_ROWS_REPS,
+           "rows": rows,
+           "device_ops_per_call": {k: {v: len(n) for v, n in d.items()}
+                                   for k, d in ops.items()},
+           "device_op_names": ops}
+    emit(row)
+    check(all_bitwise, "ne_rows_timing: a series-major kernel's result is "
+                       "not the time-major kernel's bit for bit")
+    for key in ("normal_equations", "css_cost"):
+        n_ops = len(ops[key]["new"])
+        check(n_ops == 1, f"ne_rows_timing: one {key} call ran {n_ops} "
+                          f"device operations, not 1: {ops[key]['new']}")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3942,6 +4247,7 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     arma_ne._kernel_fn()
     arma_ne._css_kernel_fn()
+    arma_ne._rows_fns()
     arma_ne._lm_fns()
     hw_sse._kernel_fn()
     hw_sse._box_fns()
@@ -3977,10 +4283,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
           "dtype": str(panel.dtype), "hw_shape": list(hw_panel.shape),
           "seconds": time.perf_counter() - t0})
 
-    rows, max_abs = phase_kernel_vs_plain(panel, args.seed, dev)
+    rows, max_abs, tm_max_abs = phase_kernel_vs_plain(panel, args.seed, dev)
     emit({"phase": "kernel_vs_plain", "cases": rows})
 
-    main_row, lm_launches, arima_model = phase_main_path(panel, dev)
+    from spark_timeseries_tpu_torch.ops import arma_ne
+    paths = ComparisonLaunches(arma_ne)
+    main_row, lm_launches, arima_model = paths.run("main_path",
+                                                   phase_main_path, panel,
+                                                   dev)
     emit(main_row)
 
     lm_chunk = first_chunk_init(panel, dev)
@@ -3990,14 +4300,15 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     lm_row = phase_lm_fit_vs_route(lm_chunk, timing["kernel_ms"], dev)
     del lm_chunk
 
-    css_rows, css_max_abs = phase_css_cost_vs_plain(panel, args.seed, dev)
+    css_rows, css_max_abs, css_tm_max_abs = phase_css_cost_vs_plain(
+        panel, args.seed, dev)
     emit({"phase": "css_cost_vs_plain", "cases": css_rows})
 
     hw_rows, hw_max_abs = phase_hw_kernel_vs_plain(hw_panel, args.seed, dev)
     emit({"phase": "hw_kernel_vs_plain", "cases": hw_rows})
 
-    hw_row, hw_launches, css_launches = phase_hw_path(
-        hw_panel, panel, arima_model, refit, dev)
+    hw_row, hw_launches, css_launches = paths.run(
+        "hw_path", phase_hw_path, hw_panel, panel, arima_model, refit, dev)
     emit(hw_row)
 
     hw_timing = phase_hw_timing(hw_panel, panel, args.seed, dev)
@@ -4005,21 +4316,24 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
 
     fit_row = phase_hw_fit_vs_solver(hw_panel, hw_timing["kernel_ms"], dev)
 
-    auto_row, grid_launches, screen = phase_auto_fit_path(auto_panel,
-                                                          auto_ref, dev)
+    auto_row, grid_launches, screen = paths.run(
+        "auto_fit_path", phase_auto_fit_path, auto_panel, auto_ref, dev)
     grid_row = phase_auto_grid_vs_route(screen, dev)
     del screen
 
     vol_ref = start_vol_ref(args.seed)
     try:
-        panel_row = phase_panel_path(panel, auto_panel, args.seed, dev)
+        panel_row = paths.run("panel_path", phase_panel_path, panel,
+                              auto_panel, args.seed, dev)
 
-        res_row = phase_resilient_path(panel, args.seed, dev)
-        surf_row = phase_arima_surface(panel, args.seed, dev)
+        res_row = paths.run("resilient_path", phase_resilient_path, panel,
+                            args.seed, dev)
+        surf_row = paths.run("arima_surface", phase_arima_surface, panel,
+                             args.seed, dev)
 
         # the slice-9 paths, each driven with the counts set to 0 just
         # before it and read just after
-        phase_vol_path(args.seed, dev, vol_ref)
+        paths.run("vol_path", phase_vol_path, args.seed, dev, vol_ref)
     finally:
         vol_ref[0].terminate()
         vol_ref[0].join()
@@ -4027,18 +4341,27 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     # the next phases
     s10_ref = start_slice10_ref(panel, args.seed)
     try:
-        phase_ewma_path(args.seed, dev)
-        hwr_row = phase_hw_resilient_path(hw_panel, hw_row["converged_pct"],
-                                          args.seed, dev)
-        cgd_row = phase_css_cgd_path(panel, dev)
+        paths.run("ewma_path", phase_ewma_path, args.seed, dev)
+        hwr_row = paths.run("hw_resilient_path", phase_hw_resilient_path,
+                            hw_panel, hw_row["converged_pct"], args.seed,
+                            dev)
+        cgd_row = paths.run("css_cgd_path", phase_css_cgd_path, panel, dev)
         # the slice-10 paths, each driven with the counts set to 0 just
         # before it and read just after
-        phase_regarima_path(args.seed, dev)
-        arx_row = phase_arimax_path(panel, args.seed, dev, s10_ref)
-        exact_row = phase_exact_path(panel, dev, s10_ref)
+        paths.run("regarima_path", phase_regarima_path, args.seed, dev)
+        arx_row = paths.run("arimax_path", phase_arimax_path, panel,
+                            args.seed, dev, s10_ref)
+        exact_row = paths.run("exact_path", phase_exact_path, panel, dev,
+                              s10_ref)
     finally:
         s10_ref[0].terminate()
         s10_ref[0].join()
+    # slice 11: the series-major one-pass kernels at the widths the paths
+    # above gave them
+    rows_row = phase_ne_rows_timing(
+        panel, args.seed, dev,
+        [cgd_row["arma_ne_widths"], arx_row["resilient_arma_ne_widths"],
+         surf_row["widths"]["arma_ne"]], [surf_row["widths"]["arma_css"]])
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -4073,7 +4396,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "bound_ms": lm_row["bound_ms"], "bound_by": lm_row["bound_by"],
         "library_ms": None}, {
         "name": "arma_ne", "route": "cuda",
-        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
+        "kernel": "arma_ne_rows_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne_rows.cuh",
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
         "launches": main_row["normal_equations_launches"]
         + auto_row["arma_ne_launches"] + panel_row["arma_ne_launches"]
@@ -4095,12 +4419,25 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "exact_path": exact_row["arma_ne_launches"]},
         "route_launches": lm_row["route_arma_ne_launches"]
         + arx_row["route_arma_ne_launches"],
+        "launch_widths": {
+            "css_cgd_path": cgd_row["arma_ne_widths"],
+            "arimax_path_resilient": arx_row["resilient_arma_ne_widths"],
+            "arima_surface": surf_row["widths"]["arma_ne"]},
+        "by_width": [{"S": r["S"], "ragged": r["ragged"],
+                      "ms": r["ms"]["ne_kernel"]["new"],
+                      "device_ms": r["ms"]["ne_kernel"]["new_device"],
+                      "time_major_ms": r["ms"]["ne_kernel"]["old"],
+                      "time_major_device_ms":
+                          r["ms"]["ne_kernel"]["old_device"],
+                      "bound_ms": r["ne_bound_ms"]}
+                     for r in rows_row["rows"]],
         "max_abs_err": max_abs,
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_us"] / 1e3,
         "bound_by": timing["bound_by"], "library_ms": None}, {
         "name": "arma_css", "route": "cuda",
-        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "kernel": "arma_css_rows_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.sse.cu",
         "replaces": "docs/experiments/arma_pallas.py:67",
         "launches": css_launches + res_row["arma_css_launches"]
         + surf["arma_css"] + arx_row["arma_css_launches"]
@@ -4111,8 +4448,43 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arima_surface": surf["arma_css"],
             "arimax_path": arx_row["arma_css_launches"],
             "arimax_methods": arx_row["methods_arma_css_launches"]},
+        "launch_widths": {"arima_surface": surf_row["widths"]["arma_css"]},
+        "by_width": [{"S": r["S"], "ragged": r["ragged"],
+                      "ms": r["ms"]["css_kernel"]["new"],
+                      "device_ms": r["ms"]["css_kernel"]["new_device"],
+                      "time_major_ms": r["ms"]["css_kernel"]["old"],
+                      "time_major_device_ms":
+                          r["ms"]["css_kernel"]["old_device"],
+                      "bound_ms": r["css_bound_ms"]}
+                     for r in rows_row["rows"]],
         "max_abs_err": css_max_abs,
         "ms": css["kernel_ms"], "plain_ms": css["plain_ms"],
+        "bound_ms": css["bound_us"] / 1e3,
+        "bound_by": css["bound_by"], "library_ms": None}, {
+        # the time-major kernels the two above replaced, kept as their
+        # comparison (ne_rows_timing: bit for bit): their launches on the
+        # paths (checked to be 0 below), their errors against the same
+        # plain pass, and the plain pass of their own operands
+        "name": "arma_ne_time_major", "route": "cuda",
+        "kernel": "arma_ne_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cuh",
+        "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229",
+        "launches": paths.total["arma_ne_time_major"],
+        "launches_by_path": paths.by_path["arma_ne_time_major"],
+        "comparison_only": True,
+        "max_abs_err": tm_max_abs,
+        "ms": timing["time_major_kernel_ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["time_major_bound_us"] / 1e3,
+        "bound_by": timing["bound_by"], "library_ms": None}, {
+        "name": "arma_css_time_major", "route": "cuda",
+        "kernel": "arma_css_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/arma_ne.cu",
+        "replaces": "docs/experiments/arma_pallas.py:67",
+        "launches": paths.total["arma_css_time_major"],
+        "launches_by_path": paths.by_path["arma_css_time_major"],
+        "comparison_only": True,
+        "max_abs_err": css_tm_max_abs,
+        "ms": css["time_major_kernel_ms"], "plain_ms": css["plain_ms"],
         "bound_ms": css["bound_us"] / 1e3,
         "bound_by": css["bound_by"], "library_ms": None}, {
         "name": "hw_sse", "route": "cuda",
@@ -4159,6 +4531,9 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "padded_bound_ms": grid_row["padded_bound_ms"],
         "library_ms": None}]})
     print(smi, flush=True)
+    check(not any(paths.total.values()),
+          f"a path launched a time-major comparison kernel: "
+          f"{paths.by_path}")
     check(cgd_row["vs_lm_share"] >= CGD_LM_FLOOR,
           f"css-cgd's neg-LL is within {CGD_LM_RTOL:g} of the css-lm fit's "
           f"on {cgd_row['vs_lm_share']:.4f} of {cgd_row['vs_lm_lanes']} "

@@ -1,10 +1,13 @@
-// Fused ARMA normal equations (arma_ne_kernel), the whole CSS
-// Levenberg-Marquardt fit of a panel or of a candidate grid over one panel
-// in one launch (arma_lm_fit_kernel), and the CSS cost alone
-// (arma_css_kernel, below).  The first two run one pass; their device code
-// is in arma_ne.cuh and their instantiations in arma_ne.orders*.cu, and
-// this file holds the C interface that picks an instantiation.
-//
+// Fused ARMA normal equations (arma_ne_rows_kernel over the series-major
+// panel; arma_ne_kernel, the same pass over the time-major panel, kept as
+// its comparison), the whole CSS Levenberg-Marquardt fit of a panel or of
+// a candidate grid over one panel in one launch (arma_lm_fit_kernel), and
+// the CSS cost alone (arma_css_rows_kernel in arma_ne.sse.cu; its
+// time-major comparison arma_css_kernel below).  The device code of the
+// passes is in arma_ne.cuh and arma_ne_rows.cuh and their instantiations
+// in arma_ne.orders*.cu, and this file holds the C interface that picks
+// an instantiation.
+
 // The pass replaces the Pallas TPU kernel
 // spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel and computes its
 // function: per series lane, one sweep over the CSS window t >= max(p, q)
@@ -18,26 +21,53 @@
 // ring pushes (so the zero tail never contributes and results equal the
 // trimmed series'); the y-lag ring takes the unweighted y_t.
 //
-// Layout (time-major, so a warp's loads at step t are 32 consecutive
-// floats): params (k, S), y (n_obs, S), nv (S,) or null, out (n_out, S)
-// with n_out = 1 + k(k+1)/2 + k laid out [sse, triu(JtJ)..., Jtr...].
-// All float32.
+// The series-major pass (arma_ne_rows_kernel), the one the callers
+// launch: params (S, k), y (S, n_obs), nv (S,) or null and an optional
+// (S, k) 0/1 mask, as ops/arma_ne.py's callers hold them; outputs JtJ
+// (S, k, k) with both triangles, Jtr (S, k) and sse (S,), what
+// normal_equations returns, so a call launches this kernel and nothing
+// else.  One thread a lane runs ne_pass, the explicit-FMA pass that
+// arma_ne_kernel runs, so each output equals that kernel's bit for bit.
+// A block of 32-128 consecutive lanes copies their whole rows of y into
+// shared memory (stage_rows.cuh: 4-byte cp.async, an odd row pitch, up
+// to 72 KB a block) and stages its outputs back through it, so every
+// global load and store is coalesced.  The block's lane count comes from
+// S (stage_rows::pick_lanes): 128 while every SM still gets two blocks,
+// down to 32 for the gathered launches of a few thousand lanes, and
+// narrower where a long row needs it to fit whole; rows too long for 32
+// lanes (n_obs > 575) are read from global memory by the same pass.
 //
-// The pass: one thread per lane, the whole carry (e ring, T ring, y ring,
-// sse, triu, Jtr, coefficients: about 40 floats at (2,1,2) with
-// intercept) in registers; templated on (P, Q, ICPT, RAGGED) so every
-// inner loop unrolls.  Orders p, q <= 5 are instantiated, with and
-// without intercept.
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
+// cores) at the main path's (2,1,2)+c, S = 131072, n_obs = 127: it must
+// read y (66.6 MB) and params (2.6 MB) and write JtJ, Jtr and sse (31
+// floats a lane, 16.3 MB), ~26 us; it does 76 flop per lane-step (yhat 8,
+// e 1, T 25, sse 2, triu 30, Jtr 10) x 125 steps x 131072 lanes = 1.25
+// GFLOP, ~19 us.  So bytes bound it on paper.  On the card (PERF.md §6)
+// both passes issue ~45 instructions a lane-step, and what separates
+// them is residency: the time-major pass keeps 32 warps an SM in one
+// wave, loading as it goes, while a whole-row tile holds 508 B of shared
+// memory a lane, at most ~14 warps an SM, and 1024 blocks run in ~2.6
+// waves that each copy their rows before they compute; so at full width
+// the staged pass takes ~1.5x the time-major one's device time (a ring
+// of double-buffered windows, at twice the residency, measured slower
+// still: its windows' barriers cost more than the residency gains).  At
+// the widths the paths give it (8192 lanes and fewer) either pass takes
+// one lane's serial chain, ~12 us, whatever the block's lane count; the
+// call, with no transposes or unpack around the kernel, is 2-3x faster
+// than before at every width.
 //
-// arma_ne_kernel, one pass.  Bound on the H100 (3.35 TB/s, 67 TFLOP/s
-// fp32 outside the tensor cores) at the main path's (2,1,2), S = 131072,
-// n_obs = 127: the call must read y (66.6 MB) and params (2.6 MB) and
-// write out (11.0 MB), ~24 us; it does 76 flop per lane-step (yhat 8, e 1,
-// T 25, sse 2, triu 30, Jtr 10) x 125 steps x 131072 lanes = 1.25 GFLOP,
-// ~19 us.  So bytes bound it; each lane's step is a short dependent chain,
-// and the design hides its latency with many resident warps (1024 blocks
-// of 128 threads: under one wave of the 132 SMs at 2048 threads each).
+// The time-major pass (arma_ne_kernel), the comparison: params (k, S),
+// y (n_obs, S), out (n_out, S) with n_out = 1 + k(k+1)/2 + k laid out
+// [sse, triu(JtJ)..., Jtr...]; one thread a lane reads y_t straight from
+// global memory each step (a warp's loads at step t are 32 consecutive
+// floats).  Its callers had to transpose y and params and unpack the
+// triangle around it.  All float32.
 //
+// The carry (e ring, T ring, y ring, sse, triu, Jtr, coefficients: about
+// 40 floats at (2,1,2) with intercept) stays in registers; every form is
+// templated on (P, Q, ICPT, RAGGED) so every inner loop unrolls.  Orders
+// p, q <= 5 are instantiated, with and without intercept.
+
 // arma_lm_fit_kernel: per lane, the state machine of the batched LM
 // loop ops/arma_ne.py::fit_css_lm_route (the port of the Pallas
 // solver's fit_css_lm, spark_timeseries_tpu/ops/pallas_arma.py:463):
@@ -111,29 +141,20 @@
 // warp's loads and measured 1.4-1.7x slower (PERF.md), so each thread
 // fits its own lane.
 
-#include "arma_ne.cuh"
+#include "arma_ne_rows.cuh"
 
 namespace arma_ne {
 namespace {
 
 // ---------------------------------------------------------------------------
-// The CSS cost alone: the port of the cost-only mode of the Pallas kernel
-// docs/experiments/arma_pallas.py::_css_kernel (with_grad=False), whose
-// gradient mode is the pass above on a dense panel.  Per lane,
-// sse = sum_{t >= max(p, q)} e_t^2 with the recurrence above and only the
-// e ring carried; ragged lanes weight e by (t < nv) before the
-// accumulator and the ring push, as above.  Q (<= 5, the auto-fit grid's
-// largest MA order) is static, and so is P for p <= 5 (kCssStaticP): the
-// coefficients, the e ring and the y-lag ring stay in registers, as in
-// the pass, and each step loads y_t alone.  A larger p (P = -1) runs the
-// runtime form, whose AR terms read their y lags and coefficients where
-// they lie (lines the warp loaded in the last p steps, so L1 hits), which
-// lets the AR fast path of any order score itself on the card.
-// Output (1, S).  Bound at (2,1,2) with intercept, S = 131072,
-// n_obs = 127: reading y and params and writing sse moves 69.7 MB, ~21 us;
-// 11 flop per lane-step (yhat 8, e 1, sse 2) are 0.18 GFLOP, ~3 us: bytes.
-
-constexpr int kCssStaticP = 5;
+// The CSS cost alone over the time-major panel (arma_css_kernel), the
+// comparison of arma_css_rows_kernel (arma_ne.sse.cu, which holds the
+// cost's note): per lane, sse = sum_{t >= max(p, q)} e_t^2 with the
+// recurrence above and only the e ring carried; ragged lanes weight e by
+// (t < nv) before the accumulator and the ring push.  Q (<= 5) is
+// static, and so is P for p <= 5 (kCssStaticP); a larger p (P = -1) runs
+// the runtime form, whose AR terms read their y lags and coefficients
+// where they lie.  params (k, S), y (n_obs, S), output (1, S).
 
 template <int P, int Q, int ICPT, bool RAGGED>
 __global__ void __launch_bounds__(kThreads)
@@ -269,6 +290,16 @@ cudaError_t launch_ne_order(int p, int q, int icpt, const float* params,
   return cudaErrorInvalidValue;
 }
 
+cudaError_t launch_ne_rows_order(int p, int q, int icpt, const RowsArgs& A,
+                                 const stage_rows::Tile& tl,
+                                 cudaStream_t st) {
+#define ARMA_NE_ROWS_CASE(PP, QQ) \
+  if (p == PP && q == QQ) return ne_rows_launch_##PP##_##QQ(icpt, A, tl, st);
+  ARMA_NE_FOR_EACH_ORDER(ARMA_NE_ROWS_CASE)
+#undef ARMA_NE_ROWS_CASE
+  return cudaErrorInvalidValue;
+}
+
 LmKernel pick_lm(int p, int q, int icpt, bool ragged) {
 #define ARMA_LM_CASE(PP, QQ) \
   if (p == PP && q == QQ) return lm_pick_##PP##_##QQ(icpt, ragged);
@@ -320,8 +351,62 @@ cudaError_t lm_config(int S, int p, int q, int icpt, bool ragged, int threads,
 using arma_ne::LmArgs;
 using arma_ne::LmConfig;
 
-// The cost-only kernel: as arma_ne_launch, for any p >= 0 and q <= 5;
-// `out` is (1, S).
+// The tile a series-major one-pass launch of S lanes takes
+// (stage_rows::make_tile) into out[0..4] = (lanes a block, 1 if the rows
+// are staged in shared memory, row pitch, shared-memory bytes a block,
+// blocks).  cost_only selects the cost kernel's tile (no outputs staged);
+// lanes 0 picks it from S and n_obs.  Returns 0, or -1 for arguments no
+// tile serves.
+extern "C" int arma_rows_tile(int S, int n_obs, int p, int q, int icpt,
+                              int cost_only, int lanes, int* out) {
+  if (S <= 0 || p < 0 || q < 0 || n_obs <= (p > q ? p : q)) return -1;
+  const int k = icpt + p + q;
+  const int outs = cost_only ? 0
+                             : stage_rows::odd(k * k) + stage_rows::odd(k);
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  stage_rows::Tile t;
+  if (!stage_rows::make_tile(S, n_obs, outs, lanes, sms, &t)) return -1;
+  const int vals[5] = {t.lanes, t.staged, t.pitch, t.smem, t.blocks};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// The series-major normal-equations pass of S lanes on `stream`: params
+// (S, k), y (S, n_obs), nv (S,) or null, mask (S, k) or null; writes jtj
+// (S, k, k), jtr (S, k), sse (S,).  lanes 0 picks the tile (see
+// arma_rows_tile).  Does not synchronise, allocates nothing.  Returns the
+// cudaError_t of the launch (0 on success), or -1 for an order outside
+// p, q <= 5 / k == 0, a bad shape or a tile no launch serves.
+extern "C" int arma_ne_rows_launch(const float* params, const float* y,
+                                   const float* nv, const float* mask,
+                                   float* jtj, float* jtr, float* sse, int S,
+                                   int n_obs, int p, int q, int icpt,
+                                   int lanes, void* stream_ptr) {
+  if (S <= 0 || n_obs <= (p > q ? p : q) || !arma_ne::order_ok(p, q, icpt))
+    return -1;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k = icpt + p + q;
+  stage_rows::Tile tl;
+  if (!stage_rows::make_tile(S, n_obs,
+                             stage_rows::odd(k * k) + stage_rows::odd(k),
+                             lanes, sms, &tl))
+    return -1;
+  const arma_ne::RowsArgs args{params, y, nv, mask, jtj, jtr, sse,
+                               S, n_obs, p};
+  return static_cast<int>(arma_ne::launch_ne_rows_order(
+      p, q, icpt, args, tl, static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// The time-major cost-only kernel (the comparison of arma_css_rows_launch):
+// as arma_ne_launch, for any p >= 0 and q <= 5; `out` is (1, S).
 extern "C" int arma_css_launch(const float* params, const float* y,
                                const float* nv, float* out, int S, int n_obs,
                                int p, int q, int icpt, void* stream_ptr) {
@@ -340,9 +425,11 @@ extern "C" int arma_css_launch(const float* params, const float* y,
   }
 }
 
-// Launches on `stream`, does not synchronise, allocates nothing.  Returns
-// the cudaError_t of the launch (0 on success), or -1 for an order
-// outside p, q <= 5 / k == 0 or a bad shape.
+// The time-major normal-equations pass (the comparison of
+// arma_ne_rows_launch): params (k, S), y (n_obs, S), nv (S,) or null, out
+// (n_out, S) packed.  Launches on `stream`, does not synchronise,
+// allocates nothing.  Returns the cudaError_t of the launch (0 on
+// success), or -1 for an order outside p, q <= 5 / k == 0 or a bad shape.
 extern "C" int arma_ne_launch(const float* params, const float* y,
                               const float* nv, float* out, int S, int n_obs,
                               int p, int q, int icpt, void* stream_ptr) {

@@ -1,14 +1,12 @@
-// The device code of arma_ne_kernel (one normal-equations pass) and
-// arma_lm_fit_kernel (a lane's whole CSS Levenberg-Marquardt fit), shared
-// by csrc/arma_ne.cu (the C interface) and the csrc/arma_ne.orders*.cu
-// files, which instantiate both kernels for their share of the orders
-// p, q <= 5 (one nvcc each, all in parallel, linked into one library).
-// What the kernels compute and what bounds them is in arma_ne.cu's note.
-//
-// Each (P, Q) is instantiated in exactly one orders file, through
-// ARMA_NE_ORDER(P, Q) at the end of this header, which defines the two
-// functions arma_ne.cu dispatches to: arma_ne::ne_launch_P_Q and
-// arma_ne::lm_pick_P_Q.
+// The device code of the normal-equations pass (ne_pass),
+// arma_ne_kernel (one pass over the time-major panel, the comparison of
+// arma_ne_rows.cuh's arma_ne_rows_kernel) and arma_lm_fit_kernel (a lane's
+// whole CSS Levenberg-Marquardt fit), instantiated for the orders p, q <= 5
+// through arma_ne_rows.cuh's ARMA_NE_ORDER in the csrc/arma_ne.orders*.cu
+// files (one nvcc each, all in parallel, linked into one library).  What
+// the kernels compute and what bounds them is in arma_ne.cu's note.  This
+// header needs nothing but the CUDA runtime's declarations, so the LM-fit
+// kernel's source also compiles for the host (tests).
 
 #pragma once
 
@@ -21,6 +19,7 @@ namespace arma_ne {
 constexpr int kMaxOrder = 5;        // p, q <= 5 are instantiated
 constexpr int kThreads = 128;       // arma_ne_kernel's block
 constexpr int kMaxLmThreads = 256;  // the largest LM-fit block
+constexpr int kCssStaticP = 5;     // the cost kernels' static AR orders
 
 // The LM fit's arguments.  The panel has S_y series; a launch fits S
 // lanes, lanes lane0 .. lane0 + S - 1 of a layout of S_all: lane i reads
@@ -75,7 +74,9 @@ __host__ __device__ constexpr int tri(int a, int b, int k) {
 
 // One normal-equations pass of a lane at prm = [c?, phi..., theta...]
 // over the window t0 <= t < n_obs (t0 >= max(P, Q)).  `y` is the lane's
-// column of the time-major panel (row stride `stride`).
+// column of the time-major panel (row stride `stride`) or its row of the
+// series-major one, in shared or global memory (stride 1).  Every kernel
+// that runs a pass runs this one, so a lane rounds alike in each.
 //
 // Every product is fused into its sum with __fmaf_rn, and every other
 // operation rounds on its own (__fsub_rn, __fmul_rn): left to the
@@ -391,37 +392,5 @@ LmKernel pick_lm_icpt(bool ragged) {
 }
 
 }  // namespace
-
-// Defined by ARMA_NE_ORDER in the orders files, one pair per (P, Q).
-#define ARMA_NE_DECLARE(P, Q)                                              \
-  cudaError_t ne_launch_##P##_##Q(int icpt, const float* params,           \
-                                  const float* y, const float* nv,         \
-                                  float* out, int S, int n_obs,            \
-                                  cudaStream_t stream);                    \
-  LmKernel lm_pick_##P##_##Q(int icpt, bool ragged);
-
-#define ARMA_NE_ORDER(P, Q)                                                \
-  cudaError_t ne_launch_##P##_##Q(int icpt, const float* params,           \
-                                  const float* y, const float* nv,         \
-                                  float* out, int S, int n_obs,            \
-                                  cudaStream_t stream) {                   \
-    return icpt ? launch_ne<P, Q, 1>(params, y, nv, out, S, n_obs, stream) \
-                : launch_ne<P, Q, 0>(params, y, nv, out, S, n_obs, stream);\
-  }                                                                        \
-  LmKernel lm_pick_##P##_##Q(int icpt, bool ragged) {                      \
-    return icpt ? pick_lm_icpt<P, Q, 1>(ragged)                            \
-                : pick_lm_icpt<P, Q, 0>(ragged);                           \
-  }
-
-// Every (P, Q) with p, q <= kMaxOrder: X(P, Q) for each.
-#define ARMA_NE_FOR_EACH_ORDER(X)                                          \
-  X(0, 0) X(0, 1) X(0, 2) X(0, 3) X(0, 4) X(0, 5)                          \
-  X(1, 0) X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(1, 5)                          \
-  X(2, 0) X(2, 1) X(2, 2) X(2, 3) X(2, 4) X(2, 5)                          \
-  X(3, 0) X(3, 1) X(3, 2) X(3, 3) X(3, 4) X(3, 5)                          \
-  X(4, 0) X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(4, 5)                          \
-  X(5, 0) X(5, 1) X(5, 2) X(5, 3) X(5, 4) X(5, 5)
-
-ARMA_NE_FOR_EACH_ORDER(ARMA_NE_DECLARE)
 
 }  // namespace arma_ne

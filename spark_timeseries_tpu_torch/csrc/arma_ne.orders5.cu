@@ -2,7 +2,7 @@
 // the orders files share them out so that their nvcc runs, started
 // together, take about the same time.
 
-#include "arma_ne.cuh"
+#include "arma_ne_rows.cuh"
 
 namespace arma_ne {
 

@@ -11,7 +11,9 @@ chunk i+1 overlaps the fit of chunk i.  The tail chunk pads to its own
 chunk, all-NaN lanes for a ragged one); padding lanes quarantine
 themselves per lane and are sliced off.  :meth:`FitEngine.fit` fits one
 panel directly: eager PyTorch has no compile cache for bucketing to
-serve.
+serve (its ``bucket_obs`` is taken and changes nothing), and keywords the
+family's statics builder rejects (arima's ``user_init_params``) go to the
+family's own fit, as the JAX engine's direct bypass sends them.
 
 The resilient tier is here: :meth:`FitEngine.fit_resilient` pads the
 series axis with all-NaN lanes, which health classification skips, and
@@ -70,9 +72,9 @@ def pad_bucket(n_series: int, n_obs: int) -> Tuple[int, int]:
 
 _STATICS_BUILDERS = {
     "arima": lambda p=2, d=1, q=2, include_intercept=True,
-    method="css-lm", max_iter=None, retry=None:
+    method="css-lm", max_iter=None, retry=None, objective="css":
         (int(p), int(d), int(q), bool(include_intercept), str(method),
-         max_iter, retry),
+         max_iter, retry, str(objective)),
     "ar": lambda max_lag=2, no_intercept=False:
         (int(max_lag), bool(no_intercept)),
     "ewma": lambda: (),
@@ -92,12 +94,15 @@ _SOLVER_FAMILIES = ("ewma", "garch", "argarch", "egarch")
 RAGGED_FAMILIES = ("arima", "ar")
 
 
+def _unknown_family(family: str) -> ValueError:
+    return ValueError(f"unknown engine family {family!r}; expected one of "
+                      f"{sorted(_STATICS_BUILDERS)}")
+
+
 def _statics(family: str, kwargs) -> tuple:
     builder = _STATICS_BUILDERS.get(family)
     if builder is None:
-        raise NotImplementedError(
-            f"engine family {family!r} is not ported yet; the port fits "
-            f"{sorted(_STATICS_BUILDERS)}")
+        raise _unknown_family(family)
     return builder(**kwargs)
 
 
@@ -121,11 +126,11 @@ def _fit_values(family: str, statics: tuple, values: torch.Tensor,
     values, n_valid = ragged_view(values)
 
     if family == "arima":
-        p, d, q, icpt, method, max_iter, retry = statics
+        p, d, q, icpt, method, max_iter, retry, objective = statics
         return arima.fit(p, d, q, values, include_intercept=icpt,
                          method=method, max_iter=max_iter, retry=retry,
-                         warn=warn, n_valid=n_valid, device=values.device,
-                         stats=stats)
+                         warn=warn, n_valid=n_valid, objective=objective,
+                         device=values.device, stats=stats)
     max_lag, no_icpt = statics
     return autoregression.fit(values, max_lag, no_intercept=no_icpt,
                               n_valid=n_valid)
@@ -253,23 +258,55 @@ class FitEngine:
     """Batched fits of whole panels (:meth:`fit`) and streamed chunked
     fits of panels larger than device memory (:meth:`stream_fit`)."""
 
-    def fit(self, values, family: str = "arima", *, device=None,
-            warn: bool = False, **kwargs):
+    def fit(self, values, family: str = "arima", *, bucket_obs: bool = True,
+            device=None, warn: bool = False, **kwargs):
         """Fit one ``(n_series, n_obs)`` panel on ``device`` (``None`` means
         CUDA).  ``kwargs`` are the family's fit parameters (arima:
         ``p``/``d``/``q``/``include_intercept``/``method``/``max_iter``/
-        ``retry``; ar: ``max_lag``/``no_intercept``; holt_winters:
-        ``period``/``model_type``; ewma, garch, argarch and egarch take
-        none).  NaN-padded lanes of arima and ar fit their valid windows
-        (holt_winters left-aligns its own); NaN inside a window raises."""
-        statics = _statics(family, kwargs)
+        ``retry``/``objective``; ar: ``max_lag``/``no_intercept``;
+        holt_winters: ``period``/``model_type``; ewma, garch, argarch and
+        egarch take none).  NaN-padded lanes of arima and ar fit their
+        valid windows (holt_winters left-aligns its own); NaN inside a
+        window raises.
+
+        ``bucket_obs`` is the JAX engine's (whether to pad the observation
+        axis to its bucket); the port fits every panel at its own shape,
+        so it changes nothing.  As the JAX engine's direct bypass does,
+        a panel that is not 2-D, or keywords the family's statics builder
+        rejects (arima's ``user_init_params``), go to the family's own fit
+        (:meth:`_direct`); a family the engine does not fit raises
+        ``ValueError``."""
+        del bucket_obs
         dev = resolve_device(device)
         v = as_tensor(values, dev)
-        if v.ndim != 2:
-            raise ValueError(
-                f"FitEngine.fit needs a (n_series, n_obs) panel, got "
-                f"{tuple(v.shape)}")
+        builder = _STATICS_BUILDERS.get(family)
+        if builder is None or v.ndim != 2:
+            return self._direct(v, family, warn, kwargs)
+        try:
+            statics = builder(**kwargs)
+        except TypeError:
+            return self._direct(v, family, warn, kwargs)
         return _fit_values(family, statics, v, warn)
+
+    @staticmethod
+    def _direct(values: torch.Tensor, family: str, warn: bool, kwargs):
+        """The family's own fit of ``values`` (on their device) with the
+        keywords as given: the JAX engine's bypass."""
+        from .models import arima, autoregression, ewma, garch, holt_winters
+
+        dev = values.device
+        if family == "arima":
+            kw = dict(kwargs)
+            p, d, q = kw.pop("p", 2), kw.pop("d", 1), kw.pop("q", 2)
+            return arima.fit(p, d, q, values, warn=warn, device=dev, **kw)
+        if family == "ar":
+            return autoregression.fit(values, **kwargs)
+        table = {"ewma": ewma.fit, "garch": garch.fit,
+                 "argarch": garch.fit_ar_garch, "egarch": garch.fit_egarch,
+                 "holt_winters": holt_winters.fit}
+        if family not in table:
+            raise _unknown_family(family)
+        return table[family](values, device=dev, **kwargs)
 
     # -- resilient tier (the Panel.fit_resilient front-end) -----------------
 

@@ -7,10 +7,11 @@ that pass, each a hand-written kernel of ``csrc/arma_ne.cu`` on a CUDA
 tensor and a plain PyTorch version on a CPU tensor, with no fallback
 between the two (a kernel that fails to build or launch raises):
 
-- :func:`normal_equations`, one pass (``arma_ne_kernel``, the port of the
-  Pallas kernel ``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``;
-  plain: :func:`normal_equations_plain`, the same arithmetic written as a
-  Python loop over time steps on the lane batch);
+- :func:`normal_equations`, one pass (``arma_ne_rows_kernel``, the port
+  of the Pallas kernel
+  ``spark_timeseries_tpu/ops/pallas_arma.py::_ne_kernel``; plain:
+  :func:`normal_equations_plain`, the same arithmetic written as a Python
+  loop over time steps on the lane batch);
 - :func:`fit_css_lm`, the whole LM fit of a panel, or of a candidate
   grid ``x0 (C·S, k)`` over one ``(S, n)`` panel (``arma_lm_fit_kernel``:
   one launch that runs every lane's solver state machine on the card, or,
@@ -19,16 +20,26 @@ between the two (a kernel that fails to build or launch raises):
   LM loop over the plain pass).  :func:`fit_css_lm_route` runs the same batched loop over
   :func:`normal_equations`, one kernel launch per iteration: the route the
   LM-fit kernel is held against.  The ARIMA fit runs :func:`fit_css_lm`;
-- :func:`css_cost`, the CSS cost alone (``arma_css_kernel``; plain:
+- :func:`css_cost`, the CSS cost alone (``arma_css_rows_kernel``; plain:
   :func:`css_cost_plain`).
 
-The kernels take the panel time-major (``(n_obs, S)``, so a warp's loads
-at one step are contiguous); the fits transpose the panel once, as the
-Pallas solver blocks it once up front.  The normal-equations and LM-fit
-kernels are instantiated for ``p, q <= 5`` with and without intercept
+The one-pass kernels read the panel series-major, as the callers hold it
+(``params (S, k)``, ``y (S, n_obs)``, staged through shared memory), and
+write what the wrappers return, so a call is one launch.  The LM-fit
+kernel takes the panel time-major (``(n_obs, S)``, so a warp's loads at
+one step are contiguous); the fit transposes the panel once, as the
+Pallas solver blocks it once up front.  The time-major one-pass kernels
+(``arma_ne_kernel``, ``arma_css_kernel``) stay as the series-major ones'
+comparison, reached only from :func:`normal_equations_time_major` and
+:func:`css_cost_time_major`.  The normal-equations and LM-fit kernels
+are instantiated for ``p, q <= 5`` with and without intercept
 (``csrc/arma_ne.cuh``, spread over ``csrc/arma_ne.orders*.cu``).  What
-bounds the kernels on the H100 is written in the source note of
-``csrc/arma_ne.cu``.
+bounds the kernels on the H100 is written in the source notes of
+``csrc/arma_ne.cu``, ``csrc/arma_ne.sse.cu`` and ``csrc/stage_rows.cuh``.
+
+Each one-pass wrapper counts its launches (``.launches``) and the lane
+counts they ran at (``.widths``: launches by :func:`width_bucket`), plain
+counters that a run reads to see which widths its paths give the kernel.
 """
 
 from __future__ import annotations
@@ -69,6 +80,19 @@ def check_kernel_order(p: int, q: int, icpt: int) -> None:
         raise ValueError("the ARMA kernel needs at least one parameter")
 
 
+def width_bucket(S: int) -> int:
+    """The power-of-two bucket of a launch over ``S`` lanes, the key of a
+    wrapper's ``widths`` histogram: the least power of two ``>= S``."""
+    return 1 << max(int(S) - 1, 0).bit_length()
+
+
+def _count(wrapper, S: int) -> None:
+    """One launch of ``wrapper``'s kernel over ``S`` lanes."""
+    wrapper.launches += 1
+    key = width_bucket(S)
+    wrapper.widths[key] = wrapper.widths.get(key, 0) + 1
+
+
 def _check_window(n_obs: int, p: int, q: int) -> None:
     if n_obs <= max(p, q):
         raise ValueError(
@@ -88,8 +112,8 @@ def _kernel_fn():
 def _launch(params_t: torch.Tensor, y_t: torch.Tensor,
             nv: Optional[torch.Tensor], p: int, q: int,
             icpt: int) -> torch.Tensor:
-    """Launch ``csrc/arma_ne.cu`` on the current stream; returns the packed
-    ``(n_out, S)`` output (not synchronised)."""
+    """Launch the time-major ``arma_ne_kernel`` on the current stream;
+    returns the packed ``(n_out, S)`` output (not synchronised)."""
     check_kernel_order(p, q, icpt)
     k = icpt + p + q
     n_obs, S = y_t.shape
@@ -108,7 +132,7 @@ def _launch(params_t: torch.Tensor, y_t: torch.Tensor,
                   out.data_ptr(), S, n_obs, p, q, icpt,
                   what=f"arma_ne kernel launch failed for ARMA({p},{q}) "
                        f"icpt={icpt} S={S} n_obs={n_obs}")
-    normal_equations.launches += 1
+    _count(normal_equations_time_major, S)
     return out
 
 
@@ -175,14 +199,6 @@ def _packed_plain(params_t: torch.Tensor, y_t: torch.Tensor,
     return torch.stack([sse, *jtj, *jtr])
 
 
-def _packed(params_t, y_t, nv, p, q, icpt) -> torch.Tensor:
-    """Device dispatch: the kernel for CUDA tensors, the plain loop for
-    CPU tensors."""
-    if y_t.is_cuda:
-        return _launch(params_t, y_t, nv, p, q, icpt)
-    return _packed_plain(params_t, y_t, nv, p, q, icpt)
-
-
 @functools.lru_cache(maxsize=None)
 def _triu_index(k: int, device: torch.device):
     """Row and column indices of the packed upper triangle, made once per
@@ -212,6 +228,91 @@ def _masked_ne(jtj, jtr, sse, mask):
     return (jtj * mask[:, :, None] * mask[:, None, :], jtr * mask, sse)
 
 
+class RowsTile(NamedTuple):
+    """How a series-major one-pass launch walks the panel
+    (``csrc/stage_rows.cuh``): lanes (threads) a block, whether the
+    block's rows are staged whole in shared memory (1) or read from global
+    memory (0, rows too long to stage), the staged row pitch in floats,
+    dynamic shared memory bytes a block, blocks."""
+    lanes: int
+    staged: int
+    pitch: int
+    smem_bytes: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_fns():
+    lib = _build.library("arma_ne")
+    tile = lib.arma_rows_tile
+    tile.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    ne = lib.arma_ne_rows_launch
+    ne.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    css = lib.arma_css_rows_launch
+    css.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    for fn in (tile, ne, css):
+        fn.restype = ctypes.c_int
+    return tile, ne, css
+
+
+def rows_tile(S: int, n_obs: int, p: int, q: int, icpt: int,
+              cost_only: bool, device: torch.device,
+              lanes: int = 0) -> RowsTile:
+    """The tile a launch of :func:`normal_equations` (or, ``cost_only``,
+    of :func:`css_cost`) over ``S`` lanes of ``n_obs`` steps takes on
+    ``device``'s card; ``lanes`` 0 is the kernels' own choice from ``S``
+    and ``n_obs``."""
+    tile, _, _ = _rows_fns()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = tile(S, n_obs, p, q, icpt, int(cost_only), lanes, out)
+    if rc != 0:
+        raise _build.KernelError(
+            f"no series-major tile for S={S} n_obs={n_obs} ARMA({p},{q}) "
+            f"lanes={lanes}")
+    return RowsTile(*out)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _ne_rows(params: torch.Tensor, y: torch.Tensor,
+             nv: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+             p: int, q: int, icpt: int, lanes: int = 0):
+    """Launch ``arma_ne_rows_kernel`` on the current stream over
+    ``params (S, k)``, ``y (S, n_obs)``, ``nv (S,)`` and ``mask (S, k)``
+    (or None) as given; returns ``(JᵀJ (S, k, k), Jᵀr (S, k), sse (S,))``
+    (not synchronised).  ``lanes`` overrides the block's lane count
+    (:func:`rows_tile`)."""
+    check_kernel_order(p, q, icpt)
+    k = icpt + p + q
+    S, n_obs = y.shape
+    _build.check_inputs([y, params] + [t for t in (nv, mask)
+                                       if t is not None], "ARMA")
+    if params.shape != (S, k) or (nv is not None and nv.shape != (S,)) \
+            or (mask is not None and mask.shape != (S, k)):
+        raise ValueError(
+            f"shape mismatch: params {tuple(params.shape)} (expected "
+            f"{(S, k)}), y {tuple(y.shape)}, n_valid "
+            f"{None if nv is None else tuple(nv.shape)}, mask "
+            f"{None if mask is None else tuple(mask.shape)}")
+    _check_window(n_obs, p, q)
+    dev = y.device
+    jtj = torch.empty((S, k, k), dtype=torch.float32, device=dev)
+    jtr = torch.empty((S, k), dtype=torch.float32, device=dev)
+    sse = torch.empty((S,), dtype=torch.float32, device=dev)
+    _build.launch(_rows_fns()[1], dev, params.data_ptr(), y.data_ptr(),
+                  _ptr(nv), _ptr(mask), jtj.data_ptr(), jtr.data_ptr(),
+                  sse.data_ptr(), S, n_obs, p, q, icpt, lanes,
+                  what=f"arma_ne_rows kernel launch failed for "
+                       f"ARMA({p},{q}) icpt={icpt} S={S} n_obs={n_obs}")
+    _count(normal_equations, S)
+    return jtj, jtr, sse
+
+
 def _normal_equations(packed_fn, params, y, p, q, icpt, mask, n_valid):
     k = icpt + p + q
     _check_window(y.shape[-1], p, q)
@@ -231,15 +332,44 @@ def normal_equations(params: torch.Tensor, y: torch.Tensor,
     """Batched fused ``(JᵀJ (S, k, k), Jᵀr (S, k), sse (S,))`` of the ARMA
     CSS residuals; ``params (S, k)``, ``y (S, n)``.
 
-    A CUDA tensor launches the kernel (float32, ``p, q <= 5``; anything
-    else raises) and adds one to ``normal_equations.launches``; a CPU
-    tensor runs :func:`normal_equations_plain`.  ``mask (S, k)`` gives the
+    A CUDA tensor launches ``arma_ne_rows_kernel`` once (float32,
+    ``p, q <= 5``; anything else raises) on the operands as they are,
+    with the mask fused, and adds one to ``normal_equations.launches``
+    and to ``normal_equations.widths`` at its lane count; a CPU tensor
+    runs :func:`normal_equations_plain`.  ``mask (S, k)`` gives the
     masked objective ``r(x ∘ mask)``; ``n_valid (S,)`` restricts each lane
     to its left-aligned valid window (``ops.ragged``)."""
-    return _normal_equations(_packed, params, y, p, q, icpt, mask, n_valid)
+    if not y.is_cuda:
+        return normal_equations_plain(params, y, p, q, icpt, mask, n_valid)
+    _check_window(y.shape[-1], p, q)
+    if mask is not None:
+        mask = mask.to(params.dtype).contiguous()
+    nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    return _ne_rows(params.contiguous(), y.contiguous(), nv, mask, p, q,
+                    icpt)
 
 
 normal_equations.launches = 0
+normal_equations.widths = {}
+
+
+def normal_equations_time_major(params: torch.Tensor, y: torch.Tensor,
+                                p: int, q: int, icpt: int,
+                                mask: Optional[torch.Tensor] = None,
+                                n_valid: Optional[torch.Tensor] = None):
+    """:func:`normal_equations` through the time-major ``arma_ne_kernel``
+    with the transposes of ``params`` and ``y`` before it and the unpack
+    of its packed triangle after it: the comparison of the series-major
+    kernel (equal bit for bit), on CUDA tensors only; it counts into its
+    own ``launches`` and ``widths``."""
+    if not y.is_cuda:
+        raise ValueError("the time-major arma_ne kernel runs on a card: "
+                         "pass CUDA tensors")
+    return _normal_equations(_launch, params, y, p, q, icpt, mask, n_valid)
+
+
+normal_equations_time_major.launches = 0
+normal_equations_time_major.widths = {}
 
 
 def normal_equations_plain(params: torch.Tensor, y: torch.Tensor,
@@ -302,15 +432,19 @@ def _css_kernel_fn():
     return fn
 
 
-def _css_launch(params_t: torch.Tensor, y_t: torch.Tensor,
-                nv: Optional[torch.Tensor], p: int, q: int,
-                icpt: int) -> torch.Tensor:
-    """Launch the cost-only kernel of ``csrc/arma_ne.cu`` on the current
-    stream; returns the ``(1, S)`` sse (not synchronised)."""
+def _check_css_order(p: int, q: int, icpt: int) -> None:
     if not (p >= 0 and 0 <= q <= CSS_MAX_Q) or icpt + p + q == 0:
         raise ValueError(
             f"the CUDA CSS-cost kernel takes q <= {CSS_MAX_Q} and at least "
             f"one parameter, got ARMA({p},{q}) icpt={icpt}")
+
+
+def _css_launch(params_t: torch.Tensor, y_t: torch.Tensor,
+                nv: Optional[torch.Tensor], p: int, q: int,
+                icpt: int) -> torch.Tensor:
+    """Launch the time-major ``arma_css_kernel`` on the current stream;
+    returns the ``(1, S)`` sse (not synchronised)."""
+    _check_css_order(p, q, icpt)
     k = icpt + p + q
     n_obs, S = y_t.shape
     _build.check_inputs([y_t, params_t] + ([] if nv is None else [nv]),
@@ -326,8 +460,35 @@ def _css_launch(params_t: torch.Tensor, y_t: torch.Tensor,
                   out.data_ptr(), S, n_obs, p, q, icpt,
                   what=f"arma_css kernel launch failed for ARMA({p},{q}) "
                        f"icpt={icpt} S={S} n_obs={n_obs}")
-    css_cost.launches += 1
+    _count(css_cost_time_major, S)
     return out
+
+
+def _css_rows(params: torch.Tensor, y: torch.Tensor,
+              nv: Optional[torch.Tensor], p: int, q: int, icpt: int,
+              lanes: int = 0) -> torch.Tensor:
+    """Launch ``arma_css_rows_kernel`` on the current stream over
+    ``params (S, k)``, ``y (S, n_obs)`` and ``nv (S,)`` (or None) as
+    given; returns the ``(S,)`` sse (not synchronised).  ``lanes``
+    overrides the block's lane count (:func:`rows_tile`)."""
+    _check_css_order(p, q, icpt)
+    k = icpt + p + q
+    S, n_obs = y.shape
+    _build.check_inputs([y, params] + ([] if nv is None else [nv]),
+                        "CSS-cost")
+    if params.shape != (S, k) or (nv is not None and nv.shape != (S,)):
+        raise ValueError(
+            f"shape mismatch: params {tuple(params.shape)} (expected "
+            f"{(S, k)}), y {tuple(y.shape)}")
+    _check_window(n_obs, p, q)
+    sse = torch.empty((S,), dtype=torch.float32, device=y.device)
+    _build.launch(_rows_fns()[2], y.device, params.data_ptr(),
+                  y.data_ptr(), _ptr(nv), sse.data_ptr(), S, n_obs, p, q,
+                  icpt, lanes,
+                  what=f"arma_css_rows kernel launch failed for "
+                       f"ARMA({p},{q}) icpt={icpt} S={S} n_obs={n_obs}")
+    _count(css_cost, S)
+    return sse
 
 
 def _css_cost(launch, params, y, p, q, icpt, n_valid):
@@ -344,15 +505,37 @@ def css_cost(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
     residuals, ``(S,)``; ``params (S, k)``, ``y (S, n)``, ``n_valid (S,)``
     restricts each lane to its left-aligned valid window.
 
-    A CUDA tensor launches the cost-only kernel (float32, ``q <= 5``;
-    anything else raises) and adds one to ``css_cost.launches``; a CPU
-    tensor runs :func:`css_cost_plain`."""
-    if y.is_cuda:
-        return _css_cost(_css_launch, params, y, p, q, icpt, n_valid)
-    return css_cost_plain(params, y, p, q, icpt, n_valid)
+    A CUDA tensor launches ``arma_css_rows_kernel`` once (float32,
+    ``q <= 5``; anything else raises) on the operands as they are and
+    adds one to ``css_cost.launches`` and to ``css_cost.widths`` at its
+    lane count; a CPU tensor runs :func:`css_cost_plain`."""
+    if not y.is_cuda:
+        return css_cost_plain(params, y, p, q, icpt, n_valid)
+    _check_window(y.shape[-1], p, q)
+    nv = None if n_valid is None else n_valid.to(y.dtype).contiguous()
+    return _css_rows(params.contiguous(), y.contiguous(), nv, p, q, icpt)
 
 
 css_cost.launches = 0
+css_cost.widths = {}
+
+
+def css_cost_time_major(params: torch.Tensor, y: torch.Tensor, p: int,
+                        q: int, icpt: int,
+                        n_valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """:func:`css_cost` through the time-major ``arma_css_kernel`` with
+    the transposes before it: the comparison of the series-major kernel
+    (equal bit for bit), on CUDA tensors only; it counts into its own
+    ``launches`` and ``widths``."""
+    if not y.is_cuda:
+        raise ValueError("the time-major arma_css kernel runs on a card: "
+                         "pass CUDA tensors")
+    return _css_cost(_css_launch, params, y, p, q, icpt, n_valid)
+
+
+css_cost_time_major.launches = 0
+css_cost_time_major.widths = {}
 
 
 def css_cost_plain(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
@@ -431,23 +614,33 @@ def _lm_inputs(x0, y, p, q, icpt, mask, n_valid, grid_orders=None):
     return x0, mask, nv
 
 
-def _lm_loop(packed_fn, x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
-             grid_orders):
-    """The batched LM loop with the normal equations from ``packed_fn``;
-    a candidate grid gathers the panel to one copy per candidate."""
+def _lm_loop(kernel: bool, x0, y, p, q, icpt, tol, max_iter, mask,
+             n_valid, grid_orders):
+    """The batched LM loop with the normal equations from the series-major
+    kernel (``kernel``) or the plain pass; a candidate grid gathers the
+    panel to one copy per candidate."""
     x0, mask, nv = _lm_inputs(x0, y, p, q, icpt, mask, n_valid, grid_orders)
     S, k = x0.shape
     C = S // y.shape[0]
     if C > 1:
         y = y.repeat(C, 1)
         nv = None if nv is None else nv.repeat(C)
-    y_t = y.T.contiguous()                  # (n_obs, S), once per fit
+    if kernel:
+        check_kernel_order(p, q, icpt)
+        y = y.contiguous()
+        mask = None if mask is None else mask.contiguous()
 
-    def ne(x):
-        if mask is not None:
-            x = x * mask
-        res = _unpack(packed_fn(x.T.contiguous(), y_t, nv, p, q, icpt), k)
-        return _masked_ne(*res, mask) if mask is not None else res
+        def ne(x):
+            return _ne_rows(x.contiguous(), y, nv, mask, p, q, icpt)
+    else:
+        y_t = y.T.contiguous()              # (n_obs, S), once per fit
+
+        def ne(x):
+            if mask is not None:
+                x = x * mask
+            res = _unpack(_packed_plain(x.T.contiguous(), y_t, nv, p, q,
+                                        icpt), k)
+            return _masked_ne(*res, mask) if mask is not None else res
 
     return lm_state_machine(ne, x0, tol, max_iter)
 
@@ -461,8 +654,8 @@ def fit_css_lm_plain(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
     dtype — the version the kernel is held against: the batched LM loop
     over :func:`normal_equations_plain`'s pass.  ``grid_orders`` is
     defined here: the mask times each candidate's order mask."""
-    return _lm_loop(_packed_plain, x0, y, p, q, icpt, tol, max_iter, mask,
-                    n_valid, grid_orders)
+    return _lm_loop(False, x0, y, p, q, icpt, tol, max_iter, mask, n_valid,
+                    grid_orders)
 
 
 def fit_css_lm_route(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
@@ -470,12 +663,13 @@ def fit_css_lm_route(x0: torch.Tensor, y: torch.Tensor, p: int, q: int,
                      mask: Optional[torch.Tensor] = None,
                      n_valid: Optional[torch.Tensor] = None,
                      grid_orders: Optional[Sequence] = None):
-    """The same batched LM loop over :func:`normal_equations`' dispatch:
-    on CUDA one ``arma_ne`` kernel launch up front and one per iteration,
-    with the damped solves and updates as tensor ops and one host sync
-    per iteration for the loop test.  The comparison route of the LM-fit
-    kernel; on the CPU it equals :func:`fit_css_lm_plain`."""
-    return _lm_loop(_packed, x0, y, p, q, icpt, tol, max_iter, mask,
+    """The same batched LM loop over :func:`normal_equations`' kernel: on
+    CUDA one ``arma_ne_rows_kernel`` launch up front and one per
+    iteration (counted as :func:`normal_equations`' launches), with the
+    damped solves and updates as tensor ops and one host sync per
+    iteration for the loop test.  The comparison route of the LM-fit
+    kernel; on the CPU it is :func:`fit_css_lm_plain`."""
+    return _lm_loop(y.is_cuda, x0, y, p, q, icpt, tol, max_iter, mask,
                     n_valid, grid_orders)
 
 

@@ -604,8 +604,9 @@ _C1, _C2 = 1e-4, 0.9          # Wolfe constants of jax's line_search
 _ZOOM_DELTA1, _ZOOM_DELTA2 = 0.2, 0.1
 _ZOOM_MAX = 30                # zoom iterations before it gives up
 
-# lane phases of the batched BFGS
-_BRACKET, _ZOOM, _FINISHED = 0, 1, 2
+# lane phases of the batched BFGS (_REPORT: a failed line search's lane
+# evaluating the point it returns)
+_BRACKET, _ZOOM, _FINISHED, _REPORT = 0, 1, 2, 3
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
@@ -654,12 +655,16 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
     ``ls_maxiter`` bracketing steps, the cubic / quadratic / bisection
     zoom of at most 30 steps), its quirks kept — a failed zoom still
     moves the lane by its last step, and a line search that fails stops
-    the lane with ``failed``.  Two of jax's line-search faults are not
+    the lane with ``failed``.  Three of jax's line-search faults are not
     kept: its zoom reads the bracket's width as the signed ``a_hi -
     a_lo``, so a zoom on a reversed bracket fails at once (here the width
     is ``|a_hi - a_lo|``, in the failure test and the interpolation
-    safeguards), and a NaN trial value passes none of its tests (here,
-    from a finite start, it counts as no decrease).  Lanes advance in rounds: every round each
+    safeguards); a NaN trial value passes none of its tests (here, from a
+    finite start, it counts as no decrease); and a failed zoom reports
+    the value at its bracket's low end while the lane moves by the full
+    step (here the lane evaluates the point it moves to, one more round,
+    and reports that value, so ``f`` is always the objective at ``x``).
+    Lanes advance in rounds: every round each
     running lane needs one value-and-gradient at its next trial step
     (bracketing or zoom), one call over the working lanes; so the calls
     are the most evaluations any lane needs.  With ``compact`` the
@@ -709,6 +714,15 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
     def bfgs_cond():
         return ~s.converged & ~s.failed & (s.k < max_iter)
 
+    def step_length():
+        """The line search's step as jax's returns it: under float64 its
+        a_star, else floored at 1e-8 in magnitude."""
+        alpha = s.ast
+        if f32:
+            alpha = torch.where(torch.abs(alpha) < 1e-8,
+                                torch.sign(alpha) * 1e-8, alpha)
+        return alpha
+
     start_line_search(bfgs_cond())
 
     def wolfe_one(a, phi):          # the negation of the sufficient decrease
@@ -728,11 +742,7 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
                              torch.where(s.i > ls_maxiter,
                                          torch.full_like(s.i, 3),
                                          torch.zeros_like(s.i)))
-        alpha = s.ast
-        if f32:
-            alpha = torch.where(torch.abs(alpha) < 1e-8,
-                                torch.sign(alpha) * 1e-8, alpha)
-        step = alpha[:, None] * s.p
+        step = step_length()[:, None] * s.p
         g_new = s.gst
         y = g_new - s.g
         rho = 1.0 / (y * step).sum(dim=-1)
@@ -761,6 +771,7 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
                 ev = evaluator_for(work)
         bracket = s.phase == _BRACKET
         zoom = s.phase == _ZOOM
+        report = s.phase == _REPORT
         # the zoom body's head: its failure test and next trial step.  The
         # bracket's width is |a_hi - a_lo|: jax uses the signed difference,
         # so every zoom entered with a_hi < a_lo (each one a bracketing
@@ -781,7 +792,8 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
         a_zoom = torch.where(~use_cubic & ~use_quad, (s.alo + s.ahi) / 2.0,
                              a_zoom)
         a_bracket = torch.where(s.i == 1, s.start, s.a1 * 2.0)
-        t = torch.where(zoom, a_zoom, torch.where(bracket, a_bracket, zf))
+        t = torch.where(zoom, a_zoom, torch.where(
+            bracket, a_bracket, torch.where(report, step_length(), zf)))
         xt = s.x + t[:, None] * s.p
         fw, gw = ev(xt.index_select(0, work))
         calls += 1
@@ -790,6 +802,9 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
         g_t = torch.zeros_like(x0)
         phi[work] = fw.to(dt)
         g_t[work] = gw.to(dt)
+        # the value a failed line search reports: the objective at the
+        # point its lane moves to
+        s.put(report, phist=phi)
         # from a finite start, a trial whose value is NaN (a recursion that
         # overflowed) counts as no decrease, so the search backs off from
         # it; jax's tests are all false on NaN and it doubles the step on
@@ -834,11 +849,14 @@ def _bfgs_solve(evaluator_for, x0, max_iter, gtol, ls_maxiter,
         s.put(zoom, zj=s.zj + 1)
         s.put(zoom, zfailed=s.zfailed | (s.zj >= _ZOOM_MAX))
         zend = zoom & (s.zdone | s.zfailed)
-        # a finished zoom ends the line search, successful or not
+        # a finished zoom ends the line search, successful or not; a
+        # failed one first evaluates the point it returns (next round)
         s.put(zend, ls_done=torch.ones_like(s.ls_done),
               ls_failed=s.ls_failed | s.zfailed, ast=s.zast,
               phist=s.zphist, dphist=s.zdphist, gst=s.zgst)
-        end_bracket_step((bracket & ~zstart) | zend)
+        to_report = zend & s.zfailed
+        s.put(to_report, phase=torch.full_like(s.phase, _REPORT))
+        end_bracket_step((bracket & ~zstart) | (zend & ~to_report) | report)
     if stats is not None:
         stats.update(calls=calls, rounds=rounds)
     return s.x, s.f, s.converged & ~s.failed, s.k.to(torch.int32)

@@ -275,6 +275,77 @@ def test_cpu_tensor_runs_the_plain_version():
         arma_ne.normal_equations(params, y[:, :2], 2, 2, 1)
 
 
+@pytest.mark.parametrize("cost", [False, True])
+def test_series_major_launch_takes_the_operands_as_given(monkeypatch, cost):
+    """The wrappers' launch of the series-major kernels: the caller's
+    float32 tensors go to the kernel as they are (their own pointers: no
+    transpose or copy), the outputs are what the wrapper returns, shaped
+    and contiguous, and each launch adds one to the count and to the
+    widths histogram at its power-of-two bucket.  (The launch itself is
+    recorded, not run: the kernels run only on a card.)"""
+    calls = []
+    monkeypatch.setattr(arma_ne, "_rows_fns",
+                        lambda: ("tile", "ne", "css"))
+    monkeypatch.setattr(arma_ne._build, "launch",
+                        lambda fn, dev, *args, what: calls.append(
+                            (fn, args)))
+    rng = np.random.default_rng(5)
+    p, q, icpt = 2, 1, 1
+    k = icpt + p + q
+    wrapper = arma_ne.css_cost if cost else arma_ne.normal_equations
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "widths", {})
+    for S in (1, 33, 33, 4097):
+        y = torch.from_numpy(_panel(rng, S, 40).astype(np.float32))
+        prm = torch.from_numpy(
+            (0.1 * rng.normal(size=(S, k))).astype(np.float32))
+        nv = torch.full((S,), 30.0)
+        mask = torch.ones((S, k))
+        if cost:
+            out = arma_ne._css_rows(prm, y, nv, p, q, icpt)
+            assert out.shape == (S,) and out.is_contiguous()
+            fn, args = calls[-1]
+            assert fn == "css"
+            outs = (out,)
+        else:
+            out = arma_ne._ne_rows(prm, y, nv, mask, p, q, icpt)
+            assert [tuple(t.shape) for t in out] == [(S, k, k), (S, k),
+                                                     (S,)]
+            assert all(t.is_contiguous() and t.dtype == torch.float32
+                       for t in out)
+            fn, args = calls[-1]
+            assert fn == "ne" and args[3] == mask.data_ptr()
+            outs = out
+        n_in = 3 if cost else 4
+        assert args[:3] == (prm.data_ptr(), y.data_ptr(), nv.data_ptr())
+        assert args[n_in:n_in + len(outs)] \
+            == tuple(t.data_ptr() for t in outs)
+        assert args[n_in + len(outs):] == (S, 40, p, q, icpt, 0)
+    assert wrapper.launches == 4
+    assert wrapper.widths == {1: 1, 64: 2, 8192: 1}
+    assert [arma_ne.width_bucket(S) for S in (1, 2, 3, 4096, 4097)] \
+        == [1, 2, 4, 4096, 8192]
+    # what the kernels do not take raises before any launch
+    with pytest.raises(ValueError, match="contiguous"):
+        (arma_ne._css_rows if cost else arma_ne._ne_rows)(
+            *((prm.T.contiguous().T, y, None) + (() if cost else (None,))),
+            p, q, icpt)
+    with pytest.raises(ValueError, match="float32"):
+        (arma_ne._css_rows if cost else arma_ne._ne_rows)(
+            *((prm.double(), y.double(), None)
+              + (() if cost else (None,))), p, q, icpt)
+    assert wrapper.launches == 4
+
+
+def test_time_major_comparisons_run_on_a_card_only():
+    y = torch.zeros((4, 20))
+    prm = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        arma_ne.normal_equations_time_major(prm, y, 1, 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        arma_ne.css_cost_time_major(prm, y, 1, 1, 1)
+
+
 def test_kernel_order_check():
     arma_ne.check_kernel_order(3, 3, 1)
     arma_ne.check_kernel_order(5, 5, 1)

@@ -18,8 +18,11 @@ def test_sources_group_into_libraries():
     assert set(libs) == {"arma_ne", "hw_sse"}
     assert libs["hw_sse"] == ["hw_sse.cu"]
     assert libs["arma_ne"][0] == "arma_ne.cu"
-    assert all(re.fullmatch(r"arma_ne\.orders\d+\.cu", n)
+    # its parts: the per-order instantiations and the series-major cost
+    # kernel
+    assert all(re.fullmatch(r"arma_ne\.(orders\d+|sse)\.cu", n)
                for n in libs["arma_ne"][1:])
+    assert "arma_ne.sse.cu" in libs["arma_ne"]
 
 
 def test_every_arma_order_instantiated_once():

@@ -1,8 +1,10 @@
 """The port on an NVIDIA card: the CUDA kernels (ARMA normal equations,
 ARMA LM fit, per series and over a candidate grid, CSS cost, Holt-Winters
 SSE value and gradient, Holt-Winters box fit) against their plain
-versions, the fits (``auto_fit_panel`` among them) and the streaming
-engine on CUDA against the same calls on the CPU, and the ``Panel`` on
+versions, the series-major one-pass ARMA kernels against the time-major
+ones bit for bit at every order, width and block shape, the fits
+(``auto_fit_panel`` among them) and the streaming engine on CUDA against
+the same calls on the CPU, and the ``Panel`` on
 the card: its fills against the CPU's, ``Panel.stream_fit`` /
 ``Panel.auto_fit`` against the engine and ``auto_fit_panel``, the CSV
 codec built on the card's machine, and the fail-soft tier: the CSS
@@ -509,6 +511,174 @@ def test_css_cost_kernel_every_order(cuda, ragged):
         assert arma_ne.css_cost.launches == before + 1
         # float32 sums over ~90 steps
         torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+# -- the series-major one-pass kernels against the time-major ones ---------
+
+ROWS_ORDERS = [(p, q, icpt) for p in range(6) for q in range(6)
+               for icpt in (0, 1) if p + q + icpt]
+ROWS_WIDTHS = (1, 33, 1000, 4097)
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _rows_inputs(rng, S, n, k, mode, cuda):
+    params = torch.from_numpy(
+        (0.1 * rng.normal(size=(S, k))).astype(np.float32)).to(cuda)
+    nv = torch.from_numpy(rng.integers(n // 3, n + 1, size=S).astype(
+        np.float32)).to(cuda) if mode == "ragged" else None
+    mask = torch.from_numpy((rng.random((S, k)) > 0.3).astype(
+        np.float32)).to(cuda) if mode == "masked" else None
+    return params, nv, mask
+
+
+@pytest.mark.parametrize("n", [127, 97, 128])
+@pytest.mark.parametrize("mode", ["dense", "ragged", "masked"])
+def test_ne_rows_kernel_equals_time_major_every_order(cuda, mode, n):
+    """``normal_equations`` (one ``arma_ne_rows_kernel`` launch on the
+    operands as given) against ``normal_equations_time_major`` (the
+    transposes, ``arma_ne_kernel`` and the unpack), bit for bit, at every
+    instantiated order and awkward widths."""
+    rng = np.random.default_rng(31 + n)
+    y_all = torch.from_numpy(_panel(rng, max(ROWS_WIDTHS), n)
+                             .astype(np.float32)).to(cuda)
+    for S in ROWS_WIDTHS:
+        y = y_all[:S]
+        for p, q, icpt in ROWS_ORDERS:
+            params, nv, mask = _rows_inputs(rng, S, n, icpt + p + q, mode,
+                                            cuda)
+            before = arma_ne.normal_equations.launches
+            got = arma_ne.normal_equations(params, y, p, q, icpt, mask=mask,
+                                           n_valid=nv)
+            want = arma_ne.normal_equations_time_major(
+                params, y, p, q, icpt, mask=mask, n_valid=nv)
+            torch.cuda.synchronize()
+            assert arma_ne.normal_equations.launches == before + 1
+            k = icpt + p + q
+            assert [tuple(t.shape) for t in got] == [(S, k, k), (S, k), (S,)]
+            assert all(t.is_contiguous() for t in got)
+            for g, w in zip(got, want):
+                assert _bits_equal(g, w), (S, p, q, icpt)
+
+
+@pytest.mark.parametrize("n", [127, 97, 128])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_css_rows_kernel_equals_time_major_every_order(cuda, ragged, n):
+    """``css_cost`` (one ``arma_css_rows_kernel`` launch) against
+    ``css_cost_time_major``, bit for bit: every static AR order, q <= 5,
+    and the runtime-p form at p = 7 and 9."""
+    rng = np.random.default_rng(41 + n)
+    y_all = torch.from_numpy(_panel(rng, max(ROWS_WIDTHS), n)
+                             .astype(np.float32)).to(cuda)
+    orders = [(p, q) for p in range(6) for q in range(6)] + [(7, 0), (7, 3),
+                                                             (9, 5)]
+    for S in ROWS_WIDTHS:
+        y = y_all[:S]
+        for i, (p, q) in enumerate(orders):
+            icpt = 1 if p + q == 0 else i % 2
+            params, nv, _ = _rows_inputs(rng, S, n, icpt + p + q,
+                                         "ragged" if ragged else "dense",
+                                         cuda)
+            before = arma_ne.css_cost.launches
+            got = arma_ne.css_cost(params, y, p, q, icpt, n_valid=nv)
+            want = arma_ne.css_cost_time_major(params, y, p, q, icpt,
+                                               n_valid=nv)
+            torch.cuda.synchronize()
+            assert arma_ne.css_cost.launches == before + 1
+            assert got.shape == (S,) and got.is_contiguous()
+            assert _bits_equal(got, want), (S, p, q, icpt)
+
+
+@pytest.mark.parametrize("n", [127, 1000])
+def test_rows_kernels_every_tile(cuda, n):
+    """Every block shape (32 to 128 lanes) gives the time-major kernels'
+    bits, dense, ragged and masked, with the runtime-p cost form among
+    the orders; at n = 1000 the rows are too long to stage whole and the
+    kernels read them from global memory."""
+    rng = np.random.default_rng(43 + n)
+    S = 1000
+    y = torch.from_numpy(_panel(rng, S, n).astype(np.float32)).to(cuda)
+    lane_counts = [0, 32, 64, 96, 128]
+    # the kernels' own tile: the whole rows while 32 lanes' rows fit in
+    # 72 KB, else global memory
+    assert arma_ne.rows_tile(S, n, 2, 2, 1, False, cuda).staged \
+        == (0 if 32 * (n | 1) * 4 > 72 * 1024 else 1)
+    for mode in ("dense", "ragged", "masked"):
+        for p, q, icpt in ((2, 2, 1), (5, 5, 1), (1, 0, 0)):
+            params, nv, mask = _rows_inputs(rng, S, n, icpt + p + q, mode,
+                                            cuda)
+            want = arma_ne.normal_equations_time_major(
+                params, y, p, q, icpt, mask=mask, n_valid=nv)
+            for lanes in lane_counts:
+                got = arma_ne._ne_rows(params, y, nv, mask, p, q, icpt,
+                                       lanes)
+                for g, w in zip(got, want):
+                    assert _bits_equal(g, w), (mode, p, q, lanes)
+        for p, q, icpt in ((2, 2, 1), (7, 1, 1), (12, 2, 0)):
+            params, nv, _ = _rows_inputs(rng, S, n, icpt + p + q, mode,
+                                         cuda)
+            want = arma_ne.css_cost_time_major(params, y, p, q, icpt,
+                                               n_valid=nv)
+            for lanes in lane_counts:
+                got = arma_ne._css_rows(params, y, nv, p, q, icpt, lanes)
+                assert _bits_equal(got, want), (mode, p, q, lanes)
+    torch.cuda.synchronize()
+
+
+def test_rows_kernels_on_every_card(cuda):
+    """The staged kernels raise their shared-memory limit on the card they
+    launch on: a 128-lane tile (over 48 KB a block) on each card in turn,
+    the first one last again, gives the time-major kernels' bits."""
+    rng = np.random.default_rng(45)
+    S, n = 4096, 127
+    y = torch.from_numpy(_panel(rng, S, n).astype(np.float32))
+    params, nv, _ = _rows_inputs(rng, S, n, 5, "ragged", cuda)
+    params, nv = params.cpu(), nv.cpu()
+    for i in list(range(torch.cuda.device_count())) + [0]:
+        dev = torch.device("cuda", i)
+        for cost in (False, True):
+            assert arma_ne.rows_tile(S, n, 2, 2, 1, cost, dev,
+                                     128).smem_bytes > 48 * 1024
+        yd, pd, nd = y.to(dev), params.to(dev), nv.to(dev)
+        got = (*arma_ne._ne_rows(pd, yd, nd, None, 2, 2, 1, 128),
+               arma_ne._css_rows(pd, yd, nd, 2, 2, 1, 128))
+        want = (*arma_ne.normal_equations_time_major(pd, yd, 2, 2, 1,
+                                                     n_valid=nd),
+                arma_ne.css_cost_time_major(pd, yd, 2, 2, 1, n_valid=nd))
+        torch.cuda.synchronize(dev)
+        for g, w in zip(got, want):
+            assert _bits_equal(g, w), i
+
+
+def test_rows_kernels_one_launch_a_call(cuda):
+    """A ``normal_equations`` call without a mask and a ``css_cost`` call
+    run one kernel each on the card (``torch.profiler``): no transpose,
+    no unpack; and the widths histogram counts each launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(44)
+    S, n = 4097, 127
+    y = torch.from_numpy(_panel(rng, S, n).astype(np.float32)).to(cuda)
+    params, nv, _ = _rows_inputs(rng, S, n, 5, "ragged", cuda)
+    arma_ne.normal_equations(params, y, 2, 2, 1, n_valid=nv)
+    arma_ne.css_cost(params, y, 2, 2, 1, n_valid=nv)
+    torch.cuda.synchronize()
+    arma_ne.normal_equations.widths.clear()
+    arma_ne.css_cost.widths.clear()
+    for fn in (lambda: arma_ne.normal_equations(params, y, 2, 2, 1,
+                                                n_valid=nv),
+               lambda: arma_ne.css_cost(params, y, 2, 2, 1, n_valid=nv)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+    assert arma_ne.normal_equations.widths == {8192: 1}
+    assert arma_ne.css_cost.widths == {8192: 1}
 
 
 def _hw_panel(rng, S, n, m):

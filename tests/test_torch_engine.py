@@ -101,7 +101,8 @@ def test_stream_fit_rejects_what_the_port_lacks(monkeypatch):
     with pytest.raises(NotImplementedError, match="journal"):
         engine.FitEngine().stream_fit(y, "arima", journal="j.jsonl",
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # a family the JAX engine does not stream either: its ValueError
+    with pytest.raises(ValueError, match="unknown engine family"):
         engine.FitEngine().stream_fit(y, "arimax", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

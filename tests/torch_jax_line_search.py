@@ -1,21 +1,25 @@
 """The reference of the port's BFGS parity tests: ``jax.scipy.optimize``'s
-BFGS with the two line-search faults that the port's ``minimize_bfgs``
+BFGS with the three line-search faults that the port's ``minimize_bfgs``
 does not copy taken out.
 
 jax's strong-Wolfe line search (``jax/_src/scipy/optimize/
-line_search.py``) has two faults the port parts from:
+line_search.py``) has three faults the port parts from:
 
 - its zoom reads the bracket's width as the signed ``a_hi - a_lo``, so
   every zoom entered with ``a_hi < a_lo`` fails at its first step (each
   zoom that a bracketing trial with ``dphi >= 0`` starts), and its
   interpolation safeguards would reach outside such a bracket;
 - a NaN trial value passes none of its tests, so the bracketing doubles
-  the step on into the region whose recursion overflowed.
+  the step on into the region whose recursion overflowed;
+- a failed zoom returns the step 1 with the value at its bracket's low
+  end, so BFGS moves the lane by the full step and reports a value that
+  is not the objective at the point it returns.
 
 :func:`without_line_search_faults` rebuilds ``_zoom`` and ``line_search``
 from jax's own source with those lines changed (the width
 ``|a_hi - a_lo|`` in the failure test and the safeguards; from a finite
-start, a NaN value read as ``+inf``, no decrease) and puts
+start, a NaN value read as ``+inf``, no decrease; a failed line search's
+value the objective at the step it returns) and puts
 them in place for the duration of a ``with`` block, clearing jax's
 compile caches on entry and exit so no trace of the other version is
 reused.  Every other line of jax's BFGS runs unchanged, so the port is
@@ -42,7 +46,11 @@ _EDITS = {
         "    phi, g = api.value_and_grad(f)(xk + t * pk)\n",
         "    phi, g = api.value_and_grad(f)(xk + t * pk)\n"
         "    phi = jnp.where(jnp.isnan(phi) & jnp.isfinite(phi_0), jnp.inf,"
-        " phi)\n")],
+        " phi)\n"), (
+        # the objective at the point BFGS moves to, as f computes it
+        "      f_k=state.phi_star,\n",
+        "      f_k=jnp.where(state.failed, f(xk + alpha_k * pk),"
+        " state.phi_star),\n")],
 }
 
 
