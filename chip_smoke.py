@@ -206,7 +206,30 @@ Phases, one JSON line each:
    0.99 within 1e-4 on the stationary, invertible ones).  The float64
    CPU fits of 22 and 23 run in two spawned processes started before
    ``ewma_path``.
-24. ``ne_rows_timing``: the series-major one-pass kernels
+24. ``serving_path``: the online serving tier (``statespace.serving``),
+   float32.  An ARIMA(2,1,2)+c ``ServingSession`` over the north-star
+   panel's first 131072 series (``arima.fit`` on the first 64 columns,
+   one ``arma_lm_fit`` launch; the last 64 columns are live ticks):
+   ``start``, ``warmup``, 64 ``update`` calls (p50 / p95 ms of the
+   ``serving.update`` span, which copies each TickResult to the host;
+   the device operations of one tick by ``torch.profiler``;
+   ``state_bytes``), ``update_batch`` of the same ticks on a second
+   session bitwise the single updates, ``forecast(24)``; v, F,
+   statuses and forecasts of the first 256 lanes against the port's
+   float64 CPU session (floor 0.99 of the lanes whose fitted model is
+   stationary and invertible within 1e-3 of each lane's largest entry,
+   and of equal statuses; the shares over all 256 reported); the same
+   tick at 1024 series (``bench.py``'s serving width); an additive
+   Holt-Winters session (period 12, the Holt-Winters panel's first
+   131072 series, 104 columns of history, one ``hw_box_fit`` launch, 16
+   ticks) held the same way; ``heal()`` of a private-registry session with
+   ``state_poison`` on 8 lanes (stride S // 8): every poisoned lane
+   healed, ``arma_lm_fit`` launches = the refit chain's own count, the
+   untouched lanes bit for bit, its ms; a session with
+   ``QualityPolicy()`` (48 ticks: ms a tick, drift alarms, online sMAPE
+   and MASE against float64 on 256 lanes, floor 0.99); checkpoint and
+   restore on the card, the next tick bitwise.
+25. ``ne_rows_timing``: the series-major one-pass kernels
    (``arma_ne_rows_kernel``, ``arma_css_rows_kernel``) against the
    time-major ones they replaced, at (2,1,2)+c on the differenced chunk
    (``n_obs`` 127), dense and ragged, at S = 131072 and the median and
@@ -4211,6 +4234,367 @@ def phase_ne_rows_timing(panel, seed, dev, ne_hists, css_hists):
     return row
 
 
+# -- slice 12: online serving ----------------------------------------------
+
+SERV_SERIES = 131072       # one chunk of the north-star panel
+SERV_HIST = 64             # history columns; the last 64 are live ticks
+SERV_BENCH_SERIES = 1024   # bench.py's BENCH_SERVING_SERIES default
+SERV_HORIZON = 24
+SERV_REF_LANES = 256       # lanes of the float64 CPU session
+SERV_RTOL = 1e-3           # of the lane's largest entry
+SERV_SHARE = 0.99
+SERV_HW_HIST = 104         # Holt-Winters history columns; 16 ticks
+SERV_QUALITY_TICKS = 48
+
+
+def _lane_share(got, want, rtol):
+    """Share of lanes (rows) whose entries are within ``rtol`` of the
+    lane's largest finite reference entry, NaN where the reference is
+    NaN and nowhere else."""
+    got = np.asarray(got, np.float64).reshape(len(got), -1)
+    want = np.asarray(want, np.float64).reshape(len(want), -1)
+    same_nan = (np.isnan(got) == np.isnan(want)).all(axis=1)
+    fin = np.where(np.isfinite(want), np.abs(want), 0.0)
+    big = fin.max(axis=1, initial=0.0)
+    diff = np.where(np.isnan(want) & np.isnan(got), 0.0, np.abs(got - want))
+    ok = same_nan & (np.nan_to_num(diff, nan=np.inf)
+                     <= rtol * big[:, None]).all(axis=1)
+    return ok
+
+
+def _serving_ticks(sess, live, ref_lanes):
+    """Tick ``sess`` through the columns of ``live``: each tick's
+    ``serving.update`` span time (the session's latency window: the
+    tick and its TickResult's copy to the host), the call's host wall,
+    and the first ``ref_lanes`` lanes' v, F and statuses."""
+    k = live.shape[1]
+    walls, vs, fs, sts = [], [], [], []
+    out = None
+    for t in range(k):
+        t0 = time.perf_counter()
+        out = sess.update(live[:, t])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        vs.append(out.innovations[:ref_lanes])
+        fs.append(out.variances[:ref_lanes])
+        sts.append(out.status[:ref_lanes])
+    span = [x * 1e3 for x in list(sess._tick_lat)[-k:]]
+    return out, {"ticks": k,
+                 "tick_p50_ms": float(np.percentile(span, 50)),
+                 "tick_p95_ms": float(np.percentile(span, 95)),
+                 "tick_max_ms": float(np.max(span)),
+                 "call_p50_ms": float(np.percentile(walls, 50)),
+                 "call_p95_ms": float(np.percentile(walls, 95))}, \
+        (np.stack(vs, 1), np.stack(fs, 1), np.stack(sts, 1))
+
+
+def _tick_ops(sess, tick):
+    """Device operations (``torch.profiler``) of one tick of ``sess``,
+    its inputs' copies to the card and its TickResult's copy back
+    included, on the session's buffers (the tick is pure: the session
+    does not move)."""
+    n = sess.n_series
+    y = np.full((sess._bucket,), np.nan, sess._dtype)
+    y[:n] = tick
+    off = np.zeros((sess._bucket,), sess._dtype)
+
+    def one():
+        _, h2, _, v, f, ll, anom = sess._device_tick(y, off)
+        sess._tick_result(v, f, ll, h2, anom)
+
+    return _cuda_ops(one)
+
+
+def _serving_ref(model64, hist64, live64, quality=None, horizon=0):
+    """The port's float64 CPU session over the reference lanes: per-tick
+    v, F, statuses, the forecast, the quality state."""
+    from spark_timeseries_tpu_torch.statespace import serving
+
+    sess = serving.ServingSession.start(model64, hist64, device="cpu",
+                                        quality=quality)
+    _, _, ticks = _serving_ticks(sess, live64, live64.shape[0])
+    fc = sess.forecast(horizon) if horizon else None
+    return ticks, fc, sess
+
+
+def phase_serving_path(panel, hw_panel, dev, n_series=SERV_SERIES,
+                       bench_series=SERV_BENCH_SERIES):
+    """The online serving tier on the card, float32: an ARIMA(2,1,2)+c
+    session over the north-star panel's first chunk (fit on its first 64
+    columns, the LM-fit kernel once; 64 live ticks: p50 / p95 ms, device
+    operations a tick, ``state_bytes``, ``update_batch`` bitwise the
+    single updates, ``forecast(24)``, against the port's float64 CPU
+    session on 256 lanes); the same tick at bench width (1024 series);
+    an additive Holt-Winters session (period 12, the box-fit kernel
+    once, 16 ticks); ``heal()`` of 8 poisoned lanes (the refit chain's
+    LM-fit launches, the untouched lanes bit for bit); a session with
+    the quality plane (48 ticks, online sMAPE / MASE against float64);
+    checkpoint and restore on the card, the next tick bitwise."""
+    import tempfile
+
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima, holt_winters
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+    from spark_timeseries_tpu_torch.statespace import health, serving
+    from spark_timeseries_tpu_torch.utils import metrics, resilience
+
+    def counts():
+        return {"arma_lm_fit": arma_ne.fit_css_lm.launches,
+                "arma_ne": arma_ne.normal_equations.launches,
+                "arma_css": arma_ne.css_cost.launches,
+                "hw_box_fit": hw_sse.box_fit.launches,
+                "hw_sse": hw_sse.value_and_grad.launches}
+
+    for w in (arma_ne.fit_css_lm, arma_ne.normal_equations,
+              arma_ne.css_cost, hw_sse.box_fit, hw_sse.value_and_grad):
+        w.launches = 0
+    k_ref = SERV_REF_LANES
+    hist = np.ascontiguousarray(panel[:n_series, :SERV_HIST])
+    live = np.ascontiguousarray(panel[:n_series, SERV_HIST:])
+    row = {"phase": "serving_path", "n_series": n_series,
+           "history": SERV_HIST, "live_ticks": live.shape[1]}
+
+    # -- ARIMA(2,1,2)+c at 131072 series
+    t0 = time.perf_counter()
+    model = arima.fit(2, 1, 2, hist, warn=False, device=dev)
+    torch.cuda.synchronize()
+    row["fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = serving.ServingSession.start(model, hist, device=dev)
+    torch.cuda.synchronize()
+    row["start_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess.warmup()
+    row["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+    last, lat, card_ticks = _serving_ticks(sess, live, k_ref)
+    row["arima"] = dict(lat, state_bytes=sess.state_bytes,
+                        state_dim=sess.meta.m, bucket=sess._bucket,
+                        device_ops_per_tick=len(_tick_ops(sess, live[:, -1])),
+                        health=sess.health_counts())
+    fc_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fc = sess.forecast(SERV_HORIZON)
+        fc_ms.append((time.perf_counter() - t0) * 1e3)
+    row["arima"]["forecast_ms_first"], row["arima"]["forecast_ms"] = fc_ms
+    check(fc.shape == (n_series, SERV_HORIZON),
+          f"serving_path: forecast shape {fc.shape}")
+    # update_batch of the same ticks on a second session started the same
+    # way: bitwise the single updates
+    twin = serving.ServingSession.start(model, hist, device=dev)
+    t0 = time.perf_counter()
+    b_last = twin.update_batch(live)
+    row["arima"]["update_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    batch_bitwise = all(np.array_equal(a.view(np.uint8), b.view(np.uint8))
+                        for a, b in zip(b_last, last)) and _bits_equal(
+        [t.float() for t in twin._state], [t.float() for t in sess._state])
+    row["arima"]["update_batch_bitwise"] = batch_bitwise
+    del twin
+    # against the port's float64 CPU session on the first lanes
+    model64 = arima.ARIMAModel(2, 1, 2, model.coefficients[:k_ref].double()
+                               .cpu(), True)
+    ref_ticks, ref_fc, _ = _serving_ref(
+        model64, hist[:k_ref].astype(np.float64),
+        live[:k_ref].astype(np.float64), horizon=SERV_HORIZON)
+    ok = _lane_share(card_ticks[0], ref_ticks[0], SERV_RTOL) \
+        & _lane_share(card_ticks[1], ref_ticks[1], SERV_RTOL) \
+        & _lane_share(fc[:k_ref], ref_fc, SERV_RTOL)
+    status_eq = (card_ticks[2] == ref_ticks[2]).all(axis=1)
+    # a fitted model that is not stationary and invertible gets a prior
+    # covariance from a Lyapunov solve that is not positive definite, or
+    # the 1e6-scaled diffuse one: float32 cannot carry either through the
+    # first updates, so the floors hold on the other lanes (as
+    # exact_path's), and the shares over every lane are reported
+    sane = np.asarray(model64.is_stationary() & model64.is_invertible())
+    row["arima"].update(ref_lanes=k_ref, ref_sane_lanes=int(sane.sum()),
+                        ref_share=float(ok[sane].mean()),
+                        ref_status_share=float(status_eq[sane].mean()),
+                        ref_share_all=float(ok.mean()),
+                        ref_status_share_all=float(status_eq.mean()))
+
+    # -- the same tick at bench width
+    small = arima.ARIMAModel(2, 1, 2, model.coefficients[:bench_series],
+                             True)
+    bench = serving.ServingSession.start(small, hist[:bench_series],
+                                         device=dev)
+    bench.warmup()
+    _, lat_b, _ = _serving_ticks(bench, live[:bench_series], 0)
+    row["bench_width"] = dict(
+        lat_b, n_series=bench_series, state_bytes=bench.state_bytes,
+        device_ops_per_tick=len(_tick_ops(bench,
+                                          live[:bench_series, -1])))
+    del bench
+
+    # -- additive Holt-Winters, period 12
+    hw_hist = np.ascontiguousarray(hw_panel[:n_series, :SERV_HW_HIST])
+    hw_live = np.ascontiguousarray(hw_panel[:n_series, SERV_HW_HIST:])
+    t0 = time.perf_counter()
+    hw_model = holt_winters.fit(hw_hist, HW_PERIOD, "additive", device=dev)
+    torch.cuda.synchronize()
+    hw_fit_s = time.perf_counter() - t0
+    hw_sess = serving.ServingSession.start(hw_model, hw_hist, device=dev)
+    hw_sess.warmup()
+    _, lat_h, hw_ticks = _serving_ticks(hw_sess, hw_live, k_ref)
+    hw_fc = hw_sess.forecast(SERV_HORIZON)
+    hw64 = holt_winters.HoltWintersModel(
+        "additive", HW_PERIOD,
+        *(getattr(hw_model, f)[:k_ref].double().cpu()
+          for f in ("alpha", "beta", "gamma")))
+    hw_ref, hw_ref_fc, _ = _serving_ref(
+        hw64, hw_hist[:k_ref].astype(np.float64),
+        hw_live[:k_ref].astype(np.float64), horizon=SERV_HORIZON)
+    hw_ok = _lane_share(hw_ticks[0], hw_ref[0], SERV_RTOL) \
+        & _lane_share(hw_ticks[1], hw_ref[1], SERV_RTOL) \
+        & _lane_share(hw_fc[:k_ref], hw_ref_fc, SERV_RTOL)
+    hw_status_eq = (hw_ticks[2] == hw_ref[2]).all(axis=1)
+    row["holt_winters"] = dict(
+        lat_h, fit_s=hw_fit_s, history=SERV_HW_HIST,
+        state_bytes=hw_sess.state_bytes, state_dim=hw_sess.meta.m,
+        covariance_mib=hw_sess._state.P.numel() * 4 / 2**20,
+        device_ops_per_tick=len(_tick_ops(hw_sess, hw_live[:, -1])),
+        health=hw_sess.health_counts(), ref_lanes=k_ref,
+        ref_share=float(hw_ok.mean()),
+        ref_status_share=float(hw_status_eq.mean()))
+    del hw_sess
+
+    # -- heal: 8 poisoned lanes of a private-registry session
+    reg = metrics.MetricsRegistry()
+    hs = serving.ServingSession.start(model, hist, device=dev, registry=reg)
+    stride = n_series // 8
+    with resilience.fault_injection("state_poison", lane_stride=stride):
+        hs.update(live[:, 0])
+    hs.update(live[:, 1])
+    poisoned = np.arange(n_series)[::stride]
+    # the poisoned lanes, and any lane the monitor quarantined on its own
+    diverged = np.flatnonzero(hs.lane_status == health.LANE_DIVERGED)
+    quarantined = int(diverged.size)
+    before_state = [t.clone() for t in hs._state]
+    before_ssm = [t.clone() for t in hs._ssm]
+    c0 = counts()
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = hs.heal(stats=st)
+    torch.cuda.synchronize()
+    heal_ms = (time.perf_counter() - t0) * 1e3
+    c1 = counts()
+    heal_launches = {k: c1[k] - c0[k] for k in c0}
+    grid = st.get("lm_fit_launches_by_stage", {}).get("auto_order", 0)
+    keep = torch.ones(hs._bucket, dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(diverged).to(dev)] = False
+    untouched = _bits_equal([t[keep].float() for t in hs._state],
+                            [t[keep].float() for t in before_state]) \
+        and _bits_equal([t[keep].float() for t in hs._ssm],
+                        [t[keep].float() for t in before_ssm])
+    still = int(np.sum(hs.lane_status[poisoned] == health.LANE_DIVERGED))
+    row["heal"] = {"poisoned": int(poisoned.size),
+                   "quarantined": quarantined,
+                   "quarantined_unpoisoned": int(np.setdiff1d(
+                       diverged, poisoned).size), "report": rep,
+                   "ms": heal_ms, "refit_stats": st,
+                   "launches": heal_launches, "grid_launches": grid,
+                   "still_diverged": still, "untouched_bitwise": untouched,
+                   "counters": {k: v for k, v in
+                                reg.snapshot()["counters"].items()
+                                if k.startswith("serving.")}}
+    del hs, before_state, before_ssm
+
+    # -- the quality plane: 48 ticks, online accuracy against float64
+    qs = serving.ServingSession.start(model, hist, device=dev,
+                                      quality=serving.QualityPolicy())
+    qs.warmup()
+    q_live = live[:, :SERV_QUALITY_TICKS]
+    _, lat_q, _ = _serving_ticks(qs, q_live, 0)
+    _, _, q_ref = _serving_ref(model64, hist[:k_ref].astype(np.float64),
+                               q_live[:k_ref].astype(np.float64),
+                               quality=serving.QualityPolicy())
+    q_host = qs._quality_host()
+    q_ref_host = q_ref._quality_host()
+    q_ok = _lane_share(q_host["ew_smape"][:k_ref, None],
+                       q_ref_host["ew_smape"][:, None], SERV_RTOL) \
+        & _lane_share(q_host["ew_mase"][:k_ref, None],
+                      q_ref_host["ew_mase"][:, None], SERV_RTOL)
+    row["quality"] = dict(lat_q, summary=qs.quality_summary(),
+                          drift_alarms=int(qs._drift_alarms),
+                          state_bytes=qs.state_bytes,
+                          device_ops_per_tick=len(_tick_ops(qs,
+                                                            q_live[:, -1])),
+                          ref_lanes=k_ref, ref_share=float(q_ok[sane].mean()),
+                          ref_share_all=float(q_ok.mean()))
+    del qs
+
+    # -- checkpoint and restore on the card: the next tick bitwise
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        path = os.path.join(d, "serving")
+        t0 = time.perf_counter()
+        sess.checkpoint(path)
+        ck_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = serving.ServingSession.restore(path, device=dev)
+        torch.cuda.synchronize()
+        rs_s = time.perf_counter() - t0
+        ck_mib = (os.path.getsize(path + ".npz") + os.path.getsize(
+            path + ".tree.json")) / 2**20
+    nxt = live[:, -1] * np.float32(0.9)
+    a, b = sess.update(nxt), back.update(nxt)
+    restore_bitwise = all(np.array_equal(x.view(np.uint8),
+                                         y.view(np.uint8))
+                          for x, y in zip(a, b)) and _bits_equal(
+        [t.float() for t in back._state], [t.float() for t in sess._state])
+    row["checkpoint"] = {"checkpoint_s": ck_s, "restore_s": rs_s,
+                         "mib": ck_mib, "next_tick_bitwise": restore_bitwise}
+    del sess, back
+    launches = counts()
+    row["launches"] = launches
+    row["arma_lm_fit_launches"] = launches["arma_lm_fit"] - grid
+    row["arma_lm_fit_grid_launches"] = grid
+    emit(row)
+    check(launches["hw_box_fit"] == 1,
+          f"serving_path launched hw_box_fit {launches['hw_box_fit']} times "
+          f"(1: the Holt-Winters fit)")
+    check(launches["arma_lm_fit"] == 1 + st.get("lm_fit_launches", -1),
+          f"serving_path: arma_lm_fit launches {launches['arma_lm_fit']} != "
+          f"1 (the fit) + the heal's refit chain's "
+          f"{st.get('lm_fit_launches')}")
+    check(heal_launches["arma_lm_fit"] == st.get("lm_fit_launches")
+          and heal_launches["arma_lm_fit"] >= 1,
+          f"serving_path: the heal launched arma_lm_fit "
+          f"{heal_launches['arma_lm_fit']} times, its refit chain counted "
+          f"{st.get('lm_fit_launches')}")
+    check(launches["arma_ne"] == 0 and launches["arma_css"] == 0
+          and launches["hw_sse"] == 0,
+          f"serving_path launched a one-pass kernel: {launches}")
+    check(batch_bitwise, "serving_path: update_batch is not the 64 single "
+                         "updates bit for bit")
+    for name, r, lanes in (("arima", row["arima"], int(sane.sum())),
+                           ("holt_winters", row["holt_winters"], k_ref)):
+        check(r["ref_share"] >= SERV_SHARE,
+              f"serving_path {name}: v, F and forecasts within "
+              f"{SERV_RTOL:g} of the float64 CPU session on "
+              f"{r['ref_share']:.4f} of {lanes} lanes (floor {SERV_SHARE})")
+        check(r["ref_status_share"] >= SERV_SHARE,
+              f"serving_path {name}: statuses equal the float64 CPU "
+              f"session's on {r['ref_status_share']:.4f} of {lanes} lanes "
+              f"(floor {SERV_SHARE})")
+    check(np.isin(poisoned, diverged).all() and still == 0
+          and rep["quarantined"] == quarantined
+          and rep["healed"] >= poisoned.size,
+          f"serving_path: heal restored {rep['healed']} of {quarantined} "
+          f"quarantined lanes, {still} of the {poisoned.size} poisoned "
+          f"ones still diverged")
+    check(untouched, "serving_path: heal changed an untouched lane")
+    check(row["quality"]["ref_share"] >= SERV_SHARE,
+          f"serving_path quality: online sMAPE and MASE within "
+          f"{SERV_RTOL:g} of float64 on {row['quality']['ref_share']:.4f} "
+          f"of {int(sane.sum())} lanes (floor {SERV_SHARE})")
+    check(restore_bitwise, "serving_path: the restored session's next tick "
+                           "is not the original's bit for bit")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4356,6 +4740,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     finally:
         s10_ref[0].terminate()
         s10_ref[0].join()
+    # slice 12: the online serving tier
+    serv_row = paths.run("serving_path", phase_serving_path, panel,
+                         hw_panel, dev)
+    serv = serv_row["launches"]
     # slice 11: the series-major one-pass kernels at the widths the paths
     # above gave them
     rows_row = phase_ne_rows_timing(
@@ -4379,7 +4767,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "launches": lm_launches + panel_row["arma_lm_fit_launches"]
         + res_lm + surf["arma_lm_fit"] + arx_row["arma_lm_fit_launches"]
         + arx_row["resilient_arma_lm_fit_launches"]
-        + exact_row["arma_lm_fit_launches"],
+        + exact_row["arma_lm_fit_launches"]
+        + serv_row["arma_lm_fit_launches"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
@@ -4388,7 +4777,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_path": arx_row["arma_lm_fit_launches"],
             "arimax_path_resilient":
                 arx_row["resilient_arma_lm_fit_launches"],
-            "exact_path": exact_row["arma_lm_fit_launches"]},
+            "exact_path": exact_row["arma_lm_fit_launches"],
+            "serving_path": serv_row["arma_lm_fit_launches"]},
         # lanes stopped by the iteration cap end anywhere along a ridge
         "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
@@ -4405,7 +4795,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + cgd_row["arma_ne_launches"] + arx_row["arma_ne_launches"]
         + arx_row["resilient_arma_ne_launches"]
         + arx_row["methods_arma_ne_launches"]
-        + exact_row["arma_ne_launches"],
+        + exact_row["arma_ne_launches"] + serv["arma_ne"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
@@ -4416,7 +4806,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_path": arx_row["arma_ne_launches"],
             "arimax_path_resilient": arx_row["resilient_arma_ne_launches"],
             "arimax_methods": arx_row["methods_arma_ne_launches"],
-            "exact_path": exact_row["arma_ne_launches"]},
+            "exact_path": exact_row["arma_ne_launches"],
+            "serving_path": serv["arma_ne"]},
         "route_launches": lm_row["route_arma_ne_launches"]
         + arx_row["route_arma_ne_launches"],
         "launch_widths": {
@@ -4441,13 +4832,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "docs/experiments/arma_pallas.py:67",
         "launches": css_launches + res_row["arma_css_launches"]
         + surf["arma_css"] + arx_row["arma_css_launches"]
-        + arx_row["methods_arma_css_launches"],
+        + arx_row["methods_arma_css_launches"] + serv["arma_css"],
         "launches_by_path": {
             "hw_path": css_launches,
             "resilient_path": res_row["arma_css_launches"],
             "arima_surface": surf["arma_css"],
             "arimax_path": arx_row["arma_css_launches"],
-            "arimax_methods": arx_row["methods_arma_css_launches"]},
+            "arimax_methods": arx_row["methods_arma_css_launches"],
+            "serving_path": serv["arma_css"]},
         "launch_widths": {"arima_surface": surf_row["widths"]["arma_css"]},
         "by_width": [{"S": r["S"], "ragged": r["ragged"],
                       "ms": r["ms"]["css_kernel"]["new"],
@@ -4491,10 +4883,11 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_row["hw_sse_launches"]
-        + hwr_row["hw_sse_launches"],
+        + hwr_row["hw_sse_launches"] + serv["hw_sse"],
         "launches_by_path": {
             "hw_path": hw_row["hw_sse_launches"],
-            "hw_resilient_path": hwr_row["hw_sse_launches"]},
+            "hw_resilient_path": hwr_row["hw_sse_launches"],
+            "serving_path": serv["hw_sse"]},
         "route_launches": fit_row["solver_route_hw_sse_launches"]
         + hwr_row["restart_vs_route"]["route_hw_sse_launches"],
         "max_abs_err": hw_max_abs,
@@ -4504,10 +4897,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "name": "hw_box_fit", "route": "cuda",
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
-        "launches": hw_launches + hwr_row["hw_box_fit_launches"],
+        "launches": hw_launches + hwr_row["hw_box_fit_launches"]
+        + serv["hw_box_fit"],
         "launches_by_path": {
             "hw_path": hw_launches,
-            "hw_resilient_path": hwr_row["hw_box_fit_launches"]},
+            "hw_resilient_path": hwr_row["hw_box_fit_launches"],
+            "serving_path": serv["hw_box_fit"]},
         "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],
@@ -4518,11 +4913,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229 "
                     "(y_blocks grid, :351)",
         "launches": grid_launches + panel_row["auto_fit_launches"]
-        + res_grid,
+        + res_grid + serv_row["arma_lm_fit_grid_launches"],
         "launches_by_path": {
             "auto_fit_path": grid_launches,
             "panel_path": panel_row["auto_fit_launches"],
-            "resilient_path": res_grid},
+            "resilient_path": res_grid,
+            "serving_path": serv_row["arma_lm_fit_grid_launches"]},
         "max_abs_err": grid_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
         "plain_lanes": grid_row["plain_lanes"],

@@ -21,9 +21,11 @@ order selection (``models.arima.auto_fit_panel``, with
 and ``holt_winters``) with the ops they need; the volatility and
 smoothing families; the exogenous-regressor families
 (``models.autoregression_x``, ``models.arimax``,
-``models.regression_arima``); and the state-space core (``statespace``:
+``models.regression_arima``); the state-space core (``statespace``:
 the Kalman filter and the exact likelihood that
-``models.arima.fit(objective="exact")`` maximizes).
+``models.arima.fit(objective="exact")`` maximizes); and the online
+serving tier on it (``statespace.serving.ServingSession`` with lane
+health, forecast quality, heal and checkpoint/restore).
 
 Device policy: the entry points take ``device=None``, which means CUDA.
 Without a card they raise unless the caller passes ``device="cpu"``.

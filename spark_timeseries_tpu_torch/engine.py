@@ -30,6 +30,7 @@ re-dispatch policy of the same name belongs to its durability tier).
 
 from __future__ import annotations
 
+import threading
 import time
 import traceback as _traceback
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -42,7 +43,7 @@ from ._device import (as_tensor, check_dtype, is_device_fault,
 from .ops.ragged import ragged_view
 
 __all__ = ["SERIES_BUCKET_FLOOR", "OBS_BUCKET_MULTIPLE", "pad_bucket",
-           "series_bucket", "FitEngine", "StreamResult"]
+           "series_bucket", "FitEngine", "StreamResult", "default_engine"]
 
 SERIES_BUCKET_FLOOR = 8
 OBS_BUCKET_MULTIPLE = 32
@@ -631,3 +632,21 @@ class FitEngine:
                                          for k in keys]
         return StreamResult(n_series, max(n_series - dead_series, 0), conv,
                             wall, len(partition), failures, models, stats)
+
+
+# ---------------------------------------------------------------------------
+# default engine
+# ---------------------------------------------------------------------------
+
+_default_engine: Optional[FitEngine] = None
+_default_lock = threading.Lock()
+
+
+def default_engine() -> FitEngine:
+    """The process-wide engine (lazily created) that the entry points
+    which are not handed one route through (``ServingSession.heal``)."""
+    global _default_engine
+    with _default_lock:
+        if _default_engine is None:
+            _default_engine = FitEngine()
+        return _default_engine

@@ -216,3 +216,54 @@ def fit_outcome_from_numpy(params, status, attempts, fallback_used, health,
         np.asarray(status, np.int32), np.asarray(attempts, np.int64),
         np.asarray(fallback_used, np.int32), np.asarray(health, np.int32),
         None if orders is None else np.asarray(orders, np.int32))
+
+
+def serving_blob_from_numpy(blob, device=None) -> dict:
+    """A ``ServingSession.checkpoint_blob()`` of the JAX package (its
+    NamedTuples' fields read with ``np.asarray``) as the port's blob, for
+    ``statespace.serving.ServingSession.from_blob``: the state-space
+    form, filter state, lane health and quality state become the port's
+    NamedTuples of tensors on ``device``, meta and the policies the
+    port's NamedTuples, the history ring a numpy copy."""
+    from ..statespace.health import HealthPolicy, LaneHealth
+    from ..statespace.quality import QualityPolicy, QualityState
+    dev = resolve_device(device)
+
+    def copies(tree):       # writable host copies (a JAX array's view
+        return [np.array(f) for f in tree]      # of its buffer is not)
+
+    ssm, meta, state = statespace_from_numpy(
+        copies(blob["ssm"]), blob["meta"], copies(blob["state"]), device=dev)
+
+    def ints(f):
+        return torch.as_tensor(np.array(f), dtype=torch.int32, device=dev)
+
+    h = blob["health"]
+    health = LaneHealth(as_tensor(np.array(h.ew), dev), ints(h.status),
+                        as_tensor(np.array(h.good_a), dev),
+                        as_tensor(np.array(h.good_ring), dev))
+    pol = blob["policy"]
+    out = dict(blob)
+    out.update(
+        meta=meta, ssm=ssm, state=state, health=health,
+        policy=HealthPolicy(float(pol.ew_alpha), float(pol.suspect_hi),
+                            float(pol.diverged_hi), bool(pol.joseph),
+                            str(pol.forecast_policy)),
+        hist=np.array(blob["hist"]),
+        heal_spec=None if blob.get("heal_spec") is None
+        else dict(blob["heal_spec"]))
+    qp, qs = blob.get("quality_policy"), blob.get("qstate")
+    if qp is not None and qs is not None:
+        out["quality_policy"] = QualityPolicy(
+            int(qp.horizon), float(qp.ew_alpha), float(qp.ph_delta),
+            float(qp.ph_lambda), float(qp.coverage))
+        f = {k: np.array(v) for k, v in qs._asdict().items()}
+        floats = ("fc_ring", "scale", "half", "ew_smape", "ew_mase",
+                  "ew_cover", "ph")
+        out["qstate"] = QualityState(**{
+            k: as_tensor(v, dev) if k in floats
+            else torch.as_tensor(v, dtype=torch.bool, device=dev)
+            if k == "drifted" else ints(v) for k, v in f.items()})
+    else:
+        out["quality_policy"], out["qstate"] = None, None
+    return out

@@ -25,9 +25,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
-__all__ = ["Counter", "MetricsRegistry", "counter", "inc", "set_gauge",
-           "snapshot", "reset", "span", "instrumented", "trace_instant",
-           "events"]
+__all__ = ["Counter", "MetricsRegistry", "counter", "get_registry", "inc",
+           "set_gauge", "snapshot", "reset", "span", "instrumented",
+           "trace_instant", "events"]
 
 # instant events kept, newest last (the JAX module's trace ring holds spans
 # too; here only the markers)
@@ -125,6 +125,12 @@ _default_registry = MetricsRegistry()
 _span_state = threading.local()
 
 
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry (the module-level functions'
+    and every entry point's that is not handed one)."""
+    return _default_registry
+
+
 def counter(name: str) -> Counter:
     return _default_registry.counter(name)
 
@@ -159,12 +165,14 @@ def reset() -> None:
 
 
 @contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
+def span(name: str, registry: Optional[MetricsRegistry] = None
+         ) -> Iterator[None]:
     """Named wall-time scope.  Nesting joins paths with ``/``; each path
-    accumulates its count and seconds in the registry, and the scope is a
-    ``torch.profiler.record_function`` range of the same name.  Host
-    clock: work a scope enqueues on a card and does not wait for is not
-    in its time."""
+    accumulates its count and seconds in ``registry`` (the default one
+    when None), and the scope is a ``torch.profiler.record_function``
+    range of the same name.  Host clock: work a scope enqueues on a card
+    and does not wait for is not in its time."""
+    reg = registry if registry is not None else _default_registry
     stack = getattr(_span_state, "stack", None)
     if stack is None:
         stack = _span_state.stack = []
@@ -176,7 +184,7 @@ def span(name: str) -> Iterator[None]:
             yield
     finally:
         stack.pop()
-        _default_registry.record_span(path, time.perf_counter() - t0)
+        reg.record_span(path, time.perf_counter() - t0)
 
 
 def instrumented(span_name: str) -> Callable:

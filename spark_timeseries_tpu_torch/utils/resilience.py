@@ -31,8 +31,9 @@ panel's device; :class:`FitOutcome`'s fields are host numpy, as in the
 JAX package.  Dispositions are counted under ``resilience.*`` in
 ``utils.metrics``.
 
-:func:`fault_injection` corrupts inputs or forces optimizer
-non-convergence.  The engine, serving and fleet fault hooks and the
+:func:`fault_injection` corrupts inputs, forces optimizer
+non-convergence, or corrupts a serving session's ticks and state
+(:func:`serving_fault`).  The engine and fleet fault hooks and the
 ``STS_FAULT_INJECT`` environment arm wait for their slices and raise
 ``NotImplementedError``.
 """
@@ -40,6 +41,7 @@ non-convergence.  The engine, serving and fleet fault hooks and the
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
@@ -58,9 +60,9 @@ __all__ = [
     "classify_series", "unfittable_mask",
     "FitOutcome", "RetryPolicy", "retry_kwargs", "override_kwargs",
     "StageResult", "FaultSpec", "InjectedOOM", "InjectedPumpCrash",
-    "fault_injection", "fault_spec", "chunk_fault", "serving_fault",
-    "fleet_fault", "forced_optimizer_failures", "corrupt_values",
-    "resilient_fit",
+    "fault_injection", "fault_scope_token", "fault_spec", "chunk_fault",
+    "serving_fault", "fleet_fault", "forced_optimizer_failures",
+    "corrupt_values", "resilient_fit",
 ]
 
 # ---------------------------------------------------------------------------
@@ -243,8 +245,21 @@ class FaultSpec(NamedTuple):
     - ``"corrupt_inf"``: every ``lane_stride``-th lane gets one interior
       ``inf`` observation.
 
-    The JAX package's streaming-chunk, serving and fleet modes are valid
-    names here, but entering them raises ``NotImplementedError``."""
+    Serving-tier modes, read host-side by
+    ``statespace.serving.ServingSession.update`` through
+    :func:`serving_fault`:
+
+    - ``"tick_corrupt_nan"``: every ``lane_stride``-th lane's incoming
+      tick becomes NaN (a dropped observation) for the scope's duration;
+    - ``"tick_corrupt_inf"``: the same lanes get an ``inf`` tick, which
+      the filter must degrade to a missed tick;
+    - ``"state_poison"``: every ``lane_stride``-th lane's filter state
+      mean is overwritten with a huge finite value once per scope per
+      session, the diverged lane the health monitor must quarantine and
+      ``heal()`` must recover.
+
+    The JAX package's streaming-chunk and fleet modes are valid names
+    here, but entering them raises ``NotImplementedError``."""
     mode: str
     n_attempts: int = 1
     lane_stride: int = 2
@@ -275,16 +290,27 @@ class InjectedPumpCrash(RuntimeError):
 
 
 _FIT_MODES = ("force_nonconverge", "corrupt_nan", "corrupt_inf")
+_SERVING_MODES = ("tick_corrupt_nan", "tick_corrupt_inf", "state_poison")
 # the JAX package's other modes, with the ROADMAP item each waits for
 _WAITING_MODES = {
     "hang_chunk": "8", "oom_chunk": "8", "kill_after_chunk": "8",
     "corrupt_journal": "8",
-    "tick_corrupt_nan": "4", "tick_corrupt_inf": "4", "state_poison": "4",
     "tenant_flood": "7", "coalesce_straggler": "7",
     "drop_tenant_process": "7", "pump_crash": "7", "pump_hang": "7",
     "checkpoint_torn": "7",
 }
 _active_fault: List[FaultSpec] = []
+# one never-reused id per fault_injection scope entry (unlike id(spec),
+# which a freed FaultSpec can hand to the next scope): what the
+# once-per-scope consumers (state_poison) remember
+_scope_serial = itertools.count(1)
+_active_scope_tokens: List[int] = []
+
+
+def fault_scope_token() -> Optional[int]:
+    """Unique token of the innermost active :func:`fault_injection`
+    scope (None outside any scope)."""
+    return _active_scope_tokens[-1] if _active_scope_tokens else None
 
 
 def fault_spec() -> Optional[FaultSpec]:
@@ -297,9 +323,18 @@ def chunk_fault(mode: str, chunk_index: int):
     _waits("chunk_fault (the engine's streaming-chunk faults)", "8")
 
 
-def serving_fault(mode: str):
-    """The serving tier's fault hook: waits for item 4b."""
-    _waits("serving_fault (the serving tier's faults)", "4b")
+def serving_fault(mode: str) -> Optional[FaultSpec]:
+    """The active fault spec when it is a serving-tier fault of the given
+    ``mode``, else None.  Read host-side by
+    ``statespace.serving.ServingSession.update``."""
+    if mode not in _SERVING_MODES:
+        raise ValueError(
+            f"unknown serving fault mode {mode!r}; expected one of "
+            f"{_SERVING_MODES}")
+    spec = fault_spec()
+    if spec is not None and spec.mode == mode:
+        return spec
+    return None
 
 
 def fleet_fault(mode: str):
@@ -329,10 +364,10 @@ def fault_injection(mode: str, n_attempts: int = 1, lane_stride: int = 2,
     and leaving the scope flushes nothing."""
     if mode in _WAITING_MODES:
         _waits(f"fault mode {mode!r}", _WAITING_MODES[mode])
-    if mode not in _FIT_MODES:
+    if mode not in _FIT_MODES + _SERVING_MODES:
         raise ValueError(
             f"unknown fault mode {mode!r}; expected one of "
-            f"{_FIT_MODES + tuple(_WAITING_MODES)}")
+            f"{_FIT_MODES + _SERVING_MODES + tuple(_WAITING_MODES)}")
     if n_attempts < 1 or lane_stride < 1:
         raise ValueError("n_attempts and lane_stride must be >= 1")
     if chunk_index < 0 or hang_s <= 0:
@@ -340,10 +375,12 @@ def fault_injection(mode: str, n_attempts: int = 1, lane_stride: int = 2,
     spec = FaultSpec(mode, int(n_attempts), int(lane_stride),
                      int(chunk_index), float(hang_s))
     _active_fault.append(spec)
+    _active_scope_tokens.append(next(_scope_serial))
     try:
         yield spec
     finally:
         _active_fault.pop()
+        _active_scope_tokens.pop()
 
 
 def corrupt_values(values: torch.Tensor, spec: FaultSpec) -> torch.Tensor:

@@ -9,7 +9,9 @@ the card: its fills against the CPU's, ``Panel.stream_fit`` /
 ``Panel.auto_fit`` against the engine and ``auto_fit_panel``, the CSV
 codec built on the card's machine, and the fail-soft tier: the CSS
 gradient through the single-pass kernel, the restart loop over the LM-fit
-kernel against the route, ``fit_resilient`` on the card.
+kernel against the route, ``fit_resilient`` on the card; and the serving
+tier: a session on the card against the CPU's, ``update_batch`` bit for
+bit, ``heal()`` through the LM-fit kernel.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -1355,3 +1357,82 @@ def test_exact_objective_on_cuda_is_monotone_against_css(cuda):
     assert sane.double().mean() > 0.5
     torch.testing.assert_close(exact.log_likelihood_exact(y)[sane],
                                ll_ex[sane], rtol=1e-4, atol=1e-3)
+
+
+# -- the online serving tier ------------------------------------------------
+
+def _serving_case(rng, S, n_hist, n_live):
+    """An ARIMA(2,1,2)+c model with stationary, invertible per-lane
+    coefficients (no fit: the serving tier is held, not the fit) and an
+    integrated ARMA panel, float32."""
+    coefs = np.column_stack([
+        rng.uniform(-0.1, 0.1, S), rng.uniform(0.2, 0.5, S),
+        rng.uniform(-0.3, 0.0, S), rng.uniform(-0.4, 0.4, S),
+        rng.uniform(-0.2, 0.2, S)]).astype(np.float32)
+    y = np.cumsum(_panel(rng, S, n_hist + n_live), axis=1) \
+        .astype(np.float32)
+    return coefs, y[:, :n_hist], y[:, n_hist:]
+
+
+def test_serving_session_on_cuda_matches_cpu(cuda):
+    """A 512-lane session on the card against the same float32 session
+    on the CPU: v, F, the likelihood increments and the forecasts within
+    float32 rounding, statuses equal."""
+    from spark_timeseries_tpu_torch.statespace import serving
+
+    rng = np.random.default_rng(40)
+    coefs, hist, live = _serving_case(rng, 512, 64, 16)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = arima.ARIMAModel(2, 1, 2, torch.from_numpy(coefs), True)
+        sess = serving.ServingSession.start(model, hist, device=dev)
+        sess.warmup()
+        ticks = [sess.update(live[:, t]) for t in range(live.shape[1])]
+        out[dev.type] = (ticks, sess.forecast(12))
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_array_equal(got.status, want.status)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_serving_update_batch_is_the_single_updates_on_cuda(cuda):
+    from spark_timeseries_tpu_torch.statespace import serving
+
+    rng = np.random.default_rng(41)
+    coefs, hist, live = _serving_case(rng, 1000, 64, 12)
+    model = arima.ARIMAModel(2, 1, 2, torch.from_numpy(coefs).to(cuda), True)
+    one = serving.ServingSession.start(model, hist, device=cuda)
+    batch = serving.ServingSession.start(model, hist, device=cuda)
+    for t in range(live.shape[1]):
+        last = one.update(live[:, t])
+    b_last = batch.update_batch(live)
+    for a, b in zip(b_last, last):
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    for a, b in zip(batch._state, one._state):
+        assert torch.equal(a, b)
+
+
+def test_serving_heal_launches_the_lm_fit_kernel(cuda):
+    """``heal()`` of poisoned lanes on the card refits them through the
+    LM-fit kernel: its launches are the refit chain's own count, and the
+    poisoned lanes leave quarantine."""
+    from spark_timeseries_tpu_torch.statespace import health, serving
+    from spark_timeseries_tpu_torch.utils import resilience
+
+    rng = np.random.default_rng(42)
+    coefs, hist, live = _serving_case(rng, 256, 96, 4)
+    model = arima.ARIMAModel(2, 1, 2, torch.from_numpy(coefs).to(cuda), True)
+    sess = serving.ServingSession.start(model, hist, device=cuda)
+    with resilience.fault_injection("state_poison", lane_stride=32):
+        sess.update(live[:, 0])
+    sess.update(live[:, 1])
+    poisoned = np.arange(256)[::32]
+    assert (sess.lane_status[poisoned] == health.LANE_DIVERGED).all()
+    before = arma_ne.fit_css_lm.launches
+    st = {}
+    rep = sess.heal(stats=st)
+    assert arma_ne.fit_css_lm.launches - before == st["lm_fit_launches"] >= 1
+    assert rep["healed"] >= poisoned.size
+    assert (sess.lane_status[poisoned] != health.LANE_DIVERGED).all()

@@ -135,8 +135,29 @@ def test_fault_modes_corrupt_like_jax_and_the_rest_wait():
     with pytest.raises(NotImplementedError, match="item 8"):
         with resilience.fault_injection("oom_chunk"):
             pass
-    with pytest.raises(NotImplementedError, match="item 4"):
-        resilience.serving_fault("tick_corrupt_nan")
+    # the serving modes act as the JAX package's do: the active spec of
+    # the named mode inside its scope, None outside it or for another
+    # serving mode, ValueError for a mode that is not a serving one
+    for mode in ("tick_corrupt_nan", "tick_corrupt_inf", "state_poison"):
+        assert resilience.serving_fault(mode) is None \
+            and j_res.serving_fault(mode) is None
+        assert resilience.fault_scope_token() is None \
+            and j_res.fault_scope_token() is None
+        with resilience.fault_injection(mode, lane_stride=3) as spec, \
+                j_res.fault_injection(mode, lane_stride=3) as j_spec:
+            assert tuple(resilience.serving_fault(mode)) == tuple(spec) \
+                == tuple(j_res.serving_fault(mode)) == tuple(j_spec)
+            for other in ("tick_corrupt_nan", "state_poison"):
+                if other != mode:
+                    assert resilience.serving_fault(other) is None \
+                        and j_res.serving_fault(other) is None
+            token = resilience.fault_scope_token()
+            with resilience.fault_injection(mode):
+                assert resilience.fault_scope_token() not in (None, token)
+            assert resilience.fault_scope_token() == token
+    for mod in (resilience, j_res):
+        with pytest.raises(ValueError, match="unknown serving fault"):
+            mod.serving_fault("corrupt_nan")
     with pytest.raises(NotImplementedError, match="item 7"):
         resilience.fleet_fault("tenant_flood")
     with pytest.raises(NotImplementedError, match="item 8"):
