@@ -237,8 +237,57 @@ Phases, one JSON line each:
    bit for bit; CUDA-event medians in turns (old, new, new, old) of each
    kernel alone and of each call (``normal_equations``,
    ``css_neg_ll_value_and_grad``, ``css_cost``), new against old; the
-   bounds; the device operations of one call (``torch.profiler``), one
-   for ``normal_equations`` and for ``css_cost``.
+   bounds; the device operations of one call (``torch.profiler``: the
+   runtime calls that put work on the card), one for
+   ``normal_equations`` and for ``css_cost``.
+26. ``long_path``: the long-series tier (``longseries``), float32.  A
+   10⁶-observation ARMA(1,1) (``bench.py``'s long demo: ε from seed 11,
+   the AR part through ``ops.scan_parallel.ar1_filter``) through
+   ``longseries.fit_long(series, order=(1, 0, 1))``'s default fused path
+   (122 segments of 8192): fit seconds, obs/s, ``forecast(24)`` seconds
+   with the origin recovery; π₁ within 0.05 of 1.0; ``arma_lm_fit``
+   launches = the segment chunks = ``stream_stats["lm_fit_launches"]``,
+   no one-pass launch; ``longseries.fused_bytes_d2h`` =
+   ``expected_combine_acc_bytes(12)``.  ``fused=False`` (the staged
+   ``stream_fit`` path): every segment's coefficients bit for bit the
+   fused path's, the combined ones within 1e-6.  The LM-fit kernel at
+   that shape (122 lanes x 8192 steps): CUDA-event ms, passes, bound;
+   against ``fit_css_lm_plain`` on the card at 2 iterations (fun within
+   1e-3 on ≥ 0.95 of lanes).  ``auto=True``: seconds, the histogram of
+   segment orders, launches = ``stats["lm_fit_launches"]`` = 37.  10⁸
+   observations (generated on the card; 1525 segments of 65536, 3 fused
+   chunks): fit seconds, obs/s, the forecast origin's seconds and peak
+   memory, launches = chunks, π₁.  ``models.arima.fit_long(2, 1, 2)``
+   at ``bench_suite.py``'s shape (8 x 262,144, seed 7, segments of
+   16384) against the direct ``arima.fit``: the first series'
+   coefficients within 0.05, obs/s of both, the segment Hessians'
+   seconds.  The series' first 131,072 observations at ``seg_len`` 8192
+   against the port's float64 CPU run (a spawned process started at the
+   phase's start): combined coefficients within 1e-3, ``forecast(24)``
+   within 1e-3 of max(1, |f|), and the float64 forecast off the
+   recovered origin against the statespace filter run step by step over
+   the whole span within 1e-7.  The LM-fit kernel against
+   ``fit_css_lm_plain`` (float32, on the CPU in spawned processes, from
+   the same starts, 2 iterations) on 8 lanes of the 10⁸ fit's 65536-step
+   segments and 8 of ``arima.fit_long``'s 16384-step (2,2) segments:
+   ``fun`` within 2·n·6e-8 on ≥ 0.95 of lanes, its largest gap.
+27. ``backtest_path``: rolling-origin backtesting (``backtest``),
+   float32.  ``bench.py``'s backtest demo (48 series x 768: AR(1),
+   ARMA(1,1), SES; the grid ar(1), ar(2), arima(1,0,1), ewma; horizons
+   1, 2, 4; 127 origins, stride 2, fit window 512): champion sMAPE /
+   MASE, true-model recovery, coverage; against the port's float64 CPU
+   sweep: equal champions on ≥ 0.95 of series, champion scores within
+   1e-3 relative; ``arma_lm_fit`` launches = the ARIMA candidate's
+   chunks.  The same panel widened to 131,070 series (3 x 43,690):
+   seconds, series x candidates / s, the fit, replay and scoring spans'
+   seconds, launches = the ARIMA candidate's chunks, no ``arma_ne``; the
+   LM-fit kernel against the plain LM on 8 lanes of its 512-step fit
+   window (as in 26).
+   The pinned-gain replay against the ``"refilter"`` oracle on 256
+   lanes (32 origins, stride 8): forecasts within 1e-4 of max(1, |f|).
+   The long route: a 2 x 524,288 panel with a 500,000-step fit window
+   at the default ``long_threshold``: the ARIMA candidate takes the
+   ``longseries`` path, one ``arma_lm_fit`` launch a series.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
@@ -258,6 +307,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3893,10 +3943,10 @@ def phase_arimax_path(panel, seed, dev, ref, chunk=CHUNK):
 
 
 def _exact_launches_per_eval(part, dev):
-    """Kernels one value-and-gradient evaluation of the exact objective
-    launches at ``part``'s lane count (``torch.profiler``'s CUDA events),
-    and the host-side operator count; None where the profiler shows no
-    device events."""
+    """Device operations (kernels, copies, fills) one value-and-gradient
+    evaluation of the exact objective puts on the card at ``part``'s lane
+    count (``torch.profiler``: the runtime calls that do), and the
+    host-side operator count; None where the profiler shows none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3915,11 +3965,12 @@ def _exact_launches_per_eval(part, dev):
                              ProfilerActivity.CUDA]) as prof:
         vag(x)
         torch.cuda.synchronize()
-    evs = prof.events()
-    dev_type = torch.autograd.DeviceType.CUDA
-    kernels = sum(1 for e in evs if e.device_type == dev_type)
-    ops = sum(1 for e in evs if e.device_type != dev_type
-              and e.name.startswith("aten::"))
+    evs = list(prof.profiler.kineto_results.events())
+    # by the runtime calls that put work on the card (:func:`_profile_ops`)
+    kernels = sum(1 for e in evs if _ENQUEUE.match(e.name()))
+    ops = sum(1 for e in evs
+              if e.device_type() != torch.autograd.DeviceType.CUDA
+              and e.name().startswith("aten::"))
     return (kernels or None), ops
 
 
@@ -4062,9 +4113,21 @@ def _in_turns(old, new, reps):
     return float(np.median(t_old)), float(np.median(t_new))
 
 
-def _cuda_ops(fn):
-    """Device operations (kernels, copies, fills) one ``fn()`` runs,
-    from ``torch.profiler``; their names."""
+# the runtime calls that put work on the card: kernel launches, copies,
+# fills, graph launches
+_ENQUEUE = re.compile(r"^cu(da)?(Launch|Memcpy|Memset|GraphLaunch)")
+
+
+def _profile_ops(fn):
+    """One ``fn()`` under ``torch.profiler`` (after one call outside it):
+    the names of the runtime calls in it that put work on the card
+    (kernel launches, copies, fills; CUPTI's callbacks on the host) and
+    of the device records (kernels, copies, fills).
+
+    Count the first, not the second: once a process has gone ~45 s
+    without a profiler session, the profiler receives the device records
+    of only some launches, or none, for the rest of the process, while
+    every launch's runtime record still arrives (PERF.md §6)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4074,8 +4137,16 @@ def _cuda_ops(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = list(prof.profiler.kineto_results.events())
+    return ([e.name() for e in evs if _ENQUEUE.match(e.name())],
+            [e.name() for e in evs
+             if e.device_type() == torch.autograd.DeviceType.CUDA])
+
+
+def _cuda_ops(fn):
+    """Device operations (kernels, copies, fills) one ``fn()`` puts on
+    the card: its runtime calls that do (:func:`_profile_ops`)."""
+    return _profile_ops(fn)[0]
 
 
 def _device_ms(fn, reps: int):
@@ -4200,30 +4271,32 @@ def phase_ne_rows_timing(panel, seed, dev, ne_hists, css_hists):
                     css_b_s * 1e3 / ms["css_kernel"]["old"]})
     # the device operations of one call at the full width, old and new
     yy, prm = y_all, prm_all
-    ops = {
+    calls = {
         "normal_equations": {
-            "old": _cuda_ops(lambda: arma_ne.normal_equations_time_major(
-                prm, yy, p, q, icpt)),
-            "new": _cuda_ops(lambda: arma_ne.normal_equations(
-                prm, yy, p, q, icpt))},
+            "old": lambda: arma_ne.normal_equations_time_major(
+                prm, yy, p, q, icpt),
+            "new": lambda: arma_ne.normal_equations(prm, yy, p, q, icpt)},
         "css_cost": {
-            "old": _cuda_ops(lambda: arma_ne.css_cost_time_major(
-                prm, yy, p, q, icpt)),
-            "new": _cuda_ops(lambda: arma_ne.css_cost(prm, yy, p, q,
-                                                      icpt))},
+            "old": lambda: arma_ne.css_cost_time_major(prm, yy, p, q, icpt),
+            "new": lambda: arma_ne.css_cost(prm, yy, p, q, icpt)},
         "css_neg_ll_value_and_grad": {
-            "old": _cuda_ops(lambda: arma_ne._css_neg_ll(
+            "old": lambda: arma_ne._css_neg_ll(
                 arma_ne.normal_equations_time_major, prm, yy, p, q, icpt,
-                None)),
-            "new": _cuda_ops(lambda: arma_ne.css_neg_ll_value_and_grad(
-                prm, yy, p, q, icpt))}}
+                None),
+            "new": lambda: arma_ne.css_neg_ll_value_and_grad(
+                prm, yy, p, q, icpt)}}
+    prof = {k: {v: _profile_ops(f) for v, f in d.items()}
+            for k, d in calls.items()}
+    ops = {k: {v: e[0] for v, e in d.items()} for k, d in prof.items()}
     row = {"phase": "ne_rows_timing", "case": name, "n_obs": n_obs,
            "widths": widths, "ne_width_quantiles": ne_q,
            "css_width_quantiles": css_q, "reps": 2 * NE_ROWS_REPS,
            "rows": rows,
            "device_ops_per_call": {k: {v: len(n) for v, n in d.items()}
                                    for k, d in ops.items()},
-           "device_op_names": ops}
+           "device_op_names": ops,
+           "device_records_received": {
+               k: {v: e[1] for v, e in d.items()} for k, d in prof.items()}}
     emit(row)
     check(all_bitwise, "ne_rows_timing: a series-major kernel's result is "
                        "not the time-major kernel's bit for bit")
@@ -4595,6 +4668,756 @@ def phase_serving_path(panel, hw_panel, dev, n_series=SERV_SERIES,
     return row
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the long-series tier and rolling-origin backtesting
+# ---------------------------------------------------------------------------
+
+LONG_N_OBS = 1_000_000     # bench.py's long demo (BENCH_LONG_OBS default)
+LONG_SEED = 11
+LONG_PI1_TOL = 0.05        # test_fit_long_million_obs_end_to_end's check
+LONG_STAGED_TOL = 1e-6     # tests/test_fused.py:185's fused-vs-staged bound
+LONG_PLAIN_ITER = 2        # LM iterations of the kernel-vs-plain check
+LM_SUM_U = 6e-8            # float32 unit roundoff (2⁻²⁴)
+LONG_PLAIN_RTOL = 1e-3     # fun at 8192 steps: 2·n·u = 9.8e-4 (lm_plain_rtol)
+LONG_PLAIN_SHARE = 0.95
+LONG_PLAIN_LANES = 8       # lanes of the few-lane kernel-vs-plain checks
+LONG_REF_OBS = 131_072     # the float64 CPU comparison's head of the series
+LONG_REF_SEG = 8192        # 16 segments (the default would pick 4096)
+LONG_REF_COEF_TOL = 1e-3   # float32 LM stops ~1e-3 from the f64 optimum
+LONG_REF_FC_RTOL = 1e-3    # of max(1, |forecast|): the coefficients' gap
+LONG_PIN_RTOL = 1e-7       # float64 origin recovery vs the sequential filter
+LONG_HUGE_OBS = 100_000_000   # the tier's top scale (400 MB of float32)
+ULTRA_SERIES = 8           # bench_suite.py:448-460's arima.fit_long config
+ULTRA_OBS = 262_144
+ULTRA_SEG = 16_384
+ULTRA_SEED = 7
+ULTRA_TOL = 0.05           # bench_suite.py's own agreement check
+BT_SERIES = 16             # bench.py's backtest demo: 3 x 16 series
+BT_OBS = 768
+BT_BURN = 256
+BT_WIDE = 43_690           # 3 x 43,690 = 131,070 series
+BT_GRID = {"ar": [1, 2], "arima": [(1, 0, 1)], "ewma": True}
+BT_HORIZONS = (1, 2, 4)
+BT_SCHEDULE = dict(n_origins=128, stride=2, min_train=BT_OBS - 256)
+BT_CHAMP_FLOOR = 0.95      # champions equal to the float64 CPU run's
+BT_SCORE_RTOL = 1e-3       # champion scores vs float64 (CPU f32: ~8e-5)
+BT_PIN_LANES = 256
+BT_PIN_SCHEDULE = dict(n_origins=32, stride=8, min_train=BT_OBS - 256)
+BT_PIN_RTOL = 1e-4         # of max(1, |forecast|): f32 log-depth vs loop
+BT_LONG_SERIES = 2
+BT_LONG_OBS = 524_288
+BT_LONG_TRAIN = 500_000    # the fit window: backtest's default long_threshold
+
+
+def long_series(n: int, seed: int, dev):
+    """``bench.py``'s long demo series: ε ~ N(0, 1) from ``seed``, the MA
+    part ``x_t = ε_t + 0.4 ε_{t-1}`` on the host, the AR part through
+    the port's log-depth ``ops.scan_parallel.ar1_filter`` (c 0.1, φ 0.6)
+    on ``dev``: a float32 ARMA(1,1) with π₁ = φ + θ = 1.0."""
+    import torch
+
+    from spark_timeseries_tpu_torch.ops.scan_parallel import ar1_filter
+
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal(n + 1).astype(np.float32)
+    x = e[1:] + np.float32(0.4) * e[:-1]
+    return ar1_filter(torch.from_numpy(x).to(dev), 0.1, 0.6).cpu().numpy()
+
+
+def _long_ref_part(series: np.ndarray):
+    """The float64 CPU run of the long-series comparison (in a spawned
+    process): ``longseries.fit_long`` over the head of the series at
+    ``LONG_REF_SEG``, its forecast off the recovered origin, and the
+    forecast of the statespace filter run step by step over the whole
+    differenced span."""
+    import torch
+
+    from spark_timeseries_tpu_torch import longseries
+    from spark_timeseries_tpu_torch.statespace.convert import to_statespace
+    from spark_timeseries_tpu_torch.statespace.health import (HealthPolicy,
+                                                             initial_health)
+    from spark_timeseries_tpu_torch.statespace.kalman import filter_panel
+    from spark_timeseries_tpu_torch.statespace.serving import _forecast_impl
+    from spark_timeseries_tpu_torch.statespace.ssm import (SSMeta,
+                                                          initial_state)
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    y = series.astype(np.float64)
+    lf = longseries.fit_long(y, (1, 0, 1), seg_len=LONG_REF_SEG, warn=False,
+                             device="cpu")
+    fc = lf.forecast(24)
+    fit_s = time.perf_counter() - t0
+    ssm, meta = to_statespace(lf.model)
+    meta0 = SSMeta(meta.family, meta.mode, 0, meta.m)
+    seq = filter_panel(ssm, initial_state(ssm, meta0),
+                       torch.from_numpy(y[None]), meta0).state
+    seq_fc = _forecast_impl(meta, 24, HealthPolicy().validate(), ssm, seq,
+                            initial_health(seq),
+                            torch.zeros((1, 24), dtype=torch.float64))[0]
+    return {"coefficients": lf.coefficients.numpy(), "forecast": fc,
+            "sequential_forecast": seq_fc.numpy(), "fit_s": fit_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def start_long_ref(series: np.ndarray):
+    """Start :func:`_long_ref_part` in a spawned process; returns ``(pool,
+    pending)``."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(_long_ref_part, (series,))
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _lm_counts():
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    return {"arma_lm_fit": arma_ne.fit_css_lm.launches,
+            "arma_ne": arma_ne.normal_equations.launches,
+            "arma_css": arma_ne.css_cost.launches}
+
+
+def _zero_lm_counts():
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    for w in (arma_ne.fit_css_lm, arma_ne.normal_equations,
+              arma_ne.css_cost):
+        w.launches = 0
+
+
+def _fused_bytes():
+    from spark_timeseries_tpu_torch.utils import metrics
+
+    return metrics.get_registry().snapshot()["counters"].get(
+        "longseries.fused_bytes_d2h", 0)
+
+
+def lm_plain_rtol(n_obs: int) -> float:
+    """The bound on ``fun`` of the LM-fit kernel against the plain LM at
+    ``n_obs`` steps: each side's float32 sum over the steps carries up to
+    about ``n·u`` of relative rounding (u = ``LM_SUM_U``), so the two
+    differ by up to twice that."""
+    return 2.0 * n_obs * LM_SUM_U
+
+
+def _fun_gap(got, want, rtol):
+    """``fun``'s share of lanes within ``rtol`` relative (NaN matching
+    NaN) and its largest relative gap (0 where both sides are equal or
+    NaN, inf where only one side is NaN or infinite)."""
+    import torch
+
+    a, b = got[1].double(), want[1].double()
+    within = torch.isclose(a, b, rtol=rtol, atol=0.0, equal_nan=True)
+    rel = torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)), 0.0,
+                      (a - b).abs() / b.abs())
+    rel = torch.nan_to_num(rel, nan=float("inf"))
+    return float(within.double().mean()), float(rel.max())
+
+
+def _lm_plain_part(x0: np.ndarray, y: np.ndarray, p: int, q: int):
+    """``fit_css_lm_plain`` on the CPU in float32 from the starts ``x0``
+    for ``LONG_PLAIN_ITER`` iterations (in a spawned process: the step
+    loop over a few long lanes is quicker on host cores than as
+    launch-bound card operations); ``(outputs as arrays, seconds)``."""
+    import torch
+
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = arma_ne.fit_css_lm_plain(torch.from_numpy(x0), torch.from_numpy(y),
+                                   p, q, 1, 1e-6, LONG_PLAIN_ITER)
+    return tuple(o.numpy() for o in out), time.perf_counter() - t0
+
+
+def start_lm_vs_plain(y: np.ndarray, p: int, q: int, dev, pool=None):
+    """The LM-fit kernel on the lanes ``y (L, n)`` as the path gives them
+    (float32), ARMA(p, q) with an intercept, from their Hannan-Rissanen
+    starts, for ``LONG_PLAIN_ITER`` iterations on the card; the plain LM
+    from the same starts on the same inputs on the CPU, in ``pool`` (a
+    spawned pool) or here.  Returns a function that gives the row:
+    ``fun`` within :func:`lm_plain_rtol` on a share of lanes, its largest
+    relative gap, equal iteration counts, the largest ``|x - x_plain|``."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    yd = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(dev)
+    x0 = arima.hannan_rissanen_init(p, q, yd, True)
+    got = arma_ne.fit_css_lm(x0, yd, p, q, 1, tol=1e-6,
+                             max_iter=LONG_PLAIN_ITER)
+    got = tuple(t.cpu() for t in got)
+    args = (x0.cpu().numpy(), yd.cpu().numpy(), p, q)
+    pending = pool.apply_async(_lm_plain_part, args) if pool is not None \
+        else None
+    done = None if pool is not None else _lm_plain_part(*args)
+
+    def finish():
+        outs, secs = pending.get() if pending is not None else done
+        want = tuple(torch.from_numpy(o) for o in outs)
+        rtol = lm_plain_rtol(yd.shape[1])
+        share, gap = _fun_gap(got, want, rtol)
+        return {"lanes": int(yd.shape[0]), "n_obs": int(yd.shape[1]),
+                "order": [p, q], "iterations": LONG_PLAIN_ITER,
+                "plain_cpu_s": secs, "fun_rtol": rtol,
+                "fun_within": share, "fun_max_rel_gap": gap,
+                "n_iter_equal": float((got[3] == want[3]).double().mean()),
+                "max_abs_x": _max_abs_x(got, want)}
+    return finish
+
+
+def check_lm_vs_plain(chk, r, where: str) -> None:
+    chk(r["fun_within"] >= LONG_PLAIN_SHARE,
+        f"{where}: arma_lm_fit vs the plain LM ({r['iterations']} "
+        f"iterations, {r['lanes']} x {r['n_obs']} at ARMA{tuple(r['order'])})"
+        f": fun within {r['fun_rtol']:g} on {r['fun_within']} of lanes "
+        f"(floor {LONG_PLAIN_SHARE}; largest gap {r['fun_max_rel_gap']:g})")
+
+
+def long_lm_vs_plain(panel: np.ndarray, dev):
+    """The LM-fit kernel at the long path's shape (every segment of the
+    10⁶ panel, ``(122, 8192)``): its CUDA-event ms (its launch as the
+    fused path makes it, median of 3), the lanes' passes and the bound;
+    then, from the same Hannan-Rissanen starts, the kernel against
+    ``fit_css_lm_plain`` on the card, both at ``LONG_PLAIN_ITER``
+    iterations (the plain LM is a step loop: 8191 steps a pass)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne
+
+    y = torch.from_numpy(panel).to(dev)
+    x0 = arima.hannan_rissanen_init(1, 1, y, True)
+    got = arma_ne.fit_css_lm(x0, y, 1, 1, 1, tol=1e-6, max_iter=50)
+    ms = _event_ms(lambda: arma_ne.fit_css_lm(x0, y, 1, 1, 1, tol=1e-6,
+                                              max_iter=50), 3)
+    passes = (1 + got[3]).double()
+    S, n = y.shape
+    bound_s, bound_by, _, _ = lm_fit_bound_s(S, n, 1, 1, 1,
+                                             int(passes.sum()))
+    short = arma_ne.fit_css_lm(x0, y, 1, 1, 1, tol=1e-6,
+                               max_iter=LONG_PLAIN_ITER)
+    t0 = time.perf_counter()
+    plain = arma_ne.fit_css_lm_plain(x0, y, 1, 1, 1, 1e-6, LONG_PLAIN_ITER)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    fun_within, fun_gap = _fun_gap(short, plain, LONG_PLAIN_RTOL)
+    return {"lanes": S, "n_obs": n, "lm_fit_ms": ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "lane_passes_mean": float(passes.mean()),
+            "lane_passes_max": int(passes.max()),
+            "plain_iterations": LONG_PLAIN_ITER, "plain_ms": plain_s * 1e3,
+            "vs_plain_n_iter_equal": float((short[3] == plain[3])
+                                           .double().mean()),
+            "vs_plain_fun_rtol": LONG_PLAIN_RTOL,
+            "vs_plain_fun_within": fun_within,
+            "vs_plain_fun_max_rel_gap": fun_gap,
+            "vs_plain_max_abs_x": _max_abs_x(short, plain)}
+
+
+class _Checks:
+    """Checks of a phase, held until its row is printed: ``chk(ok,
+    what)`` records a failure, :meth:`raise_first` raises the first as
+    :func:`check` does."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, ok: bool, what: str) -> None:
+        if not ok:
+            self.failed.append(what)
+
+    def raise_first(self) -> None:
+        for what in self.failed:
+            check(False, what)
+
+
+def phase_long_path(dev, n_obs=LONG_N_OBS, huge_obs=LONG_HUGE_OBS,
+                    ultra=(ULTRA_SERIES, ULTRA_OBS, ULTRA_SEG)):
+    """The long-series tier on the card, float32 (module docstring, 26)."""
+    import collections
+
+    import torch
+
+    from spark_timeseries_tpu_torch import longseries
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.longseries import api as ls_api
+    from spark_timeseries_tpu_torch.longseries import split
+    from spark_timeseries_tpu_torch.models import arima
+
+    row = {"phase": "long_path"}
+    chk = _Checks()
+    t_phase = time.perf_counter()
+    series = long_series(n_obs, LONG_SEED, dev)
+    ref = start_long_ref(series[:LONG_REF_OBS])
+    import multiprocessing
+    plain_pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        # -- 10⁶ observations, the default (fused) path -------------------
+        _zero_lm_counts()
+        b0 = _fused_bytes()
+        _sync(dev)
+        t0 = time.perf_counter()
+        lf = longseries.fit_long(series, order=(1, 0, 1), warn=False,
+                                 device=dev)
+        _sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = _lm_counts()
+        d2h = _fused_bytes() - b0
+        t0 = time.perf_counter()
+        fc = lf.forecast(24)
+        forecast_s = time.perf_counter() - t0
+        coefs = lf.coefficients.cpu().numpy()
+        pi1 = float(coefs[1])
+        want_bytes = longseries.combine.expected_combine_acc_bytes(12)
+        row["million"] = {
+            "n_obs": n_obs, "n_segments": lf.plan.n_segments,
+            "seg_len": lf.plan.seg_len, "fit_s": fit_s,
+            "obs_per_s": lf.plan.n_used / fit_s,
+            "forecast_s_incl_origin": forecast_s,
+            "segments_weighted": lf.combined.n_weighted,
+            "used_wls": lf.combined.used_wls, "pi1": pi1,
+            "sigma2": float(lf.sigma2), "n_chunks": lf.stream_stats[
+                "n_chunks"], "launches": launches,
+            "fused_bytes_d2h": d2h, "expected_bytes": want_bytes,
+            "forecast_finite": bool(np.isfinite(fc).all())}
+        chk(abs(pi1 - 1.0) < LONG_PI1_TOL,
+              f"long_path: π₁ = {pi1} at 10⁶ obs (want 1.0 ± {LONG_PI1_TOL})")
+        chk(launches["arma_lm_fit"] == lf.stream_stats["n_chunks"]
+              == lf.stream_stats["lm_fit_launches"],
+              f"long_path: {launches['arma_lm_fit']} arma_lm_fit launches "
+              f"for {lf.stream_stats['n_chunks']} segment chunks")
+        chk(launches["arma_ne"] == 0 and launches["arma_css"] == 0,
+              f"long_path launched a one-pass kernel: {launches}")
+        chk(d2h == want_bytes,
+              f"long_path: the fused combine copied {d2h} bytes to the "
+              f"host, expected_combine_acc_bytes(12) = {want_bytes}")
+        chk(fc.shape == (24,) and bool(np.isfinite(fc).all()),
+              "long_path: forecast(24) is not 24 finite values")
+
+        # -- staged against fused ------------------------------------------
+        _zero_lm_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        lf_s = longseries.fit_long(series, order=(1, 0, 1), warn=False,
+                                   fused=False, device=dev)
+        _sync(dev)
+        staged_s = time.perf_counter() - t0
+        staged_launches = _lm_counts()
+        panel = split.segment_panel(series, lf.plan)
+        step = lf.stream_stats["chunk_segments"]
+        fused_seg = torch.cat([arima.segment_fit_outputs(
+            1, 1, torch.from_numpy(panel[s:s + step]).to(dev),
+            device=dev)[0] for s in range(0, panel.shape[0], step)]).cpu()
+        res = FitEngine().stream_fit(panel, "arima", chunk_size=step,
+                                     collect=True, device=dev, p=1, d=0,
+                                     q=1)
+        staged_seg, _ = ls_api._collect_segment_coefs(
+            res, lf.plan.n_segments, 3, panel.dtype)
+        seg_bitwise = _bitwise_equal(fused_seg.numpy(), staged_seg)
+        d_comb = float(np.abs(lf_s.coefficients.cpu().numpy()
+                              - coefs).max())
+        row["staged"] = {"fit_s": staged_s, "launches": staged_launches,
+                         "segments_bitwise": seg_bitwise,
+                         "combined_max_abs_diff": d_comb,
+                         "combined_bitwise": d_comb == 0.0}
+        chk(seg_bitwise, "long_path: the staged path's per-segment "
+                           "coefficients are not the fused path's bit for "
+                           "bit")
+        chk(d_comb <= LONG_STAGED_TOL,
+              f"long_path: staged and fused combined coefficients differ "
+              f"by {d_comb} (bound {LONG_STAGED_TOL})")
+        chk(staged_launches["arma_lm_fit"] == lf_s.stream_stats[
+              "n_chunks"], f"long_path staged: {staged_launches} for "
+              f"{lf_s.stream_stats['n_chunks']} chunks")
+
+        # -- the LM-fit kernel at these shapes -------------------------------
+        row["lm_fit"] = long_lm_vs_plain(panel, dev)
+        chk(row["lm_fit"]["vs_plain_fun_within"] >= LONG_PLAIN_SHARE,
+              f"long_path: arma_lm_fit vs the plain LM "
+              f"({LONG_PLAIN_ITER} iterations, {panel.shape}): fun within "
+              f"{LONG_PLAIN_RTOL:g} on {row['lm_fit']['vs_plain_fun_within']}"
+              f" of lanes (floor {LONG_PLAIN_SHARE})")
+        del panel
+
+        # -- auto=True ---------------------------------------------------------
+        _zero_lm_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        lf_a = longseries.fit_long(series, order=(1, 0, 1), auto=True,
+                                   warn=False, device=dev)
+        _sync(dev)
+        auto_s = time.perf_counter() - t0
+        auto_launches = _lm_counts()
+        hist = collections.Counter(
+            f"({int(p)},{int(q)})" for p, _, q in lf_a.segment_orders)
+        row["auto"] = {"fit_s": auto_s, "launches": auto_launches,
+                       "stats_launches": lf_a.stream_stats[
+                           "lm_fit_launches"],
+                       "segment_orders": dict(sorted(hist.items())),
+                       "pi1": float(lf_a.coefficients[1]),
+                       "segments_weighted": lf_a.combined.n_weighted}
+        chk(auto_launches["arma_lm_fit"]
+              == lf_a.stream_stats["lm_fit_launches"] == 37,
+              f"long_path auto: {auto_launches['arma_lm_fit']} arma_lm_fit "
+              f"launches, stats say {lf_a.stream_stats['lm_fit_launches']}"
+              f" (want C + 1 = 37)")
+        chk(auto_launches["arma_ne"] == 0,
+              f"long_path auto launched arma_ne: {auto_launches}")
+
+        # -- 10⁸ observations --------------------------------------------------
+        g = torch.Generator(device=dev)
+        g.manual_seed(LONG_SEED)
+        t0 = time.perf_counter()
+        from spark_timeseries_tpu_torch.ops.scan_parallel import ar1_filter
+        e = torch.randn(huge_obs + 1, generator=g, device=dev)
+        huge = ar1_filter(e[1:] + 0.4 * e[:-1], 0.1, 0.6).cpu().numpy()
+        del e
+        gen_s = time.perf_counter() - t0
+        _zero_lm_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        lf_h = longseries.fit_long(huge, order=(1, 0, 1), warn=False,
+                                   device=dev)
+        _sync(dev)
+        huge_fit_s = time.perf_counter() - t0
+        huge_launches = _lm_counts()
+        # the kernel against the plain LM on the first lanes of the fused
+        # chunks (65536 steps a lane)
+        pl = lf_h.plan
+        huge_vs_plain = start_lm_vs_plain(np.stack([
+            huge[pl.head_drop + k * pl.seg_len:][:pl.window]
+            for k in range(min(LONG_PLAIN_LANES, pl.n_segments))]), 1, 1,
+            dev, plain_pool)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        lf_h.forecast_origin()
+        _sync(dev)
+        origin_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) \
+            if dev.type == "cuda" else None
+        fc_h = lf_h.forecast(24)
+        pi1_h = float(lf_h.coefficients[1])
+        row["hundred_million"] = {
+            "n_obs": huge_obs, "generate_s": gen_s,
+            "n_segments": lf_h.plan.n_segments, "seg_len": lf_h.plan.seg_len,
+            "n_chunks": lf_h.stream_stats["n_chunks"],
+            "fit_s": huge_fit_s, "obs_per_s": lf_h.plan.n_used / huge_fit_s,
+            "forecast_origin_s": origin_s,
+            "forecast_origin_peak_bytes": peak, "launches": huge_launches,
+            "pi1": pi1_h, "used_wls": lf_h.combined.used_wls,
+            "forecast_finite": bool(np.isfinite(fc_h).all())}
+        chk(huge_launches["arma_lm_fit"] == lf_h.stream_stats["n_chunks"],
+              f"long_path 10⁸: {huge_launches} for "
+              f"{lf_h.stream_stats['n_chunks']} chunks")
+        chk(abs(pi1_h - 1.0) < LONG_PI1_TOL and np.isfinite(fc_h).all(),
+              f"long_path 10⁸: π₁ = {pi1_h}, forecast finite "
+              f"{bool(np.isfinite(fc_h).all())}")
+        del huge, lf_h
+
+        # -- models.arima.fit_long against the direct fit ---------------------
+        n_u, obs_u, seg_u = ultra
+        vals = torch.from_numpy(synthetic_arima_panel(n_u, obs_u,
+                                                      ULTRA_SEED)).to(dev)
+        _zero_lm_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        direct = arima.fit(2, 1, 2, vals, warn=False, device=dev)
+        _sync(dev)
+        direct_s = time.perf_counter() - t0
+        st: dict = {}
+        t0 = time.perf_counter()
+        seg = arima.fit_long(2, 1, 2, vals, segment_len=seg_u, warn=False,
+                             device=dev, stats=st)
+        _sync(dev)
+        seg_s = time.perf_counter() - t0
+        ultra_launches = _lm_counts()
+        # the kernel against the plain LM on series 0's last segments, the
+        # lanes arima.fit_long gave it (float32 differences, as on the card)
+        d0 = np.diff(vals[0].cpu().numpy())
+        k_u = min(LONG_PLAIN_LANES, d0.size // seg_u)
+        ultra_vs_plain = start_lm_vs_plain(
+            d0[d0.size - k_u * seg_u:].reshape(k_u, seg_u), 2, 2, dev,
+            plain_pool)
+        dc = (direct.coefficients - seg.coefficients).abs().cpu().numpy()
+        row["arima_fit_long"] = {
+            "shape": [n_u, obs_u], "segment_len": seg_u,
+            "direct_s": direct_s, "direct_obs_per_s": n_u * obs_u / direct_s,
+            "fit_long_s": seg_s, "fit_long_obs_per_s": n_u * obs_u / seg_s,
+            "precision_s": st["precision_s"],
+            "max_abs_diff_series0": float(dc[0].max()),
+            "max_abs_diff_all": float(dc.max()),
+            "launches": ultra_launches,
+            "converged": bool(seg.diagnostics.converged.all())}
+        chk(dc[0].max() < ULTRA_TOL,
+              f"long_path: arima.fit_long differs from the direct fit by "
+              f"{dc[0].max()} (bound {ULTRA_TOL}, bench_suite.py's check)")
+        chk(ultra_launches["arma_lm_fit"] == 2,
+              f"long_path arima.fit_long: {ultra_launches} (want one launch"
+              f" for the direct fit and one for the segments)")
+
+        # -- against float64 on the CPU ---------------------------------------
+        head = series[:LONG_REF_OBS]
+        lf32 = longseries.fit_long(head, order=(1, 0, 1), warn=False,
+                                   seg_len=LONG_REF_SEG, device=dev)
+        fc32 = lf32.forecast(24)
+        want = ref[1].get()
+        d_coef = float(np.abs(lf32.coefficients.cpu().numpy()
+                              - want["coefficients"]).max())
+        d_fc = float((np.abs(fc32 - want["forecast"])
+                      / np.maximum(1.0, np.abs(want["forecast"]))).max())
+        d_pin = float((np.abs(want["forecast"] - want["sequential_forecast"])
+                       / np.maximum(1.0, np.abs(want["forecast"]))).max())
+        row["vs_float64"] = {"n_obs": LONG_REF_OBS, "seg_len": LONG_REF_SEG,
+                             "n_segments": lf32.plan.n_segments,
+                             "max_abs_coef_diff": d_coef,
+                             "forecast_max_rel_diff": d_fc,
+                             "f64_origin_vs_sequential": d_pin,
+                             "cpu_fit_s": want["fit_s"],
+                             "cpu_seconds": want["seconds"]}
+        chk(d_coef <= LONG_REF_COEF_TOL,
+              f"long_path: combined coefficients differ from float64 by "
+              f"{d_coef} (bound {LONG_REF_COEF_TOL})")
+        chk(d_fc <= LONG_REF_FC_RTOL,
+              f"long_path: forecast(24) differs from float64 by {d_fc} "
+              f"(bound {LONG_REF_FC_RTOL})")
+        chk(d_pin <= LONG_PIN_RTOL,
+              f"long_path: the float64 forecast off the recovered origin "
+              f"differs from the sequential filter's by {d_pin} (bound "
+              f"{LONG_PIN_RTOL})")
+
+        # -- the LM-fit kernel against the plain LM at the long windows ------
+        row["lm_fit_vs_plain"] = {"hundred_million": huge_vs_plain(),
+                                  "arima_fit_long": ultra_vs_plain()}
+        for key, r in row["lm_fit_vs_plain"].items():
+            check_lm_vs_plain(chk, r, f"long_path {key}")
+    finally:
+        ref[0].terminate()
+        ref[0].join()
+        plain_pool.terminate()
+        plain_pool.join()
+    row["launches"] = {
+        "arma_lm_fit": launches["arma_lm_fit"]
+        + staged_launches["arma_lm_fit"] + huge_launches["arma_lm_fit"]
+        + ultra_launches["arma_lm_fit"],
+        "arma_lm_fit_grid": auto_launches["arma_lm_fit"],
+        "arma_ne": launches["arma_ne"] + staged_launches["arma_ne"]
+        + auto_launches["arma_ne"] + huge_launches["arma_ne"]
+        + ultra_launches["arma_ne"],
+        "arma_css": launches["arma_css"] + staged_launches["arma_css"]
+        + auto_launches["arma_css"] + huge_launches["arma_css"]
+        + ultra_launches["arma_css"]}
+    row["seconds"] = time.perf_counter() - t_phase
+    row["failed_checks"] = chk.failed
+    emit(row)
+    chk.raise_first()
+    return row
+
+
+def _bt_arma(S, n, phi, theta, seed, burn=BT_BURN):
+    """``bench.py``'s backtest demo ARMA generator (intercept 2)."""
+    r = np.random.default_rng(seed)
+    e = r.standard_normal((S, n + burn))
+    y = np.zeros((S, n + burn))
+    for t in range(1, n + burn):
+        ar = sum(p * y[:, t - 1 - i] for i, p in enumerate(phi))
+        ma = sum(q * e[:, t - 1 - i] for i, q in enumerate(theta))
+        y[:, t] = 2.0 + ar + e[:, t] + ma
+    return y[:, burn:]
+
+
+def _bt_ses(S, n, alpha, seed):
+    """``bench.py``'s backtest demo local level (SES's own process)."""
+    r = np.random.default_rng(seed)
+    e = r.standard_normal((S, n))
+    y = np.zeros((S, n))
+    lvl = np.full(S, 10.0)
+    for t in range(n):
+        y[:, t] = lvl + e[:, t]
+        lvl = lvl + alpha * e[:, t]
+    return y
+
+
+def backtest_demo_panel(S: int, n: int = BT_OBS):
+    """``bench.py:1110-1160``'s panel at ``S`` series a family: AR(1),
+    ARMA(1,1) and SES, float32, and the index of each series' true
+    candidate in ``BT_GRID`` (ar(1) 0, arima(1,0,1) 2, ewma 3)."""
+    panel = np.concatenate([_bt_arma(S, n, (0.8,), (), 101),
+                            _bt_arma(S, n, (0.4,), (0.9,), 102),
+                            _bt_ses(S, n, 0.4, 103)]).astype(np.float32)
+    return panel, np.repeat([0, 2, 3], S)
+
+
+def _span_s(before, after, name):
+    key = "backtest.backtest_panel/" + name
+    return after.get(key, {}).get("total_s", 0.0) \
+        - before.get(key, {}).get("total_s", 0.0)
+
+
+def phase_backtest_path(dev, wide=BT_WIDE, long_obs=BT_LONG_OBS):
+    """Rolling-origin backtesting on the card, float32 (module docstring,
+    27)."""
+    import torch
+
+    from spark_timeseries_tpu_torch.backtest import (CandidateGrid,
+                                                     backtest_panel,
+                                                     evaluate_candidate,
+                                                     plan_origins)
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.utils import metrics
+
+    row = {"phase": "backtest_path"}
+    chk = _Checks()
+    t_phase = time.perf_counter()
+    grid = CandidateGrid(BT_GRID, horizons=BT_HORIZONS)
+    arima_idx = [c.family for c in grid.candidates].index("arima")
+
+    # -- bench.py's size, against float64 on the CPU ---------------------
+    panel, truth = backtest_demo_panel(BT_SERIES)
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    rep = backtest_panel(panel, grid, device=dev, **BT_SCHEDULE)
+    bench_s = time.perf_counter() - t0
+    bench_launches = _lm_counts()
+    t0 = time.perf_counter()
+    ref = backtest_panel(panel.astype(np.float64), grid, device="cpu",
+                         **BT_SCHEDULE)
+    cpu_s = time.perf_counter() - t0
+    same = rep.champion == ref.champion
+    rel = {m: np.abs(rep.champion_score(m) - ref.champion_score(m))
+           / np.abs(ref.champion_score(m)) for m in ("smape", "mase")}
+    row["bench"] = {
+        "shape": list(panel.shape), "candidates": len(grid),
+        "n_origins": rep.schedule.n_origins, "seconds": bench_s,
+        "champion_smape": float(np.nanmean(rep.champion_score("smape"))),
+        "champion_mase": float(np.nanmean(rep.champion_score("mase"))),
+        "true_model_recovery": float(np.mean(rep.champion == truth)),
+        "coverage_mean": float(np.nanmean(rep.horizon_table("coverage"))),
+        "champion_counts": rep.champion_counts(),
+        "launches": bench_launches,
+        "f64_champion_smape": float(np.nanmean(ref.champion_score("smape"))),
+        "f64_champion_mase": float(np.nanmean(ref.champion_score("mase"))),
+        "f64_true_model_recovery": float(np.mean(ref.champion == truth)),
+        "champions_equal_share": float(same.mean()),
+        "score_max_rel_diff": {m: float(np.nanmax(np.where(same, v, 0.0)))
+                               for m, v in rel.items()},
+        "cpu_seconds": cpu_s}
+    chk(same.mean() >= BT_CHAMP_FLOOR,
+          f"backtest_path: champions equal the float64 CPU run's on "
+          f"{same.mean():.4f} of series (floor {BT_CHAMP_FLOOR})")
+    worst = max(row["bench"]["score_max_rel_diff"].values())
+    chk(worst <= BT_SCORE_RTOL,
+          f"backtest_path: champion scores differ from float64 by {worst} "
+          f"relative (bound {BT_SCORE_RTOL})")
+    chk(bench_launches["arma_lm_fit"]
+          == rep.stream_stats[arima_idx]["n_chunks"],
+          f"backtest_path bench: {bench_launches} for the arima "
+          f"candidate's {rep.stream_stats[arima_idx]['n_chunks']} chunks")
+
+    # -- widened to 3 x wide series ---------------------------------------
+    big, _ = backtest_demo_panel(wide)
+    spans0 = metrics.get_registry().snapshot()["spans"]
+    _zero_lm_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    rep_w = backtest_panel(big, grid, device=dev, **BT_SCHEDULE)
+    _sync(dev)
+    wide_s = time.perf_counter() - t0
+    wide_launches = _lm_counts()
+    spans1 = metrics.get_registry().snapshot()["spans"]
+    st_a = rep_w.stream_stats[arima_idx]
+    row["wide"] = {
+        "shape": list(big.shape), "seconds": wide_s,
+        "series_candidates_per_s": big.shape[0] * len(grid) / wide_s,
+        "fit_s": _span_s(spans0, spans1, "backtest.fit"),
+        "replay_s": _span_s(spans0, spans1, "backtest.replay"),
+        "score_s": _span_s(spans0, spans1, "backtest.score"),
+        "champion_counts": rep_w.champion_counts(),
+        "champion_mase": float(np.nanmean(rep_w.champion_score("mase"))),
+        "arima_chunks": st_a["n_chunks"], "launches": wide_launches}
+    chk(wide_launches["arma_lm_fit"] == st_a["n_chunks"]
+          == st_a["lm_fit_launches"],
+          f"backtest_path wide: {wide_launches['arma_lm_fit']} arma_lm_fit "
+          f"launches for the arima candidate's {st_a['n_chunks']} chunks")
+    chk(wide_launches["arma_ne"] == 0,
+          f"backtest_path wide launched arma_ne: {wide_launches}")
+    # the kernel against the plain LM on the first lanes of the arima
+    # candidate's fit window
+    fs, ft = rep_w.schedule.fit_window()
+    row["lm_fit_vs_plain"] = start_lm_vs_plain(
+        big[:LONG_PLAIN_LANES, fs:ft], 1, 1, dev)()
+    check_lm_vs_plain(chk, row["lm_fit_vs_plain"], "backtest_path wide")
+
+    # -- pinned-gain replay against the refilter oracle -----------------
+    lanes = big[::max(1, big.shape[0] // BT_PIN_LANES)][:BT_PIN_LANES]
+    sched = plan_origins(lanes.shape[1], grid.horizon, **BT_PIN_SCHEDULE)
+    fs, ft = sched.fit_window()
+    model = arima.fit(1, 0, 1, lanes[:, fs:ft], warn=False, device=dev)
+    t0 = time.perf_counter()
+    pinned = evaluate_candidate(lanes, model, sched, BT_HORIZONS,
+                                device=dev)
+    pinned_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = evaluate_candidate(lanes, model, sched, BT_HORIZONS,
+                                replay="refilter", device=dev)
+    oracle_s = time.perf_counter() - t0
+    d_pin = float(np.nanmax(np.abs(pinned.forecasts - oracle.forecasts)
+                            / np.maximum(1.0, np.abs(oracle.forecasts))))
+    row["pinned_vs_refilter"] = {
+        "lanes": int(lanes.shape[0]), "n_origins": sched.n_origins,
+        "pinned_s": pinned_s, "refilter_s": oracle_s,
+        "forecast_max_rel_diff": d_pin,
+        "nan_equal": bool((np.isnan(pinned.forecasts)
+                           == np.isnan(oracle.forecasts)).all())}
+    chk(d_pin <= BT_PIN_RTOL and row["pinned_vs_refilter"]["nan_equal"],
+          f"backtest_path: the pinned-gain replay differs from the refilter "
+          f"oracle by {d_pin} (bound {BT_PIN_RTOL})")
+
+    # -- the long route ------------------------------------------------------
+    long_panel = np.stack([long_series(long_obs, LONG_SEED + 1 + i, dev)
+                           for i in range(BT_LONG_SERIES)])
+    lgrid = CandidateGrid({"arima": [(1, 0, 1)]}, horizons=BT_HORIZONS)
+    _zero_lm_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    rep_l = backtest_panel(long_panel, lgrid, device=dev, n_origins=8,
+                           min_train=BT_LONG_TRAIN,
+                           long_threshold=BT_LONG_TRAIN)
+    long_s = time.perf_counter() - t0
+    long_launches = _lm_counts()
+    st_l = rep_l.stream_stats[0]
+    row["long_route"] = {"shape": list(long_panel.shape),
+                         "path": st_l["path"], "seconds": long_s,
+                         "launches": long_launches,
+                         "stats_launches": st_l["lm_fit_launches"],
+                         "scores_mase": rep_l.scores_mase[:, 0].tolist()}
+    chk(st_l["path"] == "longseries",
+          f"backtest_path: the arima candidate took the {st_l['path']} "
+          f"route at {long_panel.shape} (want longseries)")
+    chk(long_launches["arma_lm_fit"] == st_l["lm_fit_launches"]
+          == BT_LONG_SERIES and np.isfinite(rep_l.scores_mase).all(),
+          f"backtest_path long route: {long_launches} (stats "
+          f"{st_l['lm_fit_launches']}), scores {rep_l.scores_mase}")
+    row["launches"] = {
+        name: bench_launches[name] + wide_launches[name]
+        + long_launches[name] for name in bench_launches}
+    row["seconds"] = time.perf_counter() - t_phase
+    row["failed_checks"] = chk.failed
+    emit(row)
+    chk.raise_first()
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4750,6 +5573,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         panel, args.seed, dev,
         [cgd_row["arma_ne_widths"], arx_row["resilient_arma_ne_widths"],
          surf_row["widths"]["arma_ne"]], [surf_row["widths"]["arma_css"]])
+    # slice 13: the long-series tier and rolling-origin backtesting, each
+    # driven with the counts set to 0 just before it and read just after;
+    # after ne_rows_timing, whose device-time medians need the profiler's
+    # device records, which a process stops receiving in full once it has
+    # gone ~45 s without a profiler session (_profile_ops)
+    long_row = paths.run("long_path", phase_long_path, dev)
+    bt_row = paths.run("backtest_path", phase_backtest_path, dev)
+    lng, btl = long_row["launches"], bt_row["launches"]
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -4768,7 +5599,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + res_lm + surf["arma_lm_fit"] + arx_row["arma_lm_fit_launches"]
         + arx_row["resilient_arma_lm_fit_launches"]
         + exact_row["arma_lm_fit_launches"]
-        + serv_row["arma_lm_fit_launches"],
+        + serv_row["arma_lm_fit_launches"] + lng["arma_lm_fit"]
+        + btl["arma_lm_fit"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
@@ -4778,7 +5610,25 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_path_resilient":
                 arx_row["resilient_arma_lm_fit_launches"],
             "exact_path": exact_row["arma_lm_fit_launches"],
-            "serving_path": serv_row["arma_lm_fit_launches"]},
+            "serving_path": serv_row["arma_lm_fit_launches"],
+            "long_path": lng["arma_lm_fit"],
+            "backtest_path": btl["arma_lm_fit"]},
+        "long_path_launch": {
+            k: long_row["lm_fit"][k] for k in (
+                "lanes", "n_obs", "lm_fit_ms", "bound_ms", "bound_by",
+                "plain_ms", "plain_iterations", "vs_plain_fun_within",
+                "vs_plain_fun_max_rel_gap", "vs_plain_max_abs_x")},
+        # few lanes at the other windows the slice-13 paths give it
+        "long_windows_vs_plain": [
+            {"where": where, **{k: r[k] for k in (
+                "lanes", "n_obs", "order", "fun_rtol", "fun_within",
+                "fun_max_rel_gap", "max_abs_x")}}
+            for where, r in (
+                ("long_path 10⁸", long_row["lm_fit_vs_plain"][
+                    "hundred_million"]),
+                ("long_path arima.fit_long", long_row["lm_fit_vs_plain"][
+                    "arima_fit_long"]),
+                ("backtest_path wide", bt_row["lm_fit_vs_plain"]))],
         # lanes stopped by the iteration cap end anywhere along a ridge
         "max_abs_err": lm_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": lm_row["lm_fit_ms"], "plain_ms": lm_row["plain_ms"],
@@ -4795,7 +5645,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + cgd_row["arma_ne_launches"] + arx_row["arma_ne_launches"]
         + arx_row["resilient_arma_ne_launches"]
         + arx_row["methods_arma_ne_launches"]
-        + exact_row["arma_ne_launches"] + serv["arma_ne"],
+        + exact_row["arma_ne_launches"] + serv["arma_ne"]
+        + lng["arma_ne"] + btl["arma_ne"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
@@ -4807,7 +5658,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_path_resilient": arx_row["resilient_arma_ne_launches"],
             "arimax_methods": arx_row["methods_arma_ne_launches"],
             "exact_path": exact_row["arma_ne_launches"],
-            "serving_path": serv["arma_ne"]},
+            "serving_path": serv["arma_ne"],
+            "long_path": lng["arma_ne"], "backtest_path": btl["arma_ne"]},
         "route_launches": lm_row["route_arma_ne_launches"]
         + arx_row["route_arma_ne_launches"],
         "launch_widths": {
@@ -4832,14 +5684,16 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "docs/experiments/arma_pallas.py:67",
         "launches": css_launches + res_row["arma_css_launches"]
         + surf["arma_css"] + arx_row["arma_css_launches"]
-        + arx_row["methods_arma_css_launches"] + serv["arma_css"],
+        + arx_row["methods_arma_css_launches"] + serv["arma_css"]
+        + lng["arma_css"] + btl["arma_css"],
         "launches_by_path": {
             "hw_path": css_launches,
             "resilient_path": res_row["arma_css_launches"],
             "arima_surface": surf["arma_css"],
             "arimax_path": arx_row["arma_css_launches"],
             "arimax_methods": arx_row["methods_arma_css_launches"],
-            "serving_path": serv["arma_css"]},
+            "serving_path": serv["arma_css"],
+            "long_path": lng["arma_css"], "backtest_path": btl["arma_css"]},
         "launch_widths": {"arima_surface": surf_row["widths"]["arma_css"]},
         "by_width": [{"S": r["S"], "ragged": r["ragged"],
                       "ms": r["ms"]["css_kernel"]["new"],
@@ -4913,12 +5767,14 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "replaces": "spark_timeseries_tpu/ops/pallas_arma.py:229 "
                     "(y_blocks grid, :351)",
         "launches": grid_launches + panel_row["auto_fit_launches"]
-        + res_grid + serv_row["arma_lm_fit_grid_launches"],
+        + res_grid + serv_row["arma_lm_fit_grid_launches"]
+        + lng["arma_lm_fit_grid"],
         "launches_by_path": {
             "auto_fit_path": grid_launches,
             "panel_path": panel_row["auto_fit_launches"],
             "resilient_path": res_grid,
-            "serving_path": serv_row["arma_lm_fit_grid_launches"]},
+            "serving_path": serv_row["arma_lm_fit_grid_launches"],
+            "long_path": lng["arma_lm_fit_grid"]},
         "max_abs_err": grid_row["vs_plain_max_abs_x_same_iter_converged"],
         "ms": grid_row["kernel_ms"], "plain_ms": grid_row["plain_ms"],
         "plain_lanes": grid_row["plain_lanes"],

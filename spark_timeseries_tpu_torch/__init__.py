@@ -23,9 +23,13 @@ smoothing families; the exogenous-regressor families
 (``models.autoregression_x``, ``models.arimax``,
 ``models.regression_arima``); the state-space core (``statespace``:
 the Kalman filter and the exact likelihood that
-``models.arima.fit(objective="exact")`` maximizes); and the online
-serving tier on it (``statespace.serving.ServingSession`` with lane
-health, forecast quality, heal and checkpoint/restore).
+``models.arima.fit(objective="exact")`` maximizes); the online serving
+tier on it (``statespace.serving.ServingSession`` with lane health,
+forecast quality, heal and checkpoint/restore); the long-series tier
+(``longseries.fit_long``: one series of 10⁶–10⁸ observations split,
+fitted as a batch of segments, combined and forecast exactly; and
+``models.arima.fit_long``); and rolling-origin backtesting with
+per-series champions (``backtest.backtest_panel``, ``Panel.backtest``).
 
 Device policy: the entry points take ``device=None``, which means CUDA.
 Without a card they raise unless the caller passes ``device="cpu"``.

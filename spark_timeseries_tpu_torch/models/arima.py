@@ -14,8 +14,9 @@ and sampling; the stationarity/invertibility root checks; the stepwise
 auto-order -> AR -> mean); the batched BFGS ``method="css-cgd"``; and the
 exact Gaussian likelihood (``objective="exact"``,
 ``ARIMAModel.log_likelihood_exact``) through the Kalman filter of
-``statespace``.  Not ported yet: ``fit_long`` and
-``segment_fit_outputs`` (the long-series slice).
+``statespace``; the in-memory long-series combiner :func:`fit_long` and
+:func:`segment_fit_outputs`, the fit of the long-series tier's fused
+path (``longseries``).
 
 Coefficients are laid out ``[intercept?, AR..., MA...]`` as in the JAX
 package, panels series-major ``(n_series, n_obs)``.
@@ -38,6 +39,7 @@ from ..ops.lag import lag_matvec, lag_stack
 from ..ops.linalg import ols_gram, spd_solve
 from ..ops.optimize import (MinimizeResult, _solve_with_policy, minimize_bfgs,
                             minimize_box, value_and_grad_of)
+from ..ops.scan_parallel import affine_recurrence, linear_recurrence
 from ..ops.ragged import (apply_short_quarantine, ragged_view, short_lanes,
                           step_weights)
 from ..ops.univariate import (differences_of_order_d,
@@ -339,17 +341,94 @@ def ar_truncation(c, phi, theta, n_terms: int
     return c_pi, torch.stack(pis, dim=-1)
 
 
-def _neg_ll_autograd(params: torch.Tensor, diffed: torch.Tensor, p: int,
-                     q: int, icpt: int) -> torch.Tensor:
-    """The negative CSS log likelihood as differentiable tensor ops over
-    the residual recurrence (the JAX package's ``_log_likelihood_css_arma``,
-    negated), per lane."""
-    _, err = _one_step_errors(params, diffed, p, q, icpt)
-    n_eff = float(diffed.shape[-1])
-    css = (err * err).sum(dim=-1)
-    sigma2 = css / n_eff
-    return -((-n_eff / 2.0) * torch.log(2.0 * math.pi * sigma2)
-             - css / (2.0 * sigma2))
+def _ma_inverse(theta: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The MA part's inverse filter ``x_t = w_t - Σ_j θ_j x_{t-j}`` (zero
+    before the window) along the last axis of ``w (S, B, N)``, ``theta
+    (S, q)``, in logarithmic depth: ``ops.scan_parallel``'s doubling
+    scan for q = 1, its companion-form affine scan for q >= 2."""
+    q = theta.shape[-1]
+    if q == 0:
+        return w
+    if q == 1:
+        return linear_recurrence(-theta[:, :1, None], w)
+    S, B, N = w.shape
+    A = torch.zeros((S, q, q), dtype=w.dtype, device=w.device)
+    A[:, 0, :] = -theta
+    A[:, 1:, :-1] = torch.eye(q - 1, dtype=w.dtype, device=w.device)
+    b = torch.zeros((N, S, B, q), dtype=w.dtype, device=w.device)
+    b[..., 0] = w.permute(2, 0, 1)
+    xs = affine_recurrence(A[None, :, None].expand(N, S, 1, q, q), b)
+    return xs[..., 0].permute(1, 2, 0)
+
+
+def _shift(x: torch.Tensor, j: int) -> torch.Tensor:
+    """``x_{t-j}`` along the last axis, zero for ``t < j``."""
+    if j >= x.shape[-1]:
+        return torch.zeros_like(x)
+    return torch.cat([x.new_zeros((*x.shape[:-1], j)), x[..., :-j]], dim=-1)
+
+
+def _css_hessian(params: torch.Tensor, y: torch.Tensor, p: int, q: int,
+                 icpt: int) -> torch.Tensor:
+    """The exact Hessian of the negative CSS log likelihood (the JAX
+    package's ``_log_likelihood_css_arma``, negated) at ``params (S, k)``
+    on ``y (S, n)``, ``(S, k, k)``, by a forward second-order recursion
+    instead of autodiff through the residual loop.
+
+    With ``u_t = y_t - c - Σ φ_i y_{t-i}`` the residuals are ``e =
+    F(u)``, ``F`` the MA inverse filter :func:`_ma_inverse` (zero start
+    at ``t = max(p, q)``), and every derivative goes through the same
+    filter: ``∂e/∂c = F(-1)``, ``∂e/∂φ_i = F(-y_{t-i})``, ``∂e/∂θ_j =
+    F(-e_{t-j})``; ``∂²e/∂θ_j∂x_b = F(-∂e_{t-j}/∂x_b - [x_b = θ_i]
+    ∂e_{t-i}/∂θ_j)`` and the rest of ``∂²e`` is 0, u being linear in c
+    and φ.  Then ``css = Σ e²``, ``∇css = 2 Σ e ∇e``, ``∇²css = 2 Σ (∇e
+    ∇eᵀ + e ∇²e)`` and ``f = (n/2) log(2π css / n) + n/2`` gives ``∇²f =
+    n/(2 css) ∇²css - n/(2 css²) ∇css ∇cssᵀ``.  Three levels of log-depth
+    scans instead of a step loop run k + 1 times through an autodiff
+    graph; the CPU tests hold it against the JAX package's autodiff
+    Hessian in float64."""
+    c, phi, theta = _split_params(params, p, q, icpt)
+    k = icpt + p + q
+    n = y.shape[-1]
+    mx = max(p, q)
+    y_t = y[..., mx:]
+    base = (c[..., None] + lag_matvec(y, phi, p))[..., mx - p:] if p > 0 \
+        else c[..., None].expand(y_t.shape)
+    u = y_t - base
+    e = _ma_inverse(theta, u[:, None, :])[:, 0]                 # (S, N)
+    ins = []
+    if icpt:
+        ins.append(-torch.ones_like(u))
+    for i in range(1, p + 1):
+        ins.append(-y[..., mx - i:n - i])
+    for j in range(1, q + 1):
+        ins.append(-_shift(e, j))
+    de = _ma_inverse(theta, torch.stack(ins, dim=1))            # (S, k, N)
+    S = y.shape[0]
+    H_css = 2.0 * torch.einsum("san,sbn->sab", de, de)
+    if q:
+        th0 = icpt + p
+        pairs, ins2 = [], []
+        for j in range(1, q + 1):
+            a = th0 + j - 1
+            for b in range(k):
+                w = -_shift(de[:, b], j)
+                if b >= th0:
+                    w = w - _shift(de[:, a], b - th0 + 1)
+                pairs.append((a, b))
+                ins2.append(w)
+        d2e = _ma_inverse(theta, torch.stack(ins2, dim=1))      # (S, P, N)
+        ed2e = 2.0 * torch.einsum("sn,spn->sp", e, d2e)
+        extra = y.new_zeros((S, k, k))
+        for idx, (a, b) in enumerate(pairs):
+            extra[:, a, b] = ed2e[:, idx]
+            extra[:, b, a] = ed2e[:, idx]
+        H_css = H_css + extra
+    css = (e * e).sum(dim=-1)
+    g_css = 2.0 * torch.einsum("sn,skn->sk", e, de)
+    scale = (n / 2.0) / css
+    return scale[:, None, None] * H_css \
+        - (scale / css)[:, None, None] * g_css[:, :, None] * g_css[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -557,13 +636,9 @@ class ARIMAModel(NamedTuple):
                               ) -> torch.Tensor:
         """The exact Hessian of the negative CSS log likelihood at the
         coefficients, ``(..., k, k)``: the observed information the
-        long-series combiner weights by.  ``ts`` is the fitted series
-        (``assume_differenced=True`` when already differenced).
-
-        Every lane's likelihood goes into one autograd graph (lanes are
-        independent, so the gradient of their sum separates by lane):
-        one backward with its graph kept for the gradient, then one
-        backward per coefficient for the Hessian's rows."""
+        long-series combiner weights by (:func:`_css_hessian`, per
+        lane).  ``ts`` is the fitted series (``assume_differenced=True``
+        when already differenced)."""
         y = self._like(ts)
         if not assume_differenced:
             y = differences_of_order_d(y, self.d)[..., self.d:]
@@ -571,14 +646,10 @@ class ARIMAModel(NamedTuple):
         k = params.shape[-1]
         if k == 0:
             return params.new_zeros((*params.shape, 0))
-        with torch.enable_grad():
-            x = params.detach().clone().requires_grad_(True)
-            f = _neg_ll_autograd(x, y, self.p, self.q, self._icpt).sum()
-            (g,) = torch.autograd.grad(f, x, create_graph=True)
-            rows = [torch.autograd.grad(g[..., j].sum(), x,
-                                        retain_graph=j + 1 < k)[0]
-                    for j in range(k)]
-        return torch.stack(rows, dim=-2).detach()
+        lead = params.shape[:-1]
+        H = _css_hessian(params.reshape(-1, k), y.reshape(-1, y.shape[-1]),
+                         self.p, self.q, self._icpt)
+        return H.reshape(*lead, k, k)
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +929,133 @@ def fit(p: int, d: int, q: int, ts,
     params, conv_mask = apply_short_quarantine(params, diag.converged, short)
     model = ARIMAModel(p, d, q, params, include_intercept,
                        diagnostics=diag._replace(converged=conv_mask))
+    _warn_stationarity_invertibility(model, warn)
+    return model
+
+
+def segment_fit_outputs(p: int, q: int, segs, *,
+                        include_intercept: bool = True,
+                        method: str = "css-lm",
+                        max_iter: Optional[int] = None,
+                        objective: str = "css", device=None,
+                        stats: Optional[dict] = None):
+    """The fit entry point of the fused long-series path
+    (``longseries.combine.fused_fit_combine``): fit one chunk of
+    already-differenced segment windows ``segs (K, L)`` and return the
+    two pieces the WLS combiner takes, ``(coefficients (K, icpt+p+q),
+    converged (K,))``, on the device (on the card one ``arma_lm_fit``
+    launch for css-lm).  The port's :func:`fit` records no span or
+    counter, so nothing leaks into the caller's accounting."""
+    m = fit(p, 0, q, segs, include_intercept=include_intercept,
+            method=method, max_iter=max_iter, warn=False,
+            objective=objective, device=device, stats=stats)
+    return m.coefficients, m.diagnostics.converged.reshape(-1)
+
+
+def fit_long(p: int, d: int, q: int, ts, segment_len: int = 65536,
+             device=None, stats: Optional[dict] = None,
+             **kwargs) -> ARIMAModel:
+    """ARIMA for ultra-long series: segment-parallel CSS fits combined by
+    precision weighting (the JAX package's in-memory combiner).
+
+    After differencing, the series is split into ``n // segment_len``
+    contiguous segments (the head remainder dropped: the most recent
+    data always participates), every segment is one lane of one batched
+    :func:`fit` (on the card one ``arma_lm_fit`` launch), and the
+    per-segment estimates ``θ_k`` are combined by
+
+        θ* = (Σ_k H_k)⁻¹ Σ_k H_k θ_k,
+
+    ``H_k`` the exact Hessian of the segment's negative CSS log
+    likelihood at its optimum (:meth:`ARIMAModel.coefficient_precision`,
+    by a log-depth second-order recursion).  Segments with non-finite estimates or a
+    Hessian that is not finite with a positive diagonal get weight 0;
+    if none is weightable, the plain mean of the finite estimates.
+
+    ``ts (n,)`` or ``(batch, n)`` (array or tensor) on ``device``
+    (``None`` means CUDA); returns an :class:`ARIMAModel` whose
+    diagnostics aggregate the segments' (``converged`` = a majority of
+    the weightable segments converged, ``n_iter`` the most, ``fun`` the
+    sum of the weightable segments' objectives).  ``kwargs`` pass to
+    :func:`fit` (``method``, ``max_iter``, ``include_intercept``, ...);
+    ``warn`` applies to the combined model.  ``stats`` (a dict) receives
+    ``lm_fit_launches`` and ``precision_s`` (the Hessians' seconds,
+    synchronized on the card).
+
+    For series too long for one batched fit, or for an exact state-space
+    forecast, use :func:`spark_timeseries_tpu_torch.longseries.fit_long`
+    (combination in the AR-truncation space with design-gram weights).
+    """
+    import time
+
+    dev = resolve_device(device)
+    ts = as_tensor(ts, dev)
+    single = ts.ndim == 1
+    if single:
+        ts = ts[None]
+    batch, n = ts.shape
+    diffed = differences_of_order_d(ts, d)[..., d:]
+    n_diff = diffed.shape[-1]
+    n_segments = n_diff // int(segment_len)
+    if n_segments < 2:
+        raise ValueError(
+            f"series too short to segment: {n_diff} differenced obs at "
+            f"segment_len={segment_len} gives {n_segments} segment(s); "
+            "call fit() directly")
+    segs = diffed[..., n_diff - n_segments * segment_len:]
+    segs = segs.reshape(batch * n_segments, segment_len)
+
+    include_intercept = kwargs.get("include_intercept", True)
+    warn = kwargs.pop("warn", True)
+    st: dict = {}
+    m = fit(p, 0, q, segs, warn=False, device=dev, stats=st, **kwargs)
+
+    icpt = 1 if include_intercept else 0
+    dim = icpt + p + q
+    theta = m.coefficients.reshape(batch, n_segments, dim)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    H = m.coefficient_precision(segs, assume_differenced=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    precision_s = time.perf_counter() - t0
+    H = H.reshape(batch, n_segments, dim, dim)
+
+    finite_t = torch.isfinite(theta).all(dim=-1)
+    ok = finite_t & torch.isfinite(H).all(dim=-1).all(dim=-1) \
+        & (torch.diagonal(H, dim1=-2, dim2=-1) > 0).all(dim=-1)
+    zero = torch.zeros((), dtype=H.dtype, device=dev)
+    H_ok = torch.where(ok[..., None, None], H, zero)
+    theta_ok = torch.where(ok[..., None], theta, zero)
+    H_sum = H_ok.sum(dim=1)
+    Ht_sum = (H_ok @ theta_ok[..., None]).sum(dim=1)
+    eye = torch.eye(dim, dtype=H.dtype, device=dev)
+    combined = spd_solve(H_sum + 1e-8 * eye, Ht_sum[..., 0])
+    n_finite = torch.clamp(finite_t.sum(dim=-1), min=1)
+    mean_finite = torch.where(finite_t[..., None], theta, zero).sum(dim=1) \
+        / n_finite[..., None].to(theta.dtype)
+    use_solve = ok.any(dim=-1, keepdim=True) \
+        & torch.isfinite(combined).all(dim=-1, keepdim=True)
+    combined = torch.where(use_solve, combined, mean_finite)
+
+    fun = torch.where(ok, m.diagnostics.fun.reshape(batch, n_segments),
+                      zero).sum(dim=-1)
+    seg_conv = ok & m.diagnostics.converged.reshape(batch, n_segments)
+    n_ok = ok.sum(dim=-1)
+    diags = FitDiagnostics(
+        (n_ok > 0) & (2 * seg_conv.sum(dim=-1) > n_ok),
+        m.diagnostics.n_iter.reshape(batch, n_segments).amax(dim=-1),
+        fun)
+    if single:
+        combined = combined[0]
+        diags = FitDiagnostics(diags.converged[0], diags.n_iter[0],
+                               diags.fun[0])
+    if stats is not None:
+        stats["lm_fit_launches"] = st.get("lm_fit_launches", 0)
+        stats["precision_s"] = precision_s
+    model = ARIMAModel(p, d, q, combined, include_intercept,
+                       diagnostics=diags)
     _warn_stationarity_invertibility(model, warn)
     return model
 

@@ -133,7 +133,7 @@ class Panel:
 
     def shard(self, mesh, axis_name: str = "series") -> "Panel":
         """Spread the series over devices: waits for ``torch.distributed``."""
-        _waits_for("shard", "8")
+        _waits_for("shard", "5")
 
     def to_row_matrix(self) -> torch.Tensor:
         """Time-major ``(n_obs, n_series)`` matrix (``toRowMatrix``)."""
@@ -437,13 +437,25 @@ class Panel:
                                   **kwargs)
 
     def backtest(self, grid=None, **kwargs):
-        """Rolling-origin backtest: waits for ``backtest/``."""
-        _waits_for("backtest", "6")
+        """Rolling-origin backtest + per-series champion selection over
+        this panel on its device:
+        :func:`~spark_timeseries_tpu_torch.backtest.backtest_panel` of
+        its values (every grid candidate fitted once per series on the
+        schedule's fit window, every origin replayed through the
+        pinned-gain filter path, sMAPE / MASE / RMSE / coverage scored
+        with NaN lanes masked).  ``grid`` a
+        :class:`~spark_timeseries_tpu_torch.backtest.CandidateGrid`;
+        schedule, selection and streaming knobs pass through.  Returns a
+        :class:`~spark_timeseries_tpu_torch.backtest.BacktestReport`."""
+        from .backtest import backtest_panel
+        with _metrics.span("panel.backtest"):
+            return backtest_panel(self.values, grid, device=self.device,
+                                  **kwargs)
 
     def describe_costs(self, family: str = "arima") -> dict:
         """The JAX package's XLA cost report: waits for the port's
         launch-count and byte tooling."""
-        _waits_for("describe_costs", "8")
+        _waits_for("describe_costs", "5")
 
     # -- summary stats -------------------------------------------------------
 

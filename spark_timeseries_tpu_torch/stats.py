@@ -8,14 +8,15 @@ their device; the chi-squared and normal CDFs are
 ``torch.special.gammainc`` and ``torch.special.ndtr``.  The MacKinnon tau
 tables and KPSS critical values are the published constants (MacKinnon
 1994; Kwiatkowski et al. 1992), copied from the JAX package.
-``segment_plan`` (the long-series tier's split) is not ported yet.
+:func:`segment_plan` chooses the long-series tier's split geometry
+(host arithmetic, a copy of the JAX package's).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -278,3 +279,89 @@ def kpsstest(ts: torch.Tensor, method: str = "c",
     long_run_var = _newey_west_variance(resid, lag)
     stat = (s2 / long_run_var) / (n * n)
     return stat, critical_values
+
+
+# ---------------------------------------------------------------------------
+# DARIMA segmentation heuristics (the longseries tier; PAPERS.md
+# "Distributed ARIMA Models for Ultra-long Time Series")
+# ---------------------------------------------------------------------------
+
+class SegmentPlan(NamedTuple):
+    """One ultra-long series' split geometry (``longseries.split``).
+
+    ``n_segments`` contiguous windows of ``window`` observations each
+    (``window = seg_len + overlap``: every window extends ``overlap``
+    observations left of its own ``seg_len`` stride for burn-in context);
+    windows tile the **tail** of the series, so ``head_drop`` leading
+    observations are excluded from estimation — the most recent data
+    always participates, mirroring ``arima.fit_long``.  ``n_used`` counts
+    the distinct observations covered (``n_segments·seg_len + overlap``).
+    """
+    n_segments: int
+    seg_len: int
+    overlap: int
+    window: int
+    n_used: int
+    head_drop: int
+
+
+def segment_plan(n_obs: int, p: int = 2, q: int = 2, *,
+                 seg_len: int | None = None, overlap: int = 0,
+                 min_seg_len: int | None = None,
+                 max_segments: int = 4096) -> SegmentPlan:
+    """Choose the DARIMA split geometry for an ``n_obs``-long series.
+
+    The divide-and-conquer tradeoff (the paper's tuning discussion): each
+    segment's CSS estimate carries O(1/seg_len) conditioning bias from
+    its zero-initialized MA ring, while the combined estimator's variance
+    shrinks with the segment count — balancing the two puts ``seg_len``
+    near ``sqrt(n)`` up to a constant.  The default takes the power of
+    two nearest ``8·sqrt(n)`` (powers of two keep every segment panel on
+    one engine bucket), clamped to
+
+    - at least ``min_seg_len`` (default: four Hannan-Rissanen floors for
+      the order, ``4·(2·max(p,q) + 2 + p + q + 1)``, and never < 64), so
+      each segment supports a reliable fit, and
+    - at most ``n_obs // 2`` (two segments minimum — fewer means the
+      split buys nothing; callers should use ``arima.fit`` directly).
+
+    ``max_segments`` caps the panel height (more segments then simply
+    get a longer ``seg_len``).  Raises when ``n_obs`` cannot hold two
+    minimum-length segments.
+    """
+    n_obs = int(n_obs)
+    overlap = max(0, int(overlap))
+    mx = max(int(p), int(q))
+    hr_floor = 2 * mx + 2 + int(p) + int(q) + 1
+    floor = max(64, 4 * hr_floor, overlap + 1) if min_seg_len is None \
+        else max(int(min_seg_len), overlap + 1)
+    if n_obs < 2 * floor + overlap:
+        raise ValueError(
+            f"series too short to segment: {n_obs} obs cannot hold two "
+            f"segments of >= {floor} (overlap={overlap}); call "
+            f"arima.fit directly")
+    if seg_len is None:
+        target = 8.0 * float(np.sqrt(n_obs))
+        seg_len = 1 << max(0, int(round(np.log2(max(target, 1.0)))))
+        seg_len = max(floor, min(seg_len, n_obs // 2))
+        # respect the panel-height cap: grow seg_len until it fits
+        while (n_obs - overlap) // seg_len > int(max_segments):
+            seg_len *= 2
+    else:
+        seg_len = int(seg_len)
+        if seg_len < floor:
+            raise ValueError(
+                f"seg_len={seg_len} is below the reliability floor "
+                f"{floor} for order (p={p}, q={q}, overlap={overlap}); "
+                f"raise seg_len or pass min_seg_len explicitly")
+    n_segments = (n_obs - overlap) // seg_len
+    if n_segments < 2:
+        raise ValueError(
+            f"seg_len={seg_len} leaves {n_segments} segment(s) of "
+            f"{n_obs} obs (overlap={overlap}); shrink seg_len or call "
+            f"arima.fit directly")
+    n_used = n_segments * seg_len + overlap
+    return SegmentPlan(n_segments=int(n_segments), seg_len=int(seg_len),
+                       overlap=overlap, window=int(seg_len + overlap),
+                       n_used=int(n_used),
+                       head_drop=int(n_obs - n_used))

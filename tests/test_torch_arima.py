@@ -6,6 +6,7 @@ the JAX fit takes its XLA LM route and the port its plain normal
 equations, so the two run the same LM state machine at float64.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,11 +148,13 @@ def test_forecast_and_likelihood_from_jax_coefficients(p, d, q, icpt):
     # by the series' length
     np.testing.assert_allclose(
         model.forecast(y, 6).numpy(),
-        np.asarray(j_model.forecast(jnp.asarray(y), 6)), rtol=1e-10,
+        np.asarray(jax.jit(lambda v: j_model.forecast(v, 6))(
+            jnp.asarray(y))), rtol=1e-10,
         atol=1e-9)
     np.testing.assert_allclose(
         model.log_likelihood_css(y).numpy(),
-        np.asarray(j_model.log_likelihood_css(jnp.asarray(y))), rtol=1e-10)
+        np.asarray(jax.jit(j_model.log_likelihood_css)(jnp.asarray(y))),
+        rtol=1e-10)
     np.testing.assert_array_equal(model.is_stationary(),
                                   np.asarray(j_model.is_stationary()))
     np.testing.assert_array_equal(model.is_invertible(),
@@ -169,7 +172,8 @@ def test_fitted_model_carries_across_with_diagnostics():
                                   diag[0])
     np.testing.assert_allclose(
         model.forecast(y, 4).numpy(),
-        np.asarray(want.forecast(jnp.asarray(y), 4)), rtol=1e-10, atol=1e-9)
+        np.asarray(jax.jit(lambda v: want.forecast(v, 4))(jnp.asarray(y))),
+        rtol=1e-10, atol=1e-9)
     ar = convert.autoregression_from_numpy(np.ones(3), np.zeros((3, 2)),
                                            device="cpu")
     assert ar.order == 2 and ar.n_params == 3
@@ -198,13 +202,13 @@ def test_cuda_requests_the_kernel_cannot_take_raise(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What the port has not ported is absent or raises: the long-series
-    fits (ROADMAP Queue A item 5).  ``objective="exact"`` is ported (its
-    parity tests are ``test_torch_arima_exact.py``): it runs, and an
-    unknown objective raises."""
+    """``objective="exact"`` is ported (its parity tests are
+    ``test_torch_arima_exact.py``): it runs, and an unknown objective
+    raises.  The long-series fits are ported too (their parity tests
+    are ``test_torch_arima_long.py``)."""
     y = _arima_panel(np.random.default_rng(8), 4, 40)
-    assert not hasattr(arima, "fit_long")
-    assert not hasattr(arima, "segment_fit_outputs")
+    assert callable(arima.fit_long)
+    assert callable(arima.segment_fit_outputs)
     m = arima.fit(2, 1, 2, y, warn=False, device="cpu", objective="exact",
                   max_iter=3)
     assert m.coefficients.shape == (4, 5)

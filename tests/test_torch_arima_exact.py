@@ -13,6 +13,7 @@ common-factor ridge (no AR root within 0.15 of an MA root,
 ``arima._cancellation_suspects``): on a ridge the likelihood is flat
 along the ridge and the two BFGS runs may stop anywhere on it."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,9 +61,11 @@ def _ar1_concentrated_nll(params, y):
 @pytest.fixture(scope="module")
 def fits():
     y = _arima_rows(np.random.default_rng(12), S, N)
+    # the JAX fit as one compiled program: its eager call compiles each
+    # operation of the CSS fit and the BFGS refine on its own
     with without_line_search_faults():
-        want = j_arima.fit(2, 1, 2, jnp.asarray(y), objective="exact",
-                           warn=False)
+        want = jax.jit(lambda v: j_arima.fit(2, 1, 2, v, objective="exact",
+                                             warn=False))(jnp.asarray(y))
     st = {}
     got = arima.fit(2, 1, 2, y, objective="exact", warn=False,
                     device="cpu", stats=st)

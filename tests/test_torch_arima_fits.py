@@ -124,18 +124,33 @@ def test_refit_unconverged_matches_jax():
                                                device="cpu"), t_refit)
 
 
-def test_css_cgd_matches_jax():
+@pytest.fixture(scope="module")
+def jax_cgd():
+    """The JAX package's css-cgd references held with the port's line
+    search, in one ``without_line_search_faults`` block (it clears jax's
+    compile caches on entry and exit): the fit of the 16 x 128 rows of
+    :func:`test_css_cgd_matches_jax` and the negative log likelihoods of
+    the 64-lane panel of :func:`test_css_cgd_misses_css_lm_where_jax_does`."""
+    import torch_cgd_vs_lm_share as share
+
+    y = _arima_rows(np.random.default_rng(9), 16, 128)
+    values = share.panel(64)
+    with without_line_search_faults():
+        fit = j_arima.fit(2, 1, 2, jnp.asarray(y), method="css-cgd",
+                          warn=False)
+        nll = share.jax_nll(values)
+    return y, fit, values, nll
+
+
+def test_css_cgd_matches_jax(jax_cgd):
     """``method="css-cgd"``: the batched BFGS over the CSS value and
     gradient (one ``arma_ne`` pass an evaluation on a card) against the
     JAX package's ``minimize_bfgs`` over the autodiff gradient, its line
     search the port's (``torch_jax_line_search``)."""
-    y = _arima_rows(np.random.default_rng(9), 16, 128)
+    y, want, _, _ = jax_cgd
     stats = {}
     got = arima.fit(2, 1, 2, y, method="css-cgd", warn=False, device="cpu",
                     stats=stats)
-    with without_line_search_faults():
-        want = j_arima.fit(2, 1, 2, jnp.asarray(y), method="css-cgd",
-                           warn=False)
     np.testing.assert_array_equal(got.diagnostics.converged.numpy(),
                                   np.asarray(want.diagnostics.converged))
     same = got.diagnostics.n_iter.numpy() \
@@ -148,7 +163,7 @@ def test_css_cgd_matches_jax():
     assert stats["bfgs_calls"] > int(got.diagnostics.n_iter.max())
 
 
-def test_css_cgd_misses_css_lm_where_jax_does():
+def test_css_cgd_misses_css_lm_where_jax_does(jax_cgd):
     """css-cgd ends within 1e-4 of the css-lm fit's neg-LL on the same
     lanes in the port as in the JAX package run with the port's line
     search (``chip_smoke.py``'s ARIMA panel, 64 lanes): the lanes where
@@ -158,10 +173,9 @@ def test_css_cgd_misses_css_lm_where_jax_does():
     lanes: every lane within 1e-4 there is within 1e-4 in the port."""
     import torch_cgd_vs_lm_share as share
 
-    values = share.panel(64)
+    _, _, values, nll = jax_cgd
     got = share.shares(*share.port_nll(values))
-    with without_line_search_faults():
-        want = share.shares(*share.jax_nll(values))
+    want = share.shares(*nll)
     both = got[3] & want[3]
     assert both.sum() >= 60
     assert (got[4] == want[4])[both].mean() >= 0.95

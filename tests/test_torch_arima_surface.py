@@ -52,6 +52,13 @@ def fitted():
     return y, jm, tm, sane
 
 
+def _jit(fn, *arrays):
+    """The JAX package's ``fn(*arrays)`` as one compiled program (other
+    arguments closed over in ``fn``), where an eager call compiles each
+    operation on its own: the same arithmetic, compiled once."""
+    return jax.jit(fn)(*arrays)
+
+
 def _close(got, want, rtol=1e-10, atol=0.0, lanes=None):
     g = got.detach().numpy()
     w = np.asarray(want)
@@ -65,7 +72,7 @@ def test_forecast_interval_and_aic_match_jax(fitted):
     yt, yj = torch.from_numpy(y), jnp.asarray(y)
     for conf in (0.95, 0.8):
         got = tm.forecast_interval(yt, 12, conf=conf)
-        want = jm.forecast_interval(yj, 12, conf=conf)
+        want = _jit(lambda v: jm.forecast_interval(v, 12, conf=conf), yj)
         for g, w in zip(got, want):
             _close(g, w, rtol=1e-10, lanes=sane)
         assert got[1].shape == (16, 12)
@@ -74,11 +81,11 @@ def test_forecast_interval_and_aic_match_jax(fitted):
                                   device="cpu")
     j0 = j_arima.ARIMAModel(1, 0, 1, jnp.asarray([0.2, 0.5, 0.3]))
     for g, w in zip(m0.forecast_interval(yt[0], 5),
-                    j0.forecast_interval(yj[0], 5)):
+                    _jit(lambda v: j0.forecast_interval(v, 5), yj[0])):
         _close(g, w)
     with pytest.raises(ValueError, match="n_future"):
         tm.forecast_interval(yt, 0)
-    _close(tm.approx_aic(yt), jm.approx_aic(yj), lanes=sane)
+    _close(tm.approx_aic(yt), _jit(jm.approx_aic, yj), lanes=sane)
 
 
 def test_gradient_hessian_and_ar_inf_match_jax(fitted):
@@ -91,16 +98,19 @@ def test_gradient_hessian_and_ar_inf_match_jax(fitted):
     jp = j_arima.ARIMAModel(2, 1, 2, jnp.asarray(coefs))
     ok = tp.is_stationary() & tp.is_invertible()
     got = tp.gradient_log_likelihood_css_arma(torch.from_numpy(d))
-    want = jp.gradient_log_likelihood_css_arma(jnp.asarray(d))
+    want = _jit(jp.gradient_log_likelihood_css_arma, jnp.asarray(d))
     # (n / css) Jᵀr against autodiff of the whole expression
     _close(got, want, rtol=1e-9, atol=1e-9, lanes=ok)
     _close(tm.coefficient_precision(torch.from_numpy(y)),
-           jm.coefficient_precision(jnp.asarray(y)), rtol=1e-9, lanes=sane)
+           _jit(jm.coefficient_precision, jnp.asarray(y)), rtol=1e-9,
+           lanes=sane)
     _close(tm.coefficient_precision(torch.from_numpy(d),
                                     assume_differenced=True),
-           jm.coefficient_precision(jnp.asarray(d), assume_differenced=True),
+           _jit(lambda v: jm.coefficient_precision(
+               v, assume_differenced=True), jnp.asarray(d)),
            rtol=1e-9, lanes=sane)
-    for g, w in zip(tm.ar_inf_coefficients(20), jm.ar_inf_coefficients(20)):
+    for g, w in zip(tm.ar_inf_coefficients(20),
+                    _jit(lambda: jm.ar_inf_coefficients(20))):
         _close(g, w, rtol=1e-12, atol=1e-14)
     for g, w in zip(arima.ar_truncation(
             0.5, torch.tensor([0.3], dtype=torch.float64),
@@ -123,7 +133,7 @@ def test_css_value_and_grad_matches_jax_autodiff():
         return -j_arima._log_likelihood_css_arma(prm, yy, 2, 2, 1,
                                                  n_valid=v)
 
-    f_j, g_j = jax.vmap(jax.value_and_grad(neg_ll))(
+    f_j, g_j = jax.jit(jax.vmap(jax.value_and_grad(neg_ll)))(
         jnp.asarray(x), jnp.asarray(y), jnp.asarray(nv))
     f, g = arma_ne.css_neg_ll_value_and_grad(
         torch.from_numpy(x), torch.from_numpy(y), 2, 2, 1,
@@ -132,20 +142,20 @@ def test_css_value_and_grad_matches_jax_autodiff():
     _close(g, g_j, rtol=1e-9, atol=1e-10)
     f0, _ = arma_ne.css_neg_ll_value_and_grad_plain(
         torch.from_numpy(x), torch.from_numpy(y), 2, 2, 1)
-    _close(f0, jax.vmap(lambda a, b: neg_ll(a, b, None))(
+    _close(f0, jax.jit(jax.vmap(lambda a, b: neg_ll(a, b, None)))(
         jnp.asarray(x), jnp.asarray(y)), rtol=1e-12)
 
 
 def test_time_dependent_effects_and_sample_match_jax(fitted):
     y, jm, tm, sane = fitted
     r = tm.remove_time_dependent_effects(torch.from_numpy(y))
-    r_j = jm.remove_time_dependent_effects(jnp.asarray(y))
+    r_j = _jit(jm.remove_time_dependent_effects, jnp.asarray(y))
     _close(r, r_j, rtol=1e-10, atol=1e-10, lanes=sane)
     # add on shared noise: the same draws through both processes
     noise = np.random.default_rng(9).normal(size=(16, 50))
     _close(tm.add_time_dependent_effects(torch.from_numpy(noise)),
-           jm.add_time_dependent_effects(jnp.asarray(noise)), rtol=1e-10,
-           atol=1e-10, lanes=sane)
+           _jit(jm.add_time_dependent_effects, jnp.asarray(noise)),
+           rtol=1e-10, atol=1e-10, lanes=sane)
     # the round trip: add undoes remove on every sane lane
     _close(tm.add_time_dependent_effects(r), y, rtol=1e-9, atol=1e-9,
            lanes=sane)
@@ -161,9 +171,9 @@ def test_time_dependent_effects_and_sample_match_jax(fitted):
         mt = convert.arima_from_numpy(p, 0, q, c, device="cpu")
         mj = j_arima.ARIMAModel(p, 0, q, jnp.asarray(c))
         _close(mt.add_time_dependent_effects(torch.from_numpy(noise[0])),
-               mj.add_time_dependent_effects(jnp.asarray(noise[0])))
+               _jit(mj.add_time_dependent_effects, jnp.asarray(noise[0])))
         _close(mt.remove_time_dependent_effects(torch.from_numpy(y[0])),
-               mj.remove_time_dependent_effects(jnp.asarray(y[0])),
+               _jit(mj.remove_time_dependent_effects, jnp.asarray(y[0])),
                rtol=1e-10, atol=1e-9)
 
 
@@ -196,10 +206,10 @@ def test_ar_model_surface_matches_jax():
     tm = autoregression.fit(torch.from_numpy(y), 2)
     jm = j_ar.fit(jnp.asarray(y), 2)
     _close(tm.remove_time_dependent_effects(y),
-           jm.remove_time_dependent_effects(jnp.asarray(y)))
+           _jit(jm.remove_time_dependent_effects, jnp.asarray(y)))
     noise = rng.normal(size=(6, 30))
     _close(tm.add_time_dependent_effects(noise),
-           jm.add_time_dependent_effects(jnp.asarray(noise)))
+           _jit(jm.add_time_dependent_effects, jnp.asarray(noise)))
     s = tm.sample(20, torch.Generator().manual_seed(1), shape=(6,))
     assert s.shape == (6, 20)
     index = uniform("2020-01-06T00:00Z", 50, BusinessDayFrequency(1))

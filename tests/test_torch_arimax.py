@@ -157,29 +157,35 @@ def test_model_methods_match_jax(fits):
     # its last digits are rounding: the sane lanes are compared
     sane = _sane(want)
     assert sane.sum() >= S // 2
-    _close(m.forecast(y, x), want.forecast(jy, jx), rtol=1e-10, lanes=sane)
-    for g, w in zip(m.forecast_interval(y, x), want.forecast_interval(jy,
-                                                                      jx)):
+    # each JAX method as one compiled program (jax.jit): the same
+    # arithmetic, compiled once instead of an operation at a time
+    _close(m.forecast(y, x), jax.jit(want.forecast)(jy, jx), rtol=1e-10,
+           lanes=sane)
+    for g, w in zip(m.forecast_interval(y, x),
+                    jax.jit(want.forecast_interval)(jy, jx)):
         np.testing.assert_allclose(g.numpy()[sane], np.asarray(w)[sane],
                                    rtol=1e-10)
     diffed = differences_of_order_d(torch.from_numpy(y), 1)[..., 1:]
     assert torch.allclose(diffed, torch.from_numpy(fits["y"][:, 1:]))
     jd = jnp.asarray(diffed.numpy())
     _close(m.log_likelihood_css_arma(diffed),
-           want.log_likelihood_css_arma(jd), rtol=1e-10, lanes=sane)
+           jax.jit(want.log_likelihood_css_arma)(jd), rtol=1e-10,
+           lanes=sane)
     g = m.gradient_log_likelihood_css_arma(diffed)
-    _close(g, want.gradient_log_likelihood_css_arma(jd), rtol=1e-6,
+    _close(g, jax.jit(want.gradient_log_likelihood_css_arma)(jd), rtol=1e-6,
            atol=1e-8, lanes=sane)
     assert not g[..., 5:].any()
     # the JAX package's contribution takes one lane's coefficients
     _close(m.xreg_contribution(x)[0], one.xreg_contribution(jx),
            rtol=1e-12)
     _close(m.remove_time_dependent_effects(y),
-           want.remove_time_dependent_effects(jy), rtol=1e-9, atol=1e-9,
+           jax.jit(want.remove_time_dependent_effects)(jy), rtol=1e-9,
+           atol=1e-9,
            lanes=sane)
     noise = np.random.default_rng(2).normal(size=(S, N))
     _close(m.add_time_dependent_effects(noise),
-           want.add_time_dependent_effects(jnp.asarray(noise)), rtol=1e-9,
+           jax.jit(want.add_time_dependent_effects)(jnp.asarray(noise)),
+           rtol=1e-9,
            atol=1e-9, lanes=sane)
     with pytest.raises(ValueError, match="xreg must be"):
         arimax.fit(2, 1, 2, y, x[:-1], 1, device="cpu")

@@ -11,7 +11,10 @@ codec built on the card's machine, and the fail-soft tier: the CSS
 gradient through the single-pass kernel, the restart loop over the LM-fit
 kernel against the route, ``fit_resilient`` on the card; and the serving
 tier: a session on the card against the CPU's, ``update_batch`` bit for
-bit, ``heal()`` through the LM-fit kernel.
+bit, ``heal()`` through the LM-fit kernel; and the long-series and
+backtest tiers: ``longseries.fit_long`` (fused and staged),
+``arima.fit_long`` and ``backtest_panel`` on the card against the same
+float32 runs on the CPU, with their ``arma_lm_fit`` launches.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -1436,3 +1439,84 @@ def test_serving_heal_launches_the_lm_fit_kernel(cuda):
     assert arma_ne.fit_css_lm.launches - before == st["lm_fit_launches"] >= 1
     assert rep["healed"] >= poisoned.size
     assert (sess.lane_status[poisoned] != health.LANE_DIVERGED).all()
+
+
+# -- the long-series tier and backtesting -------------------------------------
+
+def _long_arma11(n, seed):
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal(n + 1)
+    x = e[1:] + 0.4 * e[:-1]
+    y = np.zeros(n)
+    for t in range(n):
+        y[t] = 0.1 + 0.6 * (y[t - 1] if t else 0.0) + x[t]
+    return y.astype(np.float32)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fit_long_on_cuda_matches_cpu(cuda, fused):
+    """``longseries.fit_long`` on the card (one ``arma_lm_fit`` launch a
+    segment chunk, no one-pass launch) against the same float32 fit on
+    the CPU: the combined coefficients and the forecast within float32
+    rounding of the segment fits (the LM stops at a relative drop of
+    1e-6 on both, their sums in other orders)."""
+    from spark_timeseries_tpu_torch import longseries
+
+    y = _long_arma11(16384, 50)
+    kw = dict(order=(1, 0, 1), seg_len=1024, chunk_segments=8, warn=False,
+              fused=fused)
+    lm0, ne0 = arma_ne.fit_css_lm.launches, arma_ne.normal_equations.launches
+    got = longseries.fit_long(y, device=cuda, **kw)
+    assert arma_ne.fit_css_lm.launches - lm0 == 2       # 16 segments / 8
+    assert arma_ne.normal_equations.launches == ne0
+    want = longseries.fit_long(y, device="cpu", **kw)
+    np.testing.assert_allclose(got.coefficients.cpu().numpy(),
+                               want.coefficients.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got.forecast(12), want.forecast(12),
+                               rtol=1e-3, atol=1e-3)
+    if fused:
+        assert got.stream_stats["lm_fit_launches"] == 2
+    assert got.combined.n_weighted == want.combined.n_weighted == 16
+
+
+def test_arima_fit_long_on_cuda_matches_cpu(cuda):
+    from spark_timeseries_tpu_torch.models import arima as tarima
+
+    y = np.stack([_long_arma11(8192, 51), _long_arma11(8192, 52)])
+    st = {}
+    lm0 = arma_ne.fit_css_lm.launches
+    got = tarima.fit_long(1, 0, 1, y, segment_len=2048, warn=False,
+                          device=cuda, stats=st)
+    assert arma_ne.fit_css_lm.launches - lm0 == st["lm_fit_launches"] == 1
+    want = tarima.fit_long(1, 0, 1, y, segment_len=2048, warn=False,
+                           device="cpu")
+    np.testing.assert_allclose(got.coefficients.cpu().numpy(),
+                               want.coefficients.numpy(), rtol=0, atol=1e-3)
+
+
+def test_backtest_panel_on_cuda_matches_cpu(cuda):
+    """``backtest_panel`` on the card against the same float32 sweep on
+    the CPU: equal champions, scores within 1e-3 relative (float32 fits
+    end ~1e-5 apart), one ``arma_lm_fit`` launch for the ARIMA
+    candidate's one chunk."""
+    from spark_timeseries_tpu_torch.backtest import (CandidateGrid,
+                                                     backtest_panel)
+
+    rng = np.random.default_rng(53)
+    S, n = 24, 400
+    e = rng.standard_normal((S, n + 1))
+    y = np.zeros((S, n))
+    for t in range(n):
+        y[:, t] = 2.0 + 0.5 * (y[:, t - 1] if t else 0.0) + e[:, t + 1] \
+            + 0.3 * e[:, t]
+    y = y.astype(np.float32)
+    grid = CandidateGrid({"ar": [1], "arima": [(1, 0, 1)], "ewma": True},
+                         horizons=(1, 4))
+    kw = dict(n_origins=16, stride=4, min_train=300)
+    lm0 = arma_ne.fit_css_lm.launches
+    got = backtest_panel(y, grid, device=cuda, **kw)
+    assert arma_ne.fit_css_lm.launches - lm0 == 1
+    assert got.stream_stats[1]["lm_fit_launches"] == 1
+    want = backtest_panel(y, grid, device="cpu", **kw)
+    assert (got.champion == want.champion).mean() >= 0.95
+    np.testing.assert_allclose(got.scores_mase, want.scores_mase, rtol=1e-3)

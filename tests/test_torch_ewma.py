@@ -10,6 +10,7 @@ relative."""
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,11 +46,13 @@ def fits():
     out = {}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        for method in ("lm", "box", "bfgs"):
-            # the BFGS is held to jax's with the port's line search
-            # (torch_jax_line_search)
-            with without_line_search_faults():
-                want = jewma.fit(jnp.asarray(y), method=method)
+        # the BFGS is held to jax's with the port's line search
+        # (torch_jax_line_search), the three fits in one block: it clears
+        # jax's compile caches on entry and exit
+        with without_line_search_faults():
+            wants = {method: jewma.fit(jnp.asarray(y), method=method)
+                     for method in ("lm", "box", "bfgs")}
+        for method, want in wants.items():
             out[method] = (want, ewma.fit(y, method=method, device="cpu"))
     return y, out
 
@@ -82,10 +85,12 @@ def test_model_methods_match_jax(fits):
                        ("sse", ()), ("forecast", (5,))):
         np.testing.assert_allclose(
             getattr(tm, name)(dense, *args).numpy(),
-            np.asarray(getattr(jm, name)(jnp.asarray(dense), *args)),
+            np.asarray(jax.jit(lambda v, name=name, args=args: getattr(
+                jm, name)(v, *args))(jnp.asarray(dense))),
             rtol=1e-10)
     for got, w in zip(tm.forecast_interval(dense, 6, 0.9),
-                      jm.forecast_interval(jnp.asarray(dense), 6, 0.9)):
+                      jax.jit(lambda v: jm.forecast_interval(v, 6, 0.9))(
+                          jnp.asarray(dense))):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-10)
     assert tm.n_params == jm.n_params == 1
 

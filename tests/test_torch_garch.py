@@ -14,6 +14,7 @@ their primary stages reuse those programs."""
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +75,13 @@ def _params(rng):
             rng.uniform(0.6, 0.78, S))
 
 
+def _jit(fn, *args):
+    """``fn(*args)`` of the JAX package compiled as one program, where its
+    eager call would compile each operation on its own (the same
+    arithmetic, ~1e-16 apart)."""
+    return jax.jit(fn)(*args)
+
+
 def _close(got, want, rtol=RTOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
                                atol=1e-13)
@@ -85,17 +93,19 @@ def test_garch_model_matches_jax(panel):
     jm = jg.GARCHModel(jnp.asarray(w), jnp.asarray(a), jnp.asarray(b))
     tm = garch_from_numpy(w, a, b, device="cpu")
     je = jnp.asarray(e)
-    _close(tm.log_likelihood(e), jm.log_likelihood(je))
-    _close(tm.gradient(e), jm.gradient(je))
-    _close(tm.forecast_variance(e, 7), jm.forecast_variance(je, 7))
+    _close(tm.log_likelihood(e), _jit(jm.log_likelihood, je))
+    _close(tm.gradient(e), _jit(jm.gradient, je))
+    _close(tm.forecast_variance(e, 7),
+           _jit(lambda x: jm.forecast_variance(x, 7), je))
     _close(tm.remove_time_dependent_effects(e),
-           jm.remove_time_dependent_effects(je))
+           _jit(jm.remove_time_dependent_effects, je))
     _close(tm.add_time_dependent_effects(e),
-           jm.add_time_dependent_effects(je))
+           _jit(jm.add_time_dependent_effects, je))
     # an IGARCH lane takes the κ → 1 limit
     ig = garch_from_numpy(*np.array([0.05, 0.1, 0.9]), device="cpu")
     _close(ig.forecast_variance(e[0], 4),
-           jg.GARCHModel(0.05, 0.1, 0.9).forecast_variance(je[0], 4))
+           _jit(lambda x: jg.GARCHModel(0.05, 0.1, 0.9)
+                .forecast_variance(x, 4), je[0]))
     ts, vs = tm.sample_with_variances(64, torch.Generator().manual_seed(0),
                                       (S,))
     assert ts.shape == vs.shape == (S, 64) and (vs > 0).all()
@@ -111,9 +121,9 @@ def test_ar_garch_model_matches_jax(panel):
     jm = jg.ARGARCHModel(*(jnp.asarray(v) for v in args))
     tm = ar_garch_from_numpy(*args, device="cpu")
     _close(tm.remove_time_dependent_effects(y),
-           jm.remove_time_dependent_effects(jnp.asarray(y)))
+           _jit(jm.remove_time_dependent_effects, jnp.asarray(y)))
     _close(tm.add_time_dependent_effects(y),
-           jm.add_time_dependent_effects(jnp.asarray(y)))
+           _jit(jm.add_time_dependent_effects, jnp.asarray(y)))
     ts, vs = tm.sample_with_variances(32, torch.Generator().manual_seed(1),
                                       (S,))
     assert ts.shape == (S, 32) and (vs > 0).all()
@@ -127,13 +137,13 @@ def test_egarch_model_matches_jax(panel):
     jm = jg.EGARCHModel(*(jnp.asarray(v) for v in (w, a, b, g)))
     tm = egarch_from_numpy(w, a, b, g, device="cpu")
     je = jnp.asarray(e)
-    _close(tm.log_likelihood(e), jm.log_likelihood(je))
-    _close(tm.variances(e), jm.variances(je))
-    _close(tm.gradient(e), jm.gradient(je))
+    _close(tm.log_likelihood(e), _jit(jm.log_likelihood, je))
+    _close(tm.variances(e), _jit(jm.variances, je))
+    _close(tm.gradient(e), _jit(jm.gradient, je))
     _close(tm.remove_time_dependent_effects(e),
-           jm.remove_time_dependent_effects(je))
+           _jit(jm.remove_time_dependent_effects, je))
     _close(tm.add_time_dependent_effects(e),
-           jm.add_time_dependent_effects(je))
+           _jit(jm.add_time_dependent_effects, je))
     ts, h = tm.sample_with_variances(48, torch.Generator().manual_seed(2),
                                      (S,))
     assert ts.shape == h.shape == (S, 48) and (h > 0).all()

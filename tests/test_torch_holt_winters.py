@@ -248,16 +248,22 @@ def test_model_surface_from_jax_parameters(model_type):
                               jnp.asarray(g))
     tm = holt_winters_from_numpy(model_type, m, a, b, g, device="cpu")
     yj = jnp.asarray(y)
+
+    def jx(fn):
+        """The JAX method as one compiled program (the same arithmetic,
+        compiled once instead of an operation at a time)."""
+        return jax.jit(fn)(yj)
+
     # float64 both sides, the same recurrences
     for got, want in (
-            (tm.forecast(y, 11), jm.forecast(yj, 11)),
-            (tm.sse(y), jm.sse(yj)),
+            (tm.forecast(y, 11), jx(lambda v: jm.forecast(v, 11))),
+            (tm.sse(y), jx(jm.sse)),
             (tm.add_time_dependent_effects(y),
-             jm.add_time_dependent_effects(yj)),
+             jx(jm.add_time_dependent_effects)),
             *zip(tm.get_holt_winters_components(y),
-                 jm.get_holt_winters_components(yj)),
+                 jx(jm.get_holt_winters_components)),
             *zip(tm.forecast_interval(y, 14, conf=0.9),
-                 jm.forecast_interval(yj, 14, conf=0.9))):
+                 jx(lambda v: jm.forecast_interval(v, 14, conf=0.9)))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-11, atol=1e-9)
     with pytest.raises(NotImplementedError):

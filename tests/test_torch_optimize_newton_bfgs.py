@@ -61,6 +61,11 @@ def jax_draws(seed, n, k, restarts):
         for a in range(1, restarts + 1)])
 
 
+# the restart tests' JAX keywords: 2 restarts from seed 7's key
+_RESTART_KW = dict(max_iter=4, restarts=2,
+                   restart_key=jax.random.PRNGKey(7))
+
+
 def _t(*xs):
     return tuple(torch.as_tensor(x) for x in xs)
 
@@ -77,12 +82,28 @@ def _compare(got, want, x_tol=1e-8, iter_share=0.9):
     return same
 
 
-@pytest.mark.parametrize("max_iter", [200, 6])
-def test_bfgs_matches_jax(max_iter):
+@pytest.fixture(scope="module")
+def fixed_bfgs():
+    """The JAX BFGS runs held with the port's line search, all in one
+    ``without_line_search_faults`` block (which clears jax's compile
+    caches on entry and exit): ``max_iter`` 200 and 6 on problem 0, and
+    the restart loop on problem 4."""
     a, b, x0 = _problem(0)
+    a4, b4, x04 = _problem(4)
     with without_line_search_faults():
-        want = jopt.minimize_bfgs(j_obj, jnp.asarray(x0), jnp.asarray(a),
-                                  jnp.asarray(b), max_iter=max_iter)
+        out = {m: jopt.minimize_bfgs(j_obj, jnp.asarray(x0), jnp.asarray(a),
+                                     jnp.asarray(b), max_iter=m)
+               for m in (200, 6)}
+        out["restarts"] = jopt.minimize_bfgs(
+            j_obj, jnp.asarray(x04), jnp.asarray(a4), jnp.asarray(b4),
+            **_RESTART_KW)
+    return out
+
+
+@pytest.mark.parametrize("max_iter", [200, 6])
+def test_bfgs_matches_jax(fixed_bfgs, max_iter):
+    a, b, x0 = _problem(0)
+    want = fixed_bfgs[max_iter]
     vag, ev_for = opt.value_and_grad_of(t_obj, *_t(a, b))
     stats = {}
     got = opt.minimize_bfgs(vag, torch.as_tensor(x0), max_iter=max_iter,
@@ -182,16 +203,14 @@ def test_newton_fused_hessian_is_autograds():
 
 
 @pytest.mark.parametrize("solver", ["bfgs", "newton"])
-def test_restarts_match_jax_given_its_draws(solver):
+def test_restarts_match_jax_given_its_draws(fixed_bfgs, solver):
     a, b, x0 = _problem(4)
     restarts, seed = 2, 7
     draws = jax_draws(seed, S, 3, restarts)
     args = (jnp.asarray(a), jnp.asarray(b))
-    kw = dict(max_iter=4, restarts=restarts,
-              restart_key=jax.random.PRNGKey(seed))
+    kw = _RESTART_KW
     if solver == "bfgs":
-        with without_line_search_faults():
-            want = jopt.minimize_bfgs(j_obj, jnp.asarray(x0), *args, **kw)
+        want = fixed_bfgs["restarts"]
         vag, ev_for = opt.value_and_grad_of(t_obj, *_t(a, b))
         stats = {}
         got = opt.minimize_bfgs(vag, torch.as_tensor(x0), max_iter=4,

@@ -237,9 +237,9 @@ def test_device_policy_and_waiting_methods(monkeypatch):
     jp, tp = _pair(_gappy(8, S=2, n=6))
     assert Panel(tp.index, tp.values.float(), tp.keys,
                  device="cpu").values.dtype == torch.float32
-    for call, item in ((lambda: tp.shard(None), "8"),
-                       (lambda: tp.backtest(), "6"),
-                       (lambda: tp.describe_costs(), "8")):
+    for call, item in ((lambda: tp.shard(None), "5"),
+                       (lambda: tp.describe_costs(), "5"),
+                       (lambda: tp.backtest(journal="j"), "5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -97,8 +97,9 @@ def test_filter_path_and_loglik_match_jax(m, d_order, joseph):
     for got, want in zip(carried, j_state):
         _close(got, want, rtol=0)
     if not joseph:
-        want = j_kal.filter_panel(j_model, j_state, jnp.asarray(ys), meta,
-                                  weights=jnp.asarray(w), return_path=True)
+        want = jax.jit(lambda mdl, st, v, wt: j_kal.filter_panel(
+            mdl, st, v, meta, weights=wt, return_path=True))(
+            j_model, j_state, jnp.asarray(ys), jnp.asarray(w))
         got = kalman.filter_panel(t_model, t_state, torch.from_numpy(ys),
                                   t_meta, weights=torch.from_numpy(w),
                                   return_path=True)
@@ -112,10 +113,10 @@ def test_filter_path_and_loglik_match_jax(m, d_order, joseph):
     # one tick across the panel, with exogenous offsets
     y1 = ys[:, 0].copy()
     off = rng.normal(size=S)
-    j_st, (jv, jf) = j_kal.filter_step_panel(j_model, j_state,
+    j_st, (jv, jf) = jax.jit(lambda mdl, st, v, o: j_kal.filter_step_panel(
+        mdl, st, v, o, meta, joseph=joseph))(j_model, j_state,
                                              jnp.asarray(y1),
-                                             jnp.asarray(off), meta,
-                                             joseph=joseph)
+                                             jnp.asarray(off))
     t_st, (tv, tf) = kalman.filter_step_panel(t_model, t_state,
                                               torch.from_numpy(y1),
                                               torch.from_numpy(off), t_meta,
@@ -163,10 +164,10 @@ def test_arma_concentrated_neg_ll_matches_jax_and_ar1_oracle():
     nv = np.array([60, 45, 60, 30, 52, 60])
     for k in range(S):
         ys[k, nv[k]:] = 0.0
-    want = np.asarray(jax.vmap(
+    want = np.asarray(jax.jit(jax.vmap(
         lambda p_, y_, v_: j_conv.arma_concentrated_neg_ll(
-            p_, y_, 2, 2, 1, n_valid=v_))(jnp.asarray(prm), jnp.asarray(ys),
-                                          jnp.asarray(nv)))
+            p_, y_, 2, 2, 1, n_valid=v_)))(jnp.asarray(prm),
+                                           jnp.asarray(ys), jnp.asarray(nv)))
     got = convert.arma_concentrated_neg_ll(
         torch.from_numpy(prm), torch.from_numpy(ys), 2, 2, 1,
         n_valid=torch.from_numpy(nv))
@@ -193,23 +194,24 @@ def test_forecast_mean_steady_gain_and_origin_match_jax():
     a = rng.normal(size=(S, m))
     ring = rng.normal(size=(S, 2))
     offs = rng.normal(size=(S, h))
-    want = j_kal.forecast_mean(meta, h, j_model, jnp.asarray(a),
-                               jnp.asarray(ring), jnp.asarray(offs))
+    want = jax.jit(lambda *args: j_kal.forecast_mean(meta, h, *args))(
+        j_model, jnp.asarray(a), jnp.asarray(ring), jnp.asarray(offs))
     got = kalman.forecast_mean(ssm.SSMeta(*meta), h, t_model,
                                torch.from_numpy(a), torch.from_numpy(ring),
                                torch.from_numpy(offs))
     _close(got, want)
-    P = np.asarray(j_ssm.stationary_covariance(j_model.T, j_model.Q))
+    P = np.asarray(jax.jit(j_ssm.stationary_covariance)(j_model.T,
+                                                        j_model.Q))
     for g, w in zip(kalman.steady_gain(t_model, torch.from_numpy(P)),
-                    j_kal.steady_gain(j_model, jnp.asarray(P))):
+                    jax.jit(j_kal.steady_gain)(j_model, jnp.asarray(P))):
         _close(g, w)
     # the long-series forecast origin: sequential head, log-depth tail
     meta0 = j_ssm.SSMeta("arima", "exact", 0, m)
     ys = rng.normal(size=(S, n))
     j0 = j_ssm.initial_state(j_model, meta0)
     t0 = ssm.initial_state(t_model, ssm.SSMeta(*meta0))
-    want = j_kal.filter_forecast_origin(j_model, j0, jnp.asarray(ys),
-                                        meta0, warm=48, chunk=64)
+    want = jax.jit(lambda mdl, st, v: j_kal.filter_forecast_origin(
+        mdl, st, v, meta0, warm=48, chunk=64))(j_model, j0, jnp.asarray(ys))
     got = kalman.filter_forecast_origin(t_model, t0, torch.from_numpy(ys),
                                         ssm.SSMeta(*meta0), warm=48,
                                         chunk=64)
@@ -219,8 +221,8 @@ def test_forecast_mean_steady_gain_and_origin_match_jax():
     K = np.asarray(j_kal.steady_gain(j_model, jnp.asarray(P))[0])
     ys = ys[:, :24].copy()
     ys[2, 11] = np.nan
-    want = j_kal.pinned_state_path(j_model, jnp.asarray(a), jnp.asarray(ys),
-                                   jnp.asarray(K))
+    want = jax.jit(j_kal.pinned_state_path)(j_model, jnp.asarray(a),
+                                            jnp.asarray(ys), jnp.asarray(K))
     got = kalman.pinned_state_path(t_model, torch.from_numpy(a),
                                    torch.from_numpy(ys), torch.from_numpy(K))
     _close(got, want, rtol=1e-9, atol=1e-12)
