@@ -288,6 +288,28 @@ Phases, one JSON line each:
    The long route: a 2 x 524,288 panel with a 500,000-step fit window
    at the default ``long_threshold``: the ARIMA candidate takes the
    ``longseries`` path, one ``arma_lm_fit`` launch a series.
+28. ``fleet_path``: the fleet (``statespace.fleet``,
+   ``statespace.runtime``), float32.  F1: 256 ARIMA(2,1,2)+c tenants of
+   512 series (the north-star panel's first 131072, 32 columns of
+   history, one coalescing group; the model fitted once at the tenant's
+   width, one ``arma_lm_fit`` launch, as ``bench.py:942``) and 16
+   additive Holt-Winters tenants (period 12, one ``hw_box_fit``
+   launch) under ``AdmissionPolicy(queue_depth=4)``; ``warmup``; a
+   ``FleetRuntime`` with a ``checkpoint_dir`` through 32 rounds of
+   blocking ``submit`` and ``quiesce``: lane-ticks/s, each coalesced
+   dispatch's tick wall and whole call (p50 / p95, first, warm), the
+   device operations of one coalesced dispatch (runtime records, as
+   ``ne_rows_timing``'s count) beside a solo tick's, lineage e2e p50 /
+   p95, ``fleet.pump_restarts`` = ``fleet.shed_lanes`` = 0; 8 tenants'
+   ticks bitwise those of solo sessions; ``stop()`` and a fresh
+   runtime's ``restore_latest()``: every tenant bitwise, and the next
+   tick; ``drain`` with two queued ticks and ``adopt``, bitwise.  F2:
+   ``bench.py:925-927``'s 64 tenants of 16 series (its own fit), 16
+   rounds, every tenant bitwise its solo session, then 8 rounds under
+   ``pump_crash`` (restarts >= 1, every tick delivered once, none
+   open).  A child process on the card drains a tenant with two queued
+   ticks under ``drop_tenant_process`` (``kill -9`` after the commit);
+   this process adopts the bundle bitwise.  Peak memory; launches.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
@@ -5098,7 +5120,7 @@ def phase_long_path(dev, n_obs=LONG_N_OBS, huge_obs=LONG_HUGE_OBS,
             for k in range(min(LONG_PLAIN_LANES, pl.n_segments))]), 1, 1,
             dev, plain_pool)
         if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         lf_h.forecast_origin()
@@ -5418,6 +5440,561 @@ def phase_backtest_path(dev, wide=BT_WIDE, long_obs=BT_LONG_OBS):
     return row
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the fleet (statespace.fleet, statespace.runtime)
+# ---------------------------------------------------------------------------
+
+FLEET_TENANTS = 256        # F1: ARIMA(2,1,2)+c tenants of 512 series:
+FLEET_SERIES = 512         # serving_path's 131072 lanes in one group
+FLEET_HW_TENANTS = 16      # F1's second group: Holt-Winters, period 12
+FLEET_ROUNDS = 32          # bench.py:927's BENCH_FLEET_TICKS default
+FLEET_HIST = 32            # history columns (a session's start filters
+#                            them, launch-bound: the depth cut of the phase)
+FLEET_RING = 64            # the F1 tenants' per-lane history ring
+FLEET_MIRRORED = 8         # F1 tenants held bitwise against solo sessions
+FLEET_F2 = (64, 16)        # bench.py:925-926: tenants x series
+FLEET_F2_ROUNDS = 16       # F2's rounds (each replayed by 64 solo sessions)
+FLEET_CRASH_ROUNDS = 8     # F2's rounds under the pump_crash fault
+FLEET_CHILD_TICKS = 14     # the kill -9 child's ticks (2 still queued)
+
+# the kill -9 child: one tenant on the card, 12 ticks dispatched and 2
+# queued, then drain() under drop_tenant_process (SIGKILL after commit)
+_FLEET_CHILD = r"""
+import os, sys
+import numpy as np
+import torch
+from spark_timeseries_tpu_torch.models import arima
+from spark_timeseries_tpu_torch.statespace import fleet, serving
+from spark_timeseries_tpu_torch.utils import resilience
+d = np.load(os.environ["STS_FLEET_CHILD_IN"])
+dev = torch.device(os.environ["STS_FLEET_CHILD_DEVICE"])
+model = arima.ARIMAModel(2, 1, 2, torch.from_numpy(d["coefficients"]).to(dev),
+                         True)
+sched = fleet.FleetScheduler(auto_pump=False, device=dev)
+sched.attach(serving.ServingSession.start(
+    model, d["history"], label="mig", history_ring=int(d["ring"]),
+    device=dev))
+live = d["live"]
+for t in range(live.shape[1] - 2):
+    sched.submit("mig", live[:, t])
+    sched.pump()
+sched.submit("mig", live[:, -2])
+sched.submit("mig", live[:, -1])
+with resilience.fault_injection("drop_tenant_process"):
+    sched.drain("mig", os.environ["STS_FLEET_CHILD_BUNDLE"])
+print("UNREACHABLE: drain survived drop_tenant_process", flush=True)
+sys.exit(3)
+"""
+
+
+def start_fleet_child(coefficients, history, live, ring, dev, work):
+    """Start the kill -9 child (a process of its own on ``dev``) and
+    return ``(process, bundle path, incident dir, inputs)``."""
+    inp = os.path.join(work, "child-in.npz")
+    np.savez(inp, coefficients=coefficients, history=history, live=live,
+             ring=np.int64(ring))
+    bundle = os.path.join(work, "child-bundle")
+    incidents = os.path.join(work, "child-incidents")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, STS_FLEET_CHILD_IN=inp,
+               STS_FLEET_CHILD_BUNDLE=bundle,
+               STS_FLEET_CHILD_DEVICE=str(dev), STS_INCIDENT_DIR=incidents,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.Popen([sys.executable, "-c", _FLEET_CHILD], cwd=here,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, bundle, incidents, inp
+
+
+def _fleet_dispatch_ops(sched, dev):
+    """Device operations (runtime records, :func:`_cuda_ops`) of one
+    coalesced dispatch of the scheduler's widest group: what
+    ``FleetScheduler._dispatch_group`` puts on the card (the members'
+    state and health gathered, the tick buffers' copies, the tick, the
+    stacked results' one copy back), on all-missing ticks; the group's
+    SSM is gathered outside, as the dispatch's cache holds it between
+    heals."""
+    import torch
+
+    from spark_timeseries_tpu_torch.statespace import fleet, serving
+
+    key, labels = max(sched._groups.items(), key=lambda kv: len(kv[1]))
+    bucket, _, meta, policy, quality = key
+    sess = [sched.session(la) for la in labels]
+    slots = fleet._slots_for(len(sess))
+    ssm = fleet._gather([s._ssm for s in sess], slots)
+    y = np.full((slots * bucket,), np.nan, sess[0]._dtype)
+    off = np.zeros_like(y)
+
+    def one():
+        _, h2, _, v, f, ll, an = serving._update_impl(
+            meta, policy, quality, ssm,
+            fleet._gather([s._state for s in sess], slots),
+            fleet._gather([s._health for s in sess], slots), None,
+            torch.from_numpy(y).to(dev), torch.from_numpy(off).to(dev))
+        torch.stack([v, f, ll, an, h2.ew, h2.status.to(v.dtype)]).cpu()
+
+    return len(_cuda_ops(one)), len(sess)
+
+
+def _trace_dispatches(sched, log):
+    """Record every coalesced dispatch of ``sched``: its group's family,
+    members and slots, the tick's wall (the report's: the tick and its
+    results' copy to the host, ms) and the whole call's (gather and the
+    members' absorb included)."""
+    orig = sched._dispatch_group
+
+    def dispatch(key, members, deadline_flush=False):
+        t0 = time.perf_counter()
+        rep = orig(key, members, deadline_flush=deadline_flush)
+        log.append({"family": rep["key"][1], "tenants": rep["tenants"],
+                    "slots": rep["slots"], "tick_ms": rep["wall_ms"],
+                    "call_ms": (time.perf_counter() - t0) * 1e3})
+        return rep
+
+    sched._dispatch_group = dispatch
+
+
+def _record_ticks(sess, log):
+    orig = sess._absorb_tick
+
+    def absorb(host, state2, health2, out, dt_s, qstate2=None,
+               lineage=None):
+        log.append(out)
+        return orig(host, state2, health2, out, dt_s, qstate2,
+                    lineage=lineage)
+
+    sess._absorb_tick = absorb
+
+
+def _sessions_bitwise(a, b) -> bool:
+    """State and health of two sessions, bit for bit (real lanes)."""
+    n = a.n_series
+    return a.ticks_seen == b.ticks_seen and _bits_equal(
+        [t[:n].float() for t in (*a._state, *a._health)],
+        [t[:n].float() for t in (*b._state, *b._health)])
+
+
+def _ticks_bitwise(got, want) -> bool:
+    return len(got) == len(want) and all(
+        np.array_equal(np.ascontiguousarray(x).view(np.uint8),
+                       np.ascontiguousarray(y).view(np.uint8))
+        for g, w in zip(got, want) for x, y in zip(g, w))
+
+
+def _dispatch_stats(log, family):
+    rows = [r for r in log if r["family"] == family]
+    if not rows:
+        return {"dispatches": 0}
+    tick = [r["tick_ms"] for r in rows]
+    call = [r["call_ms"] for r in rows]
+    return {"dispatches": len(rows),
+            "tenants_per_dispatch": float(np.mean([r["tenants"]
+                                                   for r in rows])),
+            "full_dispatches": sum(r["tenants"] == max(x["tenants"]
+                                                       for x in rows)
+                                   for r in rows),
+            "first_tick_ms": tick[0], "first_call_ms": call[0],
+            "tick_p50_ms": float(np.percentile(tick, 50)),
+            "tick_p95_ms": float(np.percentile(tick, 95)),
+            "warm_tick_ms": float(np.median(tick[1:])) if len(tick) > 1
+            else None,
+            "call_p50_ms": float(np.percentile(call, 50)),
+            "call_p95_ms": float(np.percentile(call, 95))}
+
+
+def phase_fleet_path(panel, hw_panel, dev, smi, tenants=FLEET_TENANTS,
+                     series=FLEET_SERIES, hw_tenants=FLEET_HW_TENANTS,
+                     rounds=FLEET_ROUNDS, f2=FLEET_F2,
+                     f2_rounds=FLEET_F2_ROUNDS,
+                     crash_rounds=FLEET_CRASH_ROUNDS,
+                     mirrored=FLEET_MIRRORED):
+    """The fleet on the card, float32 (module docstring, 28)."""
+    import tempfile
+
+    import torch
+
+    from spark_timeseries_tpu_torch.models import arima, holt_winters
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+    from spark_timeseries_tpu_torch.statespace import (fleet, runtime,
+                                                       serving)
+    from spark_timeseries_tpu_torch.utils import (lineage, metrics,
+                                                  resilience)
+
+    def counts():
+        return {"arma_lm_fit": arma_ne.fit_css_lm.launches,
+                "arma_ne": arma_ne.normal_equations.launches,
+                "arma_css": arma_ne.css_cost.launches,
+                "hw_box_fit": hw_sse.box_fit.launches,
+                "hw_sse": hw_sse.value_and_grad.launches}
+
+    for w in (arma_ne.fit_css_lm, arma_ne.normal_equations,
+              arma_ne.css_cost, hw_sse.box_fit, hw_sse.value_and_grad):
+        w.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    extra = 3                      # a restore's next tick, 2 queued ticks
+    n1, n_hw = tenants * series, hw_tenants * series
+    hist = np.ascontiguousarray(panel[:n1, :FLEET_HIST])
+    live = np.ascontiguousarray(
+        panel[:n1, FLEET_HIST:FLEET_HIST + rounds + extra])
+    hw_split = hw_panel.shape[1] - rounds - extra
+    hw_hist = np.ascontiguousarray(hw_panel[:n_hw, :hw_split])
+    hw_live = np.ascontiguousarray(hw_panel[:n_hw, hw_split:])
+    row = {"phase": "fleet_path", "nvidia_smi": smi,
+           "f1": {"tenants": tenants, "series": series,
+                  "hw_tenants": hw_tenants, "lanes": n1 + n_hw,
+                  "rounds": rounds, "history": FLEET_HIST,
+                  "hw_history": hw_split, "history_ring": FLEET_RING}}
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=scratch)
+    child = None
+    try:
+        # -- each group's model, fitted once at the tenant's width
+        t0 = time.perf_counter()
+        model = arima.fit(2, 1, 2, hist[:series], warn=False, device=dev)
+        hw_model = holt_winters.fit(hw_hist[:series], HW_PERIOD,
+                                    "additive", device=dev)
+        _sync(dev)
+        row["fit_s"] = time.perf_counter() - t0
+        coefs = model.coefficients.cpu().numpy()
+        # the kill -9 child starts now and works while this process does
+        child = start_fleet_child(coefs, hist[:series],
+                                  live[:series, :FLEET_CHILD_TICKS],
+                                  FLEET_RING, dev, work.name)
+
+        # -- F1: the scheduler and its tenants
+        reg = metrics.MetricsRegistry()
+        sched = fleet.FleetScheduler(fleet.AdmissionPolicy(queue_depth=4),
+                                     registry=reg, auto_pump=False,
+                                     device=dev, label="f1")
+        a_labels = [f"a{i}" for i in range(tenants)]
+        h_labels = [f"h{j}" for j in range(hw_tenants)]
+        t0 = time.perf_counter()
+        for i, la in enumerate(a_labels):
+            sched.attach(serving.ServingSession.start(
+                model, hist[i * series:(i + 1) * series], label=la,
+                registry=reg, history_ring=FLEET_RING, device=dev))
+        for j, la in enumerate(h_labels):
+            sched.attach(serving.ServingSession.start(
+                hw_model, hw_hist[j * series:(j + 1) * series], label=la,
+                registry=reg, history_ring=FLEET_RING, device=dev))
+        _sync(dev)
+        row["f1"]["start_s"] = time.perf_counter() - t0
+        row["f1"]["groups"] = sched.n_groups
+        picks = sorted({k * tenants // mirrored for k in range(mirrored)})
+        mirrors = {}
+        fleet_ticks = {}
+        for i in picks:
+            la = a_labels[i]
+            mirrors[la] = serving.ServingSession.start(
+                model, hist[i * series:(i + 1) * series],
+                history_ring=FLEET_RING, device=dev)
+            fleet_ticks[la] = []
+            _record_ticks(sched.session(la), fleet_ticks[la])
+        t0 = time.perf_counter()
+        sched.warmup()
+        row["f1"]["warmup_s"] = time.perf_counter() - t0
+        row["f1"]["device_ops_per_dispatch"], _ = _fleet_dispatch_ops(
+            sched, dev)
+        row["f1"]["device_ops_per_solo_tick"] = len(_tick_ops(
+            mirrors[a_labels[picks[0]]], live[:series, 0]))
+        log = []
+        _trace_dispatches(sched, log)
+
+        # -- F1: 32 rounds of blocking submit through the runtime
+        ck = os.path.join(work.name, "f1-ck")
+        rt = runtime.FleetRuntime(sched, registry=reg, label="f1rt",
+                                  policy=runtime.RuntimePolicy(
+                                      checkpoint_dir=ck,
+                                      pump_interval_s=0.0005))
+        lineage.reset()
+        rt.start()
+        try:
+            t0 = time.perf_counter()
+            for t in range(rounds):
+                for i, la in enumerate(a_labels):
+                    rt.submit(la, live[i * series:(i + 1) * series, t],
+                              block=True, timeout=120.0)
+                for j, la in enumerate(h_labels):
+                    rt.submit(la, hw_live[j * series:(j + 1) * series, t],
+                              block=True, timeout=120.0)
+            quiet = rt.quiesce(timeout=120.0)
+            _sync(dev)
+            run_s = time.perf_counter() - t0
+            lin = lineage.lineage_summary()
+        finally:
+            t0 = time.perf_counter()
+            rt.stop()                      # commits the final generation
+            row["f1"]["stop_checkpoint_s"] = time.perf_counter() - t0
+        n_ticks = rounds * (tenants + hw_tenants)
+        c1 = reg.snapshot()["counters"]
+        row["f1"].update(
+            run_s=run_s, quiesced=quiet,
+            lane_ticks_per_s=rounds * (n1 + n_hw) / run_s,
+            ticks_per_s=n_ticks / run_s,
+            arima=_dispatch_stats(log, "arima"),
+            holt_winters=_dispatch_stats(log, "holt_winters"),
+            lineage={"started": lin["started"],
+                     "outcomes": lin["outcomes"], "open": lin["open"],
+                     "e2e": lin["e2e"], "worst_stage": lin["worst_stage"],
+                     "worst_stage_share": lin["worst_stage_share"],
+                     "stage_totals_ms": lin["stage_totals_ms"]},
+            pump=rt.pump_summary(),
+            counters={k: v for k, v in c1.items()
+                      if k.startswith("fleet.")})
+        check(quiet, "fleet_path F1: the runtime did not quiesce")
+        check(c1.get("fleet.pump_restarts", 0) == 0
+              and c1.get("fleet.shed_lanes", 0) == 0,
+              f"fleet_path F1: pump_restarts "
+              f"{c1.get('fleet.pump_restarts', 0)}, shed_lanes "
+              f"{c1.get('fleet.shed_lanes', 0)} (both must be 0 outside "
+              f"the fault sub-phases)")
+        check(lin["outcomes"] == {"delivered": n_ticks}
+              and lin["open"] == 0 and lin["duplicate_completions"] == 0,
+              f"fleet_path F1: lineage {lin['outcomes']}, open "
+              f"{lin['open']}, against {n_ticks} ticks submitted")
+
+        # coalesced ticks bitwise the same ticks through solo sessions
+        for la, mirror in mirrors.items():
+            i = a_labels.index(la)
+            solo = [mirror.update(live[i * series:(i + 1) * series, t])
+                    for t in range(rounds)]
+            ok = _ticks_bitwise(fleet_ticks[la], solo) \
+                and _sessions_bitwise(sched.session(la), mirror)
+            check(ok, f"fleet_path F1: tenant {la}'s coalesced ticks are "
+                      f"not its solo session's bit for bit")
+        row["f1"]["mirrored_tenants"] = len(mirrors)
+
+        # -- stop() and a fresh runtime's restore_latest(): every tenant
+        # from the newest generation, bitwise, and the next tick too
+        reg2 = metrics.MetricsRegistry()
+        sched2 = fleet.FleetScheduler(fleet.AdmissionPolicy(queue_depth=4),
+                                      registry=reg2, auto_pump=False,
+                                      device=dev, label="f1restored")
+        rt2 = runtime.FleetRuntime(sched2, registry=reg2, label="f1rt2",
+                                   policy=runtime.RuntimePolicy(
+                                       checkpoint_dir=ck))
+        gen = runtime.FleetRuntime.latest_generation(ck)
+        t0 = time.perf_counter()
+        adopted = rt2.restore_latest()
+        _sync(dev)
+        restore_s = time.perf_counter() - t0
+        check(sorted(adopted) == sched.tenants,
+              f"fleet_path: restore_latest adopted {len(adopted)} of "
+              f"{len(sched.tenants)} tenants")
+        same = all(_sessions_bitwise(sched2.session(la), sched.session(la))
+                   for la in sched.tenants)
+        t = rounds
+        for i, la in enumerate(a_labels):
+            y = live[i * series:(i + 1) * series, t]
+            sched.submit(la, y)
+            rt2.submit(la, y, block=False)
+        for j, la in enumerate(h_labels):
+            y = hw_live[j * series:(j + 1) * series, t]
+            sched.submit(la, y)
+            rt2.submit(la, y, block=False)
+        sched.pump()
+        rt2.pump_once()
+        nxt = all(_sessions_bitwise(sched2.session(la), sched.session(la))
+                  for la in sched.tenants)
+        row["restore"] = {"generation": gen[0] if gen else None,
+                          "tenants": len(adopted), "restore_s": restore_s,
+                          "bitwise": same, "next_tick_bitwise": nxt}
+        check(same and nxt, f"fleet_path: the restored fleet is not the "
+                            f"stopped one bit for bit ({row['restore']})")
+        del sched2, rt2
+
+        # -- drain with queued ticks, adopt elsewhere, replay: bitwise
+        la = a_labels[picks[-1]]
+        i = a_labels.index(la)
+        mirror = mirrors[la]
+        mirror.update(live[i * series:(i + 1) * series, rounds])
+        for t in (rounds + 1, rounds + 2):
+            sched.submit(la, live[i * series:(i + 1) * series, t])
+            mirror.update(live[i * series:(i + 1) * series, t])
+        path = os.path.join(work.name, "drained")
+        t0 = time.perf_counter()
+        rep = sched.drain(la, path)
+        dest = fleet.FleetScheduler(registry=metrics.MetricsRegistry(),
+                                    auto_pump=False, device=dev)
+        dest.adopt(path)
+        _sync(dev)
+        row["drain_adopt"] = {"tenant": la, "pending": rep["pending"],
+                              "s": time.perf_counter() - t0,
+                              "bitwise": _sessions_bitwise(
+                                  dest.session(la), mirror)}
+        check(rep["pending"] == 2 and row["drain_adopt"]["bitwise"],
+              f"fleet_path: drain / adopt with queued ticks is not bitwise "
+              f"({row['drain_adopt']})")
+        del sched, dest, mirrors, fleet_ticks, log
+
+        # -- F2: bench.py's 64 tenants x 16 series, the launch-bound end
+        n_f2, s_f2 = f2
+        rows2 = slice(n1, n1 + n_f2 * s_f2)
+        hist2 = np.ascontiguousarray(panel[rows2, :FLEET_HIST])
+        live2 = np.ascontiguousarray(
+            panel[rows2, FLEET_HIST:FLEET_HIST + f2_rounds + crash_rounds])
+        model2 = arima.fit(2, 1, 2, hist2[:s_f2], warn=False, device=dev)
+        reg3 = metrics.MetricsRegistry()
+        sched3 = fleet.FleetScheduler(fleet.AdmissionPolicy(queue_depth=4),
+                                      registry=reg3, auto_pump=False,
+                                      device=dev, label="f2")
+        labels2 = [f"b{i}" for i in range(n_f2)]
+        mirrors2 = {}
+        ticks2 = {}
+        for i, la in enumerate(labels2):
+            h = hist2[i * s_f2:(i + 1) * s_f2]
+            sched3.attach(serving.ServingSession.start(
+                model2, h, label=la, registry=reg3, device=dev))
+            mirrors2[la] = serving.ServingSession.start(model2, h,
+                                                        device=dev)
+            ticks2[la] = []
+            _record_ticks(sched3.session(la), ticks2[la])
+        sched3.warmup()
+        ops2, _ = _fleet_dispatch_ops(sched3, dev)
+        log2 = []
+        _trace_dispatches(sched3, log2)
+
+        def run_f2(t_from, t_to, label):
+            rt3 = runtime.FleetRuntime(sched3, registry=reg3, label=label,
+                                       policy=runtime.RuntimePolicy(
+                                           pump_interval_s=0.0005,
+                                           watchdog_interval_s=0.01))
+            rt3.start()
+            try:
+                t0 = time.perf_counter()
+                for t in range(t_from, t_to):
+                    for i, la in enumerate(labels2):
+                        rt3.submit(la, live2[i * s_f2:(i + 1) * s_f2, t],
+                                   block=True, timeout=120.0)
+                quiet = rt3.quiesce(timeout=120.0)
+                _sync(dev)
+                return quiet, time.perf_counter() - t0, rt3.pump_summary()
+            finally:
+                rt3.stop(checkpoint=False)
+
+        lineage.reset()
+        quiet2, run2_s, _ = run_f2(0, f2_rounds, "f2rt")
+        c3 = reg3.snapshot()["counters"]
+        lin2 = lineage.lineage_summary()
+        row["f2"] = {"tenants": n_f2, "series": s_f2, "rounds": f2_rounds,
+                     "lanes": n_f2 * s_f2, "run_s": run2_s,
+                     "lane_ticks_per_s": f2_rounds * n_f2 * s_f2 / run2_s,
+                     "ticks_per_s": f2_rounds * n_f2 / run2_s,
+                     "device_ops_per_dispatch": ops2,
+                     "arima": _dispatch_stats(log2, "arima"),
+                     "lineage_e2e": lin2["e2e"]}
+        check(quiet2 and c3.get("fleet.pump_restarts", 0) == 0
+              and c3.get("fleet.shed_lanes", 0) == 0,
+              f"fleet_path F2: quiesced {quiet2}, counters "
+              f"{ {k: v for k, v in c3.items() if k.startswith('fleet.')} }")
+
+        # -- F2 under pump_crash: restarts, exactly-once, bitwise
+        lineage.reset()
+        with resilience.fault_injection("pump_crash", n_attempts=3):
+            quiet3, crash_s, pump3 = run_f2(f2_rounds,
+                                            f2_rounds + crash_rounds,
+                                            "f2crash")
+        lin3 = lineage.lineage_summary()
+        n3 = crash_rounds * n_f2
+        row["f2"]["pump_crash"] = {
+            "rounds": crash_rounds, "s": crash_s, "quiesced": quiet3,
+            "pump_restarts": pump3["restarts"],
+            "outcomes": lin3["outcomes"], "open": lin3["open"]}
+        check(quiet3 and pump3["restarts"] >= 1
+              and lin3["outcomes"] == {"delivered": n3}
+              and lin3["open"] == 0,
+              f"fleet_path F2 pump_crash: {row['f2']['pump_crash']} "
+              f"(restarts >= 1, {n3} delivered, none open)")
+        all_t = f2_rounds + crash_rounds
+        f2_ok = True
+        for i, la in enumerate(labels2):
+            solo = [mirrors2[la].update(live2[i * s_f2:(i + 1) * s_f2, t])
+                    for t in range(all_t)]
+            f2_ok &= _ticks_bitwise(ticks2[la], solo) \
+                and _sessions_bitwise(sched3.session(la), mirrors2[la])
+        row["f2"]["bitwise"] = f2_ok
+        check(f2_ok, "fleet_path F2: coalesced ticks are not the solo "
+                     "sessions' bit for bit")
+        del sched3, mirrors2, ticks2
+
+        # -- the kill -9 child: its drained tenant, adopted here, bitwise
+        proc, bundle, incidents, inp = child
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        child = None
+        d = np.load(inp)
+        c_model = arima.ARIMAModel(
+            2, 1, 2, torch.from_numpy(d["coefficients"]).to(dev), True)
+        c_mirror = serving.ServingSession.start(
+            c_model, d["history"], history_ring=FLEET_RING, device=dev)
+        for t in range(d["live"].shape[1]):
+            c_mirror.update(d["live"][:, t])
+        c_sched = fleet.FleetScheduler(registry=metrics.MetricsRegistry(),
+                                       auto_pump=False, device=dev)
+        killed = proc.returncode == -9 and os.path.exists(bundle + ".npz")
+        c_ok = False
+        if killed:
+            c_sched.adopt(bundle)
+            c_ok = _sessions_bitwise(c_sched.session("mig"), c_mirror)
+        row["kill9_child"] = {
+            "returncode": proc.returncode, "bundle": killed,
+            "incident": os.path.isdir(incidents) and any(
+                "drop_tenant_process" in n for n in os.listdir(incidents)),
+            "adopted_bitwise": c_ok}
+        check(killed and c_ok and row["kill9_child"]["incident"],
+              f"fleet_path: the kill -9 child's drained tenant "
+              f"({row['kill9_child']}; stderr {err[-800:]!r})")
+    finally:
+        if child is not None:
+            child[0].kill()
+            child[0].communicate()
+        work.cleanup()
+    launches = counts()
+    row["launches"] = launches
+    if dev.type == "cuda":
+        row["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    f1a = row["f1"]["arima"]
+    emit({"phase": "fleet_summary", "nvidia_smi": smi,
+          "f1_lane_ticks_per_s": row["f1"]["lane_ticks_per_s"],
+          "f1_dispatch_tick_p50_ms": f1a.get("tick_p50_ms"),
+          "f1_dispatch_tick_p95_ms": f1a.get("tick_p95_ms"),
+          "f1_dispatch_call_p50_ms": f1a.get("call_p50_ms"),
+          "f1_dispatch_call_p95_ms": f1a.get("call_p95_ms"),
+          "f1_first_dispatch_ms": f1a.get("first_call_ms"),
+          "f1_device_ops_per_dispatch":
+              row["f1"]["device_ops_per_dispatch"],
+          "f1_lineage_e2e": row["f1"]["lineage"]["e2e"],
+          "f1_warmup_s": row["f1"]["warmup_s"],
+          "f2_lane_ticks_per_s": row["f2"]["lane_ticks_per_s"],
+          "f2_dispatch_tick_p50_ms": row["f2"]["arima"].get("tick_p50_ms"),
+          "f2_device_ops_per_dispatch": row["f2"]["device_ops_per_dispatch"],
+          "f2_lineage_e2e": row["f2"]["lineage_e2e"],
+          "peak_bytes": row.get("peak_bytes"), "launches": launches,
+          "seconds": row["seconds"]})
+    # the two groups' fits (F1: ARIMA and Holt-Winters) and F2's ARIMA
+    # fit; the ticks launch no kernel of the port
+    check(launches["arma_lm_fit"] == 2 and launches["hw_box_fit"] == 1,
+          f"fleet_path launched arma_lm_fit {launches['arma_lm_fit']} "
+          f"(2: F1 and F2 fits) and hw_box_fit {launches['hw_box_fit']} "
+          f"(1: F1's Holt-Winters fit)")
+    check(launches["arma_ne"] == 0 and launches["arma_css"] == 0
+          and launches["hw_sse"] == 0,
+          f"fleet_path launched a one-pass kernel: {launches}")
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5581,6 +6158,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     long_row = paths.run("long_path", phase_long_path, dev)
     bt_row = paths.run("backtest_path", phase_backtest_path, dev)
     lng, btl = long_row["launches"], bt_row["launches"]
+    # slice 14: the fleet, driven with the counts set to 0 just before it
+    # and read just after
+    flt = paths.run("fleet_path", phase_fleet_path, panel, hw_panel, dev,
+                    smi)["launches"]
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -5600,7 +6181,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + arx_row["resilient_arma_lm_fit_launches"]
         + exact_row["arma_lm_fit_launches"]
         + serv_row["arma_lm_fit_launches"] + lng["arma_lm_fit"]
-        + btl["arma_lm_fit"],
+        + btl["arma_lm_fit"] + flt["arma_lm_fit"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
@@ -5612,7 +6193,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "exact_path": exact_row["arma_lm_fit_launches"],
             "serving_path": serv_row["arma_lm_fit_launches"],
             "long_path": lng["arma_lm_fit"],
-            "backtest_path": btl["arma_lm_fit"]},
+            "backtest_path": btl["arma_lm_fit"],
+            "fleet_path": flt["arma_lm_fit"]},
         "long_path_launch": {
             k: long_row["lm_fit"][k] for k in (
                 "lanes", "n_obs", "lm_fit_ms", "bound_ms", "bound_by",
@@ -5646,7 +6228,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + arx_row["resilient_arma_ne_launches"]
         + arx_row["methods_arma_ne_launches"]
         + exact_row["arma_ne_launches"] + serv["arma_ne"]
-        + lng["arma_ne"] + btl["arma_ne"],
+        + lng["arma_ne"] + btl["arma_ne"] + flt["arma_ne"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
@@ -5659,7 +6241,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_methods": arx_row["methods_arma_ne_launches"],
             "exact_path": exact_row["arma_ne_launches"],
             "serving_path": serv["arma_ne"],
-            "long_path": lng["arma_ne"], "backtest_path": btl["arma_ne"]},
+            "long_path": lng["arma_ne"], "backtest_path": btl["arma_ne"],
+            "fleet_path": flt["arma_ne"]},
         "route_launches": lm_row["route_arma_ne_launches"]
         + arx_row["route_arma_ne_launches"],
         "launch_widths": {
@@ -5685,7 +6268,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "launches": css_launches + res_row["arma_css_launches"]
         + surf["arma_css"] + arx_row["arma_css_launches"]
         + arx_row["methods_arma_css_launches"] + serv["arma_css"]
-        + lng["arma_css"] + btl["arma_css"],
+        + lng["arma_css"] + btl["arma_css"] + flt["arma_css"],
         "launches_by_path": {
             "hw_path": css_launches,
             "resilient_path": res_row["arma_css_launches"],
@@ -5693,7 +6276,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_path": arx_row["arma_css_launches"],
             "arimax_methods": arx_row["methods_arma_css_launches"],
             "serving_path": serv["arma_css"],
-            "long_path": lng["arma_css"], "backtest_path": btl["arma_css"]},
+            "long_path": lng["arma_css"], "backtest_path": btl["arma_css"],
+            "fleet_path": flt["arma_css"]},
         "launch_widths": {"arima_surface": surf_row["widths"]["arma_css"]},
         "by_width": [{"S": r["S"], "ragged": r["ragged"],
                       "ms": r["ms"]["css_kernel"]["new"],
@@ -5737,11 +6321,11 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_row["hw_sse_launches"]
-        + hwr_row["hw_sse_launches"] + serv["hw_sse"],
+        + hwr_row["hw_sse_launches"] + serv["hw_sse"] + flt["hw_sse"],
         "launches_by_path": {
             "hw_path": hw_row["hw_sse_launches"],
             "hw_resilient_path": hwr_row["hw_sse_launches"],
-            "serving_path": serv["hw_sse"]},
+            "serving_path": serv["hw_sse"], "fleet_path": flt["hw_sse"]},
         "route_launches": fit_row["solver_route_hw_sse_launches"]
         + hwr_row["restart_vs_route"]["route_hw_sse_launches"],
         "max_abs_err": hw_max_abs,
@@ -5752,11 +6336,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_launches + hwr_row["hw_box_fit_launches"]
-        + serv["hw_box_fit"],
+        + serv["hw_box_fit"] + flt["hw_box_fit"],
         "launches_by_path": {
             "hw_path": hw_launches,
             "hw_resilient_path": hwr_row["hw_box_fit_launches"],
-            "serving_path": serv["hw_box_fit"]},
+            "serving_path": serv["hw_box_fit"],
+            "fleet_path": flt["hw_box_fit"]},
         "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],

@@ -25,7 +25,10 @@ smoothing families; the exogenous-regressor families
 the Kalman filter and the exact likelihood that
 ``models.arima.fit(objective="exact")`` maximizes); the online serving
 tier on it (``statespace.serving.ServingSession`` with lane health,
-forecast quality, heal and checkpoint/restore); the long-series tier
+forecast quality, heal and checkpoint/restore) and the fleet over it
+(``statespace.FleetScheduler``: admission, coalesced ticks, SLO
+shedding, drain/adopt; ``statespace.FleetRuntime``: the supervised
+pump, backpressure, checkpoint generations, rebalance); the long-series tier
 (``longseries.fit_long``: one series of 10⁶–10⁸ observations split,
 fitted as a batch of segments, combined and forecast exactly; and
 ``models.arima.fit_long``); and rolling-origin backtesting with

@@ -6,14 +6,21 @@ logarithmic-depth filters and the likelihood pieces), :mod:`convert`
 likelihood that ``models.arima.fit(objective="exact")`` maximizes),
 :mod:`health` (per-lane divergence detection and quarantine),
 :mod:`quality` (per-tick anomaly scores, online accuracy off a forecast
-ring, Page-Hinkley drift alarms) and :mod:`serving` (warm sessions, tick
-ingest, lane healing, checkpoint/restore).
-
-Not ported yet: the fleet and its runtime (``fleet``, ``runtime``;
-ROADMAP Queue A item 4).
+ring, Page-Hinkley drift alarms), :mod:`serving` (warm sessions, tick
+ingest, lane healing, checkpoint/restore), :mod:`fleet` (the
+multi-tenant front-end: admission control, tick coalescing, SLO-aware
+shedding, checkpoint-based migration) and :mod:`runtime` (the
+supervised layer over the fleet: background pump with watchdog
+restarts, blocking admission, crash-only checkpoint generations,
+drain/adopt rebalancing).
 """
 
-from . import convert, health, kalman, quality, serving, ssm  # noqa: F401
+from . import (convert, fleet, health, kalman, quality,  # noqa: F401
+               runtime, serving, ssm)
+from .fleet import (AdmissionPolicy, FleetRestoreMismatch,  # noqa: F401
+                    FleetSaturated, FleetScheduler)
+from .runtime import (FleetBackpressureTimeout, FleetRuntime,  # noqa: F401
+                      RuntimePolicy)
 from .convert import (Bootstrapped, arma_concentrated_neg_ll,  # noqa: F401
                       bootstrap, companion_arma, to_statespace)
 from .health import (LANE_DIVERGED, LANE_DRIFTED, LANE_OK,  # noqa: F401
@@ -33,7 +40,8 @@ from .ssm import (FilterState, SSMeta, StateSpace,  # noqa: F401
                   stationary_mean)
 
 __all__ = [
-    "ssm", "kalman", "convert", "health", "quality", "serving",
+    "ssm", "kalman", "convert", "health", "quality", "serving", "fleet",
+    "runtime",
     "StateSpace", "SSMeta", "FilterState", "initial_state", "state_nbytes",
     "stationary_covariance", "stationary_mean",
     "filter_step_panel", "filter_panel", "filter_panel_parallel",
@@ -48,4 +56,7 @@ __all__ = [
     "quality_step", "quality_panel",
     "ServingSession", "TickResult", "start_session",
     "ServingRestoreMismatch", "shed_priority",
+    "FleetScheduler", "AdmissionPolicy", "FleetSaturated",
+    "FleetRestoreMismatch",
+    "FleetRuntime", "RuntimePolicy", "FleetBackpressureTimeout",
 ]

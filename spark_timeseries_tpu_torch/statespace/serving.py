@@ -378,10 +378,14 @@ class ServingSession:
                           both[5].astype(np.int32), both[3], both[4])
 
     def _absorb_tick(self, host, state2, health2, out: TickResult,
-                     dt_s: float, qstate2=None) -> TickResult:
+                     dt_s: float, qstate2=None, lineage=None) -> TickResult:
         """Commit one tick's outputs into the session: state, health and
         quality swap, transition and latency accounting, history-ring
-        push.  The other half of :meth:`_prepare_tick`."""
+        push.  The other half of :meth:`_prepare_tick`; the fleet calls
+        the pair around its coalesced tick, passing each member its
+        slice of the group's outputs.  ``lineage`` (the fleet's per-tick
+        trace record) closes its ``scatter`` segment once the commit is
+        visible."""
         self._state = state2
         self._health = health2
         if self._quality is not None and qstate2 is not None:
@@ -399,6 +403,8 @@ class ServingSession:
         self.ticks_seen += 1
         self._reg.inc("serving.updates")
         self._reg.inc("serving.ticks", self.n_series)
+        if lineage is not None:
+            lineage.stage_end("scatter")
         return out
 
     def _device_tick(self, y: np.ndarray, off: np.ndarray):

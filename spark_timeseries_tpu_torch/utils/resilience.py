@@ -32,10 +32,11 @@ JAX package.  Dispositions are counted under ``resilience.*`` in
 ``utils.metrics``.
 
 :func:`fault_injection` corrupts inputs, forces optimizer
-non-convergence, or corrupts a serving session's ticks and state
-(:func:`serving_fault`).  The engine and fleet fault hooks and the
-``STS_FAULT_INJECT`` environment arm wait for their slices and raise
-``NotImplementedError``.
+non-convergence, corrupts a serving session's ticks and state
+(:func:`serving_fault`), or floods, stalls, crashes or kills the fleet
+tier (:func:`fleet_fault`).  The engine's streaming-chunk fault hooks
+and the ``STS_FAULT_INJECT`` environment arm wait for the engine's
+durability tier and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -258,8 +259,29 @@ class FaultSpec(NamedTuple):
       session, the diverged lane the health monitor must quarantine and
       ``heal()`` must recover.
 
-    The JAX package's streaming-chunk and fleet modes are valid names
-    here, but entering them raises ``NotImplementedError``."""
+    Fleet-tier modes, read host-side by ``statespace.fleet`` and
+    ``statespace.runtime`` through :func:`fleet_fault`:
+
+    - ``"tenant_flood"``: every ``FleetScheduler.submit`` is amplified
+      to ``n_attempts`` copies of the tick, driving the bounded queues
+      into their admission policy;
+    - ``"coalesce_straggler"``: every ``lane_stride``-th live tenant of
+      each coalescing group goes silent (its queued ticks are withheld
+      and it no longer counts toward group readiness), so the batch
+      flushes only through the coalescing-window deadline;
+    - ``"drop_tenant_process"``: SIGKILL the process right after a
+      ``drain()`` bundle commits (forensics bundle first);
+    - ``"pump_crash"``: every ``n_attempts``-th pump sweep of a
+      ``FleetRuntime`` raises :class:`InjectedPumpCrash` before it
+      dispatches, for the watchdog to restart;
+    - ``"pump_hang"``: one pump sweep per fault scope sleeps ``hang_s``
+      seconds outside the runtime lock, for the watchdog to abandon;
+    - ``"checkpoint_torn"``: an auto-checkpoint generation is SIGKILLed
+      after ``n_attempts`` tenant bundles have landed and before its
+      manifest commits (forensics bundle first).
+
+    The JAX package's streaming-chunk modes are valid names here, but
+    entering them raises ``NotImplementedError``."""
     mode: str
     n_attempts: int = 1
     lane_stride: int = 2
@@ -277,27 +299,25 @@ class InjectedOOM(RuntimeError):
     the engine's durability tier."""
 
     def __init__(self, *args):
-        _waits("InjectedOOM (the engine's oom_chunk fault)", "8")
+        _waits("InjectedOOM (the engine's oom_chunk fault)", "5")
 
 
 class InjectedPumpCrash(RuntimeError):
-    """The ``pump_crash`` fault's synthetic pump death: waits for the
-    fleet runtime."""
-
-    def __init__(self, *args):
-        _waits("InjectedPumpCrash (the fleet runtime's pump_crash fault)",
-               "7")
+    """Synthetic pump-thread death raised by the ``pump_crash`` fault at
+    the top of a ``FleetRuntime`` pump sweep, before any dispatch, so
+    the admitted queues stay intact and the supervisor's restart must
+    deliver every tick exactly once."""
 
 
 _FIT_MODES = ("force_nonconverge", "corrupt_nan", "corrupt_inf")
 _SERVING_MODES = ("tick_corrupt_nan", "tick_corrupt_inf", "state_poison")
-# the JAX package's other modes, with the ROADMAP item each waits for
+_FLEET_MODES = ("tenant_flood", "coalesce_straggler", "drop_tenant_process",
+                "pump_crash", "pump_hang", "checkpoint_torn")
+# the JAX package's streaming-chunk modes, with the ROADMAP item each
+# waits for
 _WAITING_MODES = {
-    "hang_chunk": "8", "oom_chunk": "8", "kill_after_chunk": "8",
-    "corrupt_journal": "8",
-    "tenant_flood": "7", "coalesce_straggler": "7",
-    "drop_tenant_process": "7", "pump_crash": "7", "pump_hang": "7",
-    "checkpoint_torn": "7",
+    "hang_chunk": "5", "oom_chunk": "5", "kill_after_chunk": "5",
+    "corrupt_journal": "5",
 }
 _active_fault: List[FaultSpec] = []
 # one never-reused id per fault_injection scope entry (unlike id(spec),
@@ -319,8 +339,8 @@ def fault_spec() -> Optional[FaultSpec]:
 
 
 def chunk_fault(mode: str, chunk_index: int):
-    """The engine's streaming-chunk fault hook: waits for item 8."""
-    _waits("chunk_fault (the engine's streaming-chunk faults)", "8")
+    """The engine's streaming-chunk fault hook: waits for item 5."""
+    _waits("chunk_fault (the engine's streaming-chunk faults)", "5")
 
 
 def serving_fault(mode: str) -> Optional[FaultSpec]:
@@ -337,9 +357,20 @@ def serving_fault(mode: str) -> Optional[FaultSpec]:
     return None
 
 
-def fleet_fault(mode: str):
-    """The fleet tier's fault hook: waits for item 7."""
-    _waits("fleet_fault (the fleet tier's faults)", "7")
+def fleet_fault(mode: str) -> Optional[FaultSpec]:
+    """The active fault spec when it is a fleet-tier fault of the given
+    ``mode``, else None.  Read host-side by ``statespace.fleet.
+    FleetScheduler`` at submit, coalesced dispatch and drain, and by
+    ``statespace.runtime.FleetRuntime`` at each pump sweep and
+    auto-checkpoint."""
+    if mode not in _FLEET_MODES:
+        raise ValueError(
+            f"unknown fleet fault mode {mode!r}; expected one of "
+            f"{_FLEET_MODES}")
+    spec = fault_spec()
+    if spec is not None and spec.mode == mode:
+        return spec
+    return None
 
 
 def forced_optimizer_failures() -> int:
@@ -364,10 +395,11 @@ def fault_injection(mode: str, n_attempts: int = 1, lane_stride: int = 2,
     and leaving the scope flushes nothing."""
     if mode in _WAITING_MODES:
         _waits(f"fault mode {mode!r}", _WAITING_MODES[mode])
-    if mode not in _FIT_MODES + _SERVING_MODES:
+    live = _FIT_MODES + _SERVING_MODES + _FLEET_MODES
+    if mode not in live:
         raise ValueError(
             f"unknown fault mode {mode!r}; expected one of "
-            f"{_FIT_MODES + _SERVING_MODES + tuple(_WAITING_MODES)}")
+            f"{live + tuple(_WAITING_MODES)}")
     if n_attempts < 1 or lane_stride < 1:
         raise ValueError("n_attempts and lane_stride must be >= 1")
     if chunk_index < 0 or hang_s <= 0:
@@ -530,7 +562,7 @@ def resilient_fit(values, fits: Sequence[Tuple[str, Callable]], *,
     if not fits:
         raise ValueError("resilient_fit needs at least one fit stage")
     if os.environ.get("STS_FAULT_INJECT") == "1":
-        _waits("the STS_FAULT_INJECT environment fault arm", "8")
+        _waits("the STS_FAULT_INJECT environment fault arm", "5")
     reg = registry if registry is not None else _metrics._default_registry
     v = values if isinstance(values, torch.Tensor) \
         else torch.as_tensor(np.asarray(values))

@@ -132,7 +132,7 @@ def test_fault_modes_corrupt_like_jax_and_the_rest_wait():
         got = resilience.corrupt_values(torch.from_numpy(y), spec)
         want = j_res.corrupt_values(y, j_res.FaultSpec(mode, lane_stride=3))
         np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         with resilience.fault_injection("oom_chunk"):
             pass
     # the serving modes act as the JAX package's do: the active spec of
@@ -158,17 +158,50 @@ def test_fault_modes_corrupt_like_jax_and_the_rest_wait():
     for mod in (resilience, j_res):
         with pytest.raises(ValueError, match="unknown serving fault"):
             mod.serving_fault("corrupt_nan")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        resilience.fleet_fault("tenant_flood")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the fleet modes are live: the spec inside the scope, None outside
+    assert resilience.fleet_fault("tenant_flood") is None
+    with resilience.fault_injection("tenant_flood", n_attempts=4) as spec:
+        assert resilience.fleet_fault("tenant_flood") is spec
+        assert spec.n_attempts == 4
+    with pytest.raises(NotImplementedError, match="item 5"):
         resilience.chunk_fault("hang_chunk", 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         resilience.InjectedOOM("x")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        resilience.InjectedPumpCrash("x")
+    err = resilience.InjectedPumpCrash("pump died")
+    assert isinstance(err, RuntimeError) and str(err) == "pump died"
+    assert issubclass(j_res.InjectedPumpCrash, RuntimeError)
     with pytest.raises(ValueError, match="unknown fault mode"):
         with resilience.fault_injection("banana"):
             pass
+
+
+FLEET_MODES = ("tenant_flood", "coalesce_straggler", "drop_tenant_process",
+               "pump_crash", "pump_hang", "checkpoint_torn")
+
+
+@pytest.mark.parametrize("mode", FLEET_MODES)
+def test_fleet_fault_modes_act_like_jax(mode):
+    """Each fleet mode is the active spec of its own name in both
+    packages, None for the other fleet modes and outside the scope; a
+    serving accessor refuses it and a fleet accessor refuses a serving
+    mode."""
+    for mod in (resilience, j_res):
+        assert mod.fleet_fault(mode) is None
+        with pytest.raises(ValueError, match="serving fault"):
+            mod.serving_fault(mode)
+        with pytest.raises(ValueError, match="fleet fault"):
+            mod.fleet_fault("state_poison")
+    with resilience.fault_injection(mode, n_attempts=3, lane_stride=2,
+                                    hang_s=0.5) as spec, \
+            j_res.fault_injection(mode, n_attempts=3, lane_stride=2,
+                                  hang_s=0.5) as j_spec:
+        assert tuple(resilience.fleet_fault(mode)) == tuple(spec) \
+            == tuple(j_res.fleet_fault(mode)) == tuple(j_spec)
+        for other in FLEET_MODES:
+            if other != mode:
+                assert resilience.fleet_fault(other) is None \
+                    and j_res.fleet_fault(other) is None
+    assert resilience.fleet_fault(mode) is None
 
 
 def test_env_fault_arm_waits(monkeypatch):
