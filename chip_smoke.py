@@ -310,6 +310,30 @@ Phases, one JSON line each:
    open).  A child process on the card drains a tenant with two queued
    ticks under ``drop_tenant_process`` (``kill -9`` after the commit);
    this process adopts the bundle bitwise.  Peak memory; launches.
+29. ``durable_path``: the engine's durability tier, float32.  The
+   north-star panel through ``stream_fit`` journal-free and with a
+   journal: series/s of both, the digest's and the commits' seconds, 8
+   commits, 8 ``arma_lm_fit`` launches each, the journaled models bitwise
+   the plain ones.  On its first 4 chunks, each case bitwise the plain
+   run's models: ``oom_chunk`` at chunk 2 (two 65536-lane sub-chunks, 5
+   launches; the resume restores 4 chunks, 0 launches); ``hang_chunk``
+   at chunk 1 under a 2 s deadline (one expiry, one retry after the
+   abandoned worker ends, no dead chunk); ``corrupt_journal`` at chunk 1
+   (the resume quarantines the entry and refits 1 chunk); a child on the
+   card under ``kill_after_chunk`` at chunk 1 (exit -9, 2 markers, its
+   incident bundle; the resume here restores 2 and refits 2); a child
+   that caps its allocator between one chunk's peak at half and at full
+   width (a real ``torch.cuda.OutOfMemoryError`` halves chunks; no raise,
+   no dead chunk).  Holt-Winters (2 chunks, a corrupt entry): the resume
+   refits 1 chunk, bitwise.  ``longseries.fit_long`` of 10⁶ observations
+   with ``fused=False`` and a journal, and ``backtest_panel`` of
+   ``bench.py``'s 48 x 768 demo with a journal: the second call restores
+   every chunk, its results bitwise.  ``ops.decompose`` (period 12) of
+   the Holt-Winters panel and ``ops.detect_anomalies`` of the north-star
+   panel against its one-step fitted values, full width: CUDA-event ms;
+   the first 256 rows against the port's float64 CPU run within 1e-5 of
+   the lane's scale, flags equal wherever the float64 score is more than
+   1e-4 from the threshold.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
@@ -5995,6 +6019,512 @@ def phase_fleet_path(panel, hw_panel, dev, smi, tenants=FLEET_TENANTS,
     return row
 
 
+# ---------------------------------------------------------------------------
+# the engine's durability tier, ops.decompose, ops.detect_anomalies
+# ---------------------------------------------------------------------------
+
+DUR_HEAD_CHUNKS = 4        # the fault cases' rows: 4 full-width chunks
+DUR_DEADLINE_S = 2.0       # the hang case's per-chunk deadline ...
+DUR_HANG_S = 4.0           # ... and its injected hang
+DUR_HW_CHUNKS = 2          # the Holt-Winters journal's chunks
+DUR_REF_ROWS = 256         # rows of the float64 CPU decompose / anomalies
+DUR_RTOL = 1e-5            # of the lane's largest |entry| (float32 means)
+DUR_Z_MARGIN = 1e-4        # flags compared where |score - z| exceeds this
+ANOM_CONF = 0.99
+ANOM_BURN = 3              # d + max(p, q) of the north star's ARIMA(2,1,2)
+
+# the kill -9 child: the head rows streamed with a journal on the card under
+# kill_after_chunk at chunk 1 (SIGKILL after its commit)
+_DURABLE_KILL_CHILD = r"""
+import os, sys
+import numpy as np
+import torch
+from spark_timeseries_tpu_torch import engine
+from spark_timeseries_tpu_torch.utils import resilience
+v = np.load(os.environ["STS_DURABLE_IN"])
+dev = torch.device(os.environ["STS_DURABLE_DEVICE"])
+with resilience.fault_injection("kill_after_chunk", chunk_index=1):
+    engine.FitEngine().stream_fit(
+        v, "arima", chunk_size=int(os.environ["STS_DURABLE_CHUNK"]),
+        journal=os.environ["STS_DURABLE_JOURNAL"], p=2, d=1, q=2,
+        device=dev)
+print("UNREACHABLE: the stream survived kill_after_chunk", flush=True)
+sys.exit(3)
+"""
+
+# the real-OOM child: caps its allocator between one warm chunk's peak at
+# half and at full width, then streams the head rows
+_DURABLE_OOM_CHILD = r"""
+import json, os
+import numpy as np
+import torch
+from spark_timeseries_tpu_torch import engine
+from spark_timeseries_tpu_torch.utils import resilience
+v = np.load(os.environ["STS_DURABLE_IN"])
+dev = torch.device(os.environ["STS_DURABLE_DEVICE"])
+chunk = int(os.environ["STS_DURABLE_CHUNK"])
+eng = engine.FitEngine()
+kw = dict(chunk_size=chunk, p=2, d=1, q=2, device=dev, collect=True)
+part = np.ascontiguousarray(v[:chunk])
+eng.stream_fit(part, "arima", **kw)
+peaks = {}
+for name in ("full", "half"):
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if name == "full":
+        eng.stream_fit(part, "arima", **kw)
+    else:
+        with resilience.fault_injection("oom_chunk", chunk_index=0):
+            eng.stream_fit(part, "arima", **kw)
+    peaks[name] = int(torch.cuda.max_memory_allocated(dev))
+cap = (peaks["full"] + peaks["half"]) // 2
+torch.cuda.empty_cache()
+total = torch.cuda.get_device_properties(dev).total_memory
+torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+res = eng.stream_fit(v, "arima", **kw)
+np.save(os.environ["STS_DURABLE_OUT"],
+        np.concatenate([m.coefficients.numpy() for m in res.models]))
+print(json.dumps({"peak_full": peaks["full"], "peak_half": peaks["half"],
+                  "cap": cap, "n_fitted": res.n_fitted,
+                  "degraded_chunks": res.stats["degraded_chunks"],
+                  "dead_chunks": res.stats["dead_chunks"],
+                  "chunk_failures": [f["error"][:200]
+                                     for f in res.chunk_failures],
+                  "ranges": res.stats["collected_ranges"],
+                  "lm_fit_launches": res.stats["lm_fit_launches"]}),
+      flush=True)
+"""
+
+
+def start_durable_child(code: str, head: str, dev, chunk: int,
+                        **env_extra):
+    """A child process of its own on ``dev`` over the head rows saved at
+    ``head``: ``(process, its environment)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, STS_DURABLE_IN=head, STS_DURABLE_DEVICE=str(dev),
+               STS_DURABLE_CHUNK=str(chunk),
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""),
+               **env_extra)
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc
+
+
+def _wait_child(proc, timeout=600):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return out, err
+
+
+def _coef_rows(models) -> np.ndarray:
+    return np.concatenate([m.coefficients.cpu().numpy() for m in models])
+
+
+def _models_bitwise(got, want) -> bool:
+    """Two collected model lists cover the same lanes bit for bit (their
+    chunking may differ: a halved chunk's two models against one)."""
+    import torch
+
+    def lanes(models, field):
+        parts = []
+        for m in models:
+            v = m.diagnostics if field != "coefficients" else m
+            parts.append(getattr(v, field).cpu())
+        return torch.cat(parts).numpy()
+
+    return all(_bitwise_equal(lanes(got, f), lanes(want, f))
+               for f in ("coefficients", "converged", "n_iter", "fun"))
+
+
+def _lane_rel(got: np.ndarray, want: np.ndarray, scale: np.ndarray
+              ) -> float:
+    """Largest |got - want| over the lane's scale (equal values, the
+    same infinity and NaN on both sides count as equal, NaN on one side
+    only as infinitely apart; a scale that is not positive and finite,
+    an all-NaN lane's, counts as 1)."""
+    got = got.astype(np.float64)
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(got - want))
+    d = np.where(np.isnan(d), np.inf, d)
+    scale = np.where(np.isfinite(scale) & (scale > 0), scale, 1.0)
+    return float(np.max(d / scale))
+
+
+def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
+                       head_chunks=DUR_HEAD_CHUNKS, hw_chunks=DUR_HW_CHUNKS,
+                       long_obs=LONG_N_OBS, bt_series=BT_SERIES,
+                       ref_rows=DUR_REF_ROWS, deadline_s=DUR_DEADLINE_S,
+                       hang_s=DUR_HANG_S):
+    """The engine's durability tier, ``ops.decompose`` and
+    ``ops.detect_anomalies`` on the card, float32 (module docstring,
+    29)."""
+    import tempfile
+
+    import torch
+
+    from spark_timeseries_tpu_torch import longseries, ops
+    from spark_timeseries_tpu_torch.backtest import (CandidateGrid,
+                                                     backtest_panel)
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+    from spark_timeseries_tpu_torch.utils.durability import BackoffPolicy
+    from spark_timeseries_tpu_torch.utils import resilience
+
+    wrappers = {"arma_lm_fit": arma_ne.fit_css_lm,
+                "arma_ne": arma_ne.normal_equations,
+                "arma_css": arma_ne.css_cost,
+                "hw_box_fit": hw_sse.box_fit,
+                "hw_sse": hw_sse.value_and_grad}
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def delta(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in now}
+
+    for w in wrappers.values():
+        w.launches = 0
+    row = {"phase": "durable_path", "nvidia_smi": smi}
+    chk = _Checks()
+    t_phase = time.perf_counter()
+    eng = FitEngine()
+    kw = dict(chunk_size=chunk, p=2, d=1, q=2, device=dev, collect=True)
+    n_all = panel.shape[0]
+    n_chunks = -(-n_all // chunk)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=scratch)
+    children = []
+    try:
+        # -- the whole panel: journal-free, then journaled -----------------
+        c0 = counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        plain = eng.stream_fit(panel, "arima", **kw)
+        plain_s = time.perf_counter() - t0
+        plain_l = delta(c0)
+        c0 = counts()
+        t0 = time.perf_counter()
+        jr = eng.stream_fit(panel, "arima",
+                            journal=os.path.join(work.name, "whole"), **kw)
+        jr_s = time.perf_counter() - t0
+        jr_l = delta(c0)
+        row["whole"] = {
+            "series": n_all, "chunks": n_chunks,
+            "plain_s": plain_s, "plain_series_per_s": n_all / plain_s,
+            "journal_s": jr_s, "journal_series_per_s": n_all / jr_s,
+            "digest_s": jr.stats["digest_s"],
+            "commit_s": jr.stats["commit_s"],
+            "commits": jr.stats["journal_commits"],
+            "plain_launches": plain_l["arma_lm_fit"],
+            "journal_launches": jr_l["arma_lm_fit"],
+            "bitwise": _models_bitwise(jr.models, plain.models)}
+        chk(row["whole"]["commits"] == n_chunks
+            and plain_l["arma_lm_fit"] == n_chunks
+            and jr_l["arma_lm_fit"] == n_chunks
+            and row["whole"]["bitwise"],
+            f"durable_path whole panel: {row['whole']} ({n_chunks} commits "
+            f"and launches each, journaled models bitwise the plain ones)")
+
+        # -- the fault cases on the head rows --------------------------------
+        n_head = min(head_chunks * chunk, n_all)
+        head = np.ascontiguousarray(panel[:n_head])
+        ref = plain.models[:-(-n_head // chunk)]
+        head_path = os.path.join(work.name, "head.npy")
+        np.save(head_path, head)
+        kill_dir = os.path.join(work.name, "kill")
+        kill_inc = os.path.join(work.name, "kill-incidents")
+        oom_out = os.path.join(work.name, "oom-coefs.npy")
+        children.append(start_durable_child(
+            _DURABLE_KILL_CHILD, head_path, dev, chunk,
+            STS_DURABLE_JOURNAL=kill_dir, STS_INCIDENT_DIR=kill_inc))
+        children.append(start_durable_child(
+            _DURABLE_OOM_CHILD, head_path, dev, chunk,
+            STS_DURABLE_OUT=oom_out))
+
+        def case(fault=None, **extra):
+            c0 = counts()
+            t0 = time.perf_counter()
+            if fault is None:
+                res = eng.stream_fit(head, "arima", **kw, **extra)
+            else:
+                with resilience.fault_injection(fault[0], **fault[1]):
+                    res = eng.stream_fit(head, "arima", **kw, **extra)
+            st = res.stats
+            return {
+                "seconds": time.perf_counter() - t0,
+                "launches": delta(c0)["arma_lm_fit"],
+                "models": len(res.models),
+                "ranges": st["collected_ranges"],
+                "failures": [f["kind"] for f in res.chunk_failures],
+                "bitwise": _models_bitwise(res.models, ref),
+                **{k: st[k] for k in (
+                    "journal_hits", "journal_commits", "journal_corrupt",
+                    "degraded_chunks", "deadline_expired", "retry_attempts",
+                    "recovered", "dead_chunks", "abandoned_workers")}}
+
+        oom_j = os.path.join(work.name, "oom")
+        r1 = case(("oom_chunk", dict(chunk_index=2)), journal=oom_j)
+        r2 = case(journal=oom_j)
+        row["oom_chunk"] = {"run": r1, "resume": r2}
+        half = chunk // 2
+        chk(r1["degraded_chunks"] == 1 and r1["bitwise"]
+            and [2 * chunk, 2 * chunk + half] in r1["ranges"]
+            and [2 * chunk + half, 3 * chunk] in r1["ranges"]
+            and r1["launches"] == head_chunks + 1
+            and r2["journal_hits"] == head_chunks
+            and r2["journal_commits"] == 0 and r2["launches"] == 0
+            and r2["bitwise"],
+            f"durable_path oom_chunk: {row['oom_chunk']} (one chunk halved "
+            f"into two {half}-lane sub-chunks, bitwise; the resume takes "
+            f"them as one chunk)")
+
+        try:
+            r3 = case(("hang_chunk", dict(chunk_index=1, hang_s=hang_s)),
+                      deadline_s=deadline_s,
+                      retry=BackoffPolicy(max_retries=1,
+                                          base_delay_s=hang_s))
+        finally:
+            _join_chunk_workers()
+        row["hang_chunk"] = dict(r3, deadline_s=deadline_s, hang_s=hang_s)
+        chk(r3["deadline_expired"] == 1 and r3["retry_attempts"] == 1
+            and r3["recovered"] == 1 and r3["dead_chunks"] == 0
+            and r3["launches"] == head_chunks and r3["bitwise"],
+            f"durable_path hang_chunk: {row['hang_chunk']} (one expiry, one "
+            f"retry, no dead chunk, bitwise)")
+
+        cor_j = os.path.join(work.name, "corrupt")
+        r4 = case(("corrupt_journal", dict(chunk_index=1)), journal=cor_j)
+        r5 = case(journal=cor_j)
+        row["corrupt_journal"] = {
+            "run": r4, "resume": r5,
+            "quarantined_files": sorted(os.listdir(
+                os.path.join(cor_j, "quarantine")))}
+        chk(r4["journal_commits"] == head_chunks
+            and r5["journal_corrupt"] == 1
+            and r5["journal_hits"] == head_chunks - 1
+            and r5["journal_commits"] == 1 and r5["launches"] == 1
+            and r5["bitwise"] and len(row["corrupt_journal"][
+                "quarantined_files"]) == 3,
+            f"durable_path corrupt_journal: {row['corrupt_journal']} (the "
+            f"entry quarantined, one chunk refitted, bitwise)")
+
+        # -- the kill -9 child and the resume here -------------------------
+        kill = children[0]
+        _, err = _wait_child(kill)
+        markers = sorted(n for n in os.listdir(kill_dir)
+                         if n.endswith(".ok")) \
+            if os.path.isdir(kill_dir) else []
+        incident = os.path.isdir(kill_inc) and any(
+            "kill_after_chunk" in n for n in os.listdir(kill_inc))
+        row["kill9"] = {"returncode": kill.returncode,
+                        "markers": len(markers), "incident": incident}
+        if kill.returncode == -9:
+            r6 = case(journal=kill_dir)
+            row["kill9"]["resume"] = r6
+            ok = r6["journal_hits"] == 2 \
+                and r6["journal_commits"] == head_chunks - 2 \
+                and r6["launches"] == head_chunks - 2 and r6["bitwise"]
+        else:
+            ok = False
+        chk(ok and len(markers) == 2 and incident,
+            f"durable_path kill -9: {row['kill9']} (exit -9 with 2 markers "
+            f"and its bundle; the resume restores 2 and refits "
+            f"{head_chunks - 2}, bitwise; stderr {err[-600:]!r})")
+
+        # -- the real OOM child ----------------------------------------------
+        oom = children[1]
+        out, err = _wait_child(oom)
+        real = {"returncode": oom.returncode}
+        if oom.returncode == 0:
+            real.update(json.loads(out.strip().splitlines()[-1]))
+            real["bitwise"] = _bitwise_equal(np.load(oom_out),
+                                             _coef_rows(ref))
+        row["real_oom"] = real
+        chk(oom.returncode == 0 and real.get("degraded_chunks", 0) >= 1
+            and real.get("dead_chunks") == 0 and real.get("bitwise"),
+            f"durable_path real OOM: {real} (halved under the cap, no "
+            f"raise, no dead chunk, bitwise; stderr {err[-600:]!r})")
+        children = []
+
+        # -- Holt-Winters: a corrupt entry refitted on resume ---------------
+        n_hw = min(hw_chunks * chunk, hw_panel.shape[0])
+        hw_head = np.ascontiguousarray(hw_panel[:n_hw])
+        hkw = dict(chunk_size=chunk, period=HW_PERIOD, device=dev,
+                   collect=True, journal=os.path.join(work.name, "hw"))
+        c0 = counts()
+        with resilience.fault_injection("corrupt_journal", chunk_index=1):
+            h1 = eng.stream_fit(hw_head, "holt_winters", **hkw)
+        h1_l = delta(c0)["hw_box_fit"]
+        c0 = counts()
+        h2 = eng.stream_fit(hw_head, "holt_winters", **hkw)
+        h2_l = delta(c0)["hw_box_fit"]
+        hw_same = all(_model_bitwise(a, b)
+                      for a, b in zip(h2.models, h1.models))
+        row["holt_winters"] = {
+            "series": n_hw, "launches": h1_l, "resume_launches": h2_l,
+            "resume_hits": h2.stats["journal_hits"],
+            "resume_corrupt": h2.stats["journal_corrupt"],
+            "resume_commits": h2.stats["journal_commits"],
+            "bitwise": hw_same}
+        chk(h1_l == hw_chunks and h2_l == 1
+            and h2.stats["journal_corrupt"] == 1
+            and h2.stats["journal_hits"] == hw_chunks - 1 and hw_same,
+            f"durable_path holt_winters: {row['holt_winters']} (launches "
+            f"= chunks refit, resumed bitwise)")
+
+        # -- fit_long through the staged, journaled segment stream ----------
+        series = long_series(long_obs, LONG_SEED, dev)
+        lkw = dict(fused=False, journal=os.path.join(work.name, "long"),
+                   warn=False, device=dev)
+        c0 = counts()
+        lf1 = longseries.fit_long(series, (1, 0, 1), **lkw)
+        l1 = delta(c0)["arma_lm_fit"]
+        c0 = counts()
+        lf2 = longseries.fit_long(series, (1, 0, 1), **lkw)
+        l2 = delta(c0)["arma_lm_fit"]
+        ss1, ss2 = lf1.stream_stats, lf2.stream_stats
+        row["fit_long"] = {
+            "n_obs": int(long_obs), "chunks": ss1["n_chunks"],
+            "launches": l1, "resume_launches": l2,
+            "commits": ss1["journal_commits"],
+            "resume_hits": ss2["journal_hits"],
+            "bitwise": _bitwise_equal(lf1.coefficients.cpu().numpy(),
+                                      lf2.coefficients.cpu().numpy())}
+        chk(ss2["journal_hits"] == ss1["n_chunks"] == l1
+            and ss2["journal_commits"] == 0 and l2 == 0
+            and row["fit_long"]["bitwise"],
+            f"durable_path fit_long: {row['fit_long']} (the second call "
+            f"restores every chunk, combined coefficients bitwise)")
+
+        # -- backtest_panel with one journal per candidate ------------------
+        bt, _ = backtest_demo_panel(bt_series)
+        grid = CandidateGrid(BT_GRID, horizons=BT_HORIZONS)
+        bkw = dict(device=dev, journal=os.path.join(work.name, "bt"),
+                   **BT_SCHEDULE)
+        c0 = counts()
+        rep1 = backtest_panel(bt, grid, **bkw)
+        b1 = delta(c0)["arma_lm_fit"]
+        c0 = counts()
+        rep2 = backtest_panel(bt, grid, **bkw)
+        b2 = delta(c0)["arma_lm_fit"]
+        chunks = sum(s.get("n_chunks", 0) for s in rep1.stream_stats)
+        row["backtest"] = {
+            "shape": list(bt.shape), "candidates": len(grid),
+            "chunks": chunks, "launches": b1, "resume_launches": b2,
+            "commits": sum(s["journal_commits"] for s in rep1.stream_stats),
+            "resume_hits": sum(s["journal_hits"]
+                               for s in rep2.stream_stats),
+            "bitwise": rep1.digest() == rep2.digest() and _bitwise_equal(
+                rep1.champion, rep2.champion)}
+        chk(row["backtest"]["resume_hits"] == chunks
+            and row["backtest"]["commits"] == chunks and b2 == 0
+            and row["backtest"]["bitwise"],
+            f"durable_path backtest: {row['backtest']} (hits = the "
+            f"candidates' chunks, champions and tables bitwise)")
+    finally:
+        for proc in children:
+            proc.kill()
+            proc.communicate()
+        work.cleanup()
+
+    # -- ops.decompose and ops.detect_anomalies, full width -----------------
+    t0 = time.perf_counter()
+    hw_dev = torch.from_numpy(hw_panel).to(dev)
+    dec = ops.decompose(hw_dev, HW_PERIOD)
+    dec_ms = _event_ms(lambda: ops.decompose(hw_dev, HW_PERIOD), 3)
+    dec64 = ops.decompose(torch.from_numpy(
+        hw_panel[:ref_rows].astype(np.float64)), HW_PERIOD)
+    scale = np.abs(hw_panel[:ref_rows]).max(axis=1, keepdims=True)
+    dec_err = {f: _lane_rel(getattr(dec, f)[:ref_rows].cpu().numpy(),
+                            getattr(dec64, f).numpy(), scale)
+               for f in dec._fields}
+    del dec, hw_dev
+    vals = torch.from_numpy(panel).to(dev)
+    coefs = torch.from_numpy(_coef_rows(plain.models)).to(dev)
+    model = arima.ARIMAModel(2, 1, 2, coefs, True)
+    fitted = model.forecast(vals, 1)[..., :panel.shape[1]]
+    an = ops.detect_anomalies(vals, fitted, conf=ANOM_CONF,
+                              burn_in=ANOM_BURN)
+    an_ms = _event_ms(lambda: ops.detect_anomalies(
+        vals, fitted, conf=ANOM_CONF, burn_in=ANOM_BURN), 3)
+    an64 = ops.detect_anomalies(
+        torch.from_numpy(panel[:ref_rows].astype(np.float64)),
+        fitted[:ref_rows].double().cpu(), conf=ANOM_CONF, burn_in=ANOM_BURN)
+    s32 = an.score[:ref_rows].cpu().numpy()
+    s64 = an64.score.numpy()
+    sig64 = an64.sigma.numpy()
+    z = float(an64.threshold_z.reshape(-1)[0])
+    clear = np.abs(s64 - z) > DUR_Z_MARGIN
+    flags_same = bool(np.array_equal(
+        an.is_anomaly[:ref_rows].cpu().numpy()[clear],
+        an64.is_anomaly.numpy()[clear]))
+    an_err = {
+        "score": _lane_rel(s32, s64, np.maximum(np.abs(s64), 1.0)),
+        "sigma": _lane_rel(an.sigma[:ref_rows].cpu().numpy(), sig64,
+                           np.abs(sig64)),
+        "center": _lane_rel(an.center[:ref_rows].cpu().numpy(),
+                            an64.center.numpy(), np.abs(sig64))}
+    row["ops"] = {
+        "decompose_shape": list(hw_panel.shape), "decompose_ms": dec_ms,
+        "decompose_vs_f64": dec_err,
+        "anomaly_shape": list(panel.shape), "anomaly_ms": an_ms,
+        "anomaly_vs_f64": an_err, "flags_equal_off_threshold": flags_same,
+        "flag_share": float(an.is_anomaly.float().mean()),
+        "points_near_threshold": int((~clear).sum()),
+        "seconds": time.perf_counter() - t0}
+    del an, fitted, vals
+    chk(max(dec_err.values()) <= DUR_RTOL and max(an_err.values())
+        <= DUR_RTOL and flags_same,
+        f"durable_path ops: {row['ops']} (within {DUR_RTOL:g} of the "
+        f"float64 CPU run; flags equal off the threshold)")
+
+    launches = counts()
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    # the whole panel twice, the oom case (3 chunks and 2 halves), the
+    # hang case (3 and the retry), the corrupt case and its one refit, the
+    # kill -9 resume, fit_long's and the backtest's first calls
+    want_lm = 2 * n_chunks + (head_chunks + 1) + head_chunks \
+        + head_chunks + 1 \
+        + (head_chunks - 2 if row.get("kill9", {}).get("resume") else 0) \
+        + row["fit_long"]["launches"] + row["backtest"]["launches"]
+    chk(launches["arma_lm_fit"] == want_lm
+        and launches["hw_box_fit"] == hw_chunks + 1,
+        f"durable_path launched arma_lm_fit {launches['arma_lm_fit']} "
+        f"(want {want_lm}) and hw_box_fit {launches['hw_box_fit']} (want "
+        f"{hw_chunks + 1})")
+    chk(launches["arma_ne"] == 0 and launches["arma_css"] == 0
+        and launches["hw_sse"] == 0,
+        f"durable_path launched a one-pass kernel: {launches}")
+    chk.raise_first()
+    return row
+
+
+def _join_chunk_workers(timeout_s=60.0) -> None:
+    """Wait for every abandoned chunk worker of the engine's watchdog."""
+    import threading
+
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        if not any(t.name.startswith("sts-chunk-")
+                   for t in threading.enumerate()):
+            return
+        time.sleep(0.05)
+    check(False, "an abandoned chunk worker outlived its hang")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6162,6 +6692,10 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     # and read just after
     flt = paths.run("fleet_path", phase_fleet_path, panel, hw_panel, dev,
                     smi)["launches"]
+    # the durability tier and the ops, driven with the counts set to 0
+    # just before it and read just after
+    dur = paths.run("durable_path", phase_durable_path, panel, hw_panel,
+                    dev, smi)["launches"]
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -6181,7 +6715,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + arx_row["resilient_arma_lm_fit_launches"]
         + exact_row["arma_lm_fit_launches"]
         + serv_row["arma_lm_fit_launches"] + lng["arma_lm_fit"]
-        + btl["arma_lm_fit"] + flt["arma_lm_fit"],
+        + btl["arma_lm_fit"] + flt["arma_lm_fit"] + dur["arma_lm_fit"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
@@ -6194,7 +6728,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "serving_path": serv_row["arma_lm_fit_launches"],
             "long_path": lng["arma_lm_fit"],
             "backtest_path": btl["arma_lm_fit"],
-            "fleet_path": flt["arma_lm_fit"]},
+            "fleet_path": flt["arma_lm_fit"],
+            "durable_path": dur["arma_lm_fit"]},
         "long_path_launch": {
             k: long_row["lm_fit"][k] for k in (
                 "lanes", "n_obs", "lm_fit_ms", "bound_ms", "bound_by",
@@ -6228,7 +6763,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + arx_row["resilient_arma_ne_launches"]
         + arx_row["methods_arma_ne_launches"]
         + exact_row["arma_ne_launches"] + serv["arma_ne"]
-        + lng["arma_ne"] + btl["arma_ne"] + flt["arma_ne"],
+        + lng["arma_ne"] + btl["arma_ne"] + flt["arma_ne"] + dur["arma_ne"],
         "launches_by_path": {
             "main_path": main_row["normal_equations_launches"],
             "auto_fit_path": auto_row["arma_ne_launches"],
@@ -6242,7 +6777,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "exact_path": exact_row["arma_ne_launches"],
             "serving_path": serv["arma_ne"],
             "long_path": lng["arma_ne"], "backtest_path": btl["arma_ne"],
-            "fleet_path": flt["arma_ne"]},
+            "fleet_path": flt["arma_ne"], "durable_path": dur["arma_ne"]},
         "route_launches": lm_row["route_arma_ne_launches"]
         + arx_row["route_arma_ne_launches"],
         "launch_widths": {
@@ -6268,7 +6803,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "launches": css_launches + res_row["arma_css_launches"]
         + surf["arma_css"] + arx_row["arma_css_launches"]
         + arx_row["methods_arma_css_launches"] + serv["arma_css"]
-        + lng["arma_css"] + btl["arma_css"] + flt["arma_css"],
+        + lng["arma_css"] + btl["arma_css"] + flt["arma_css"]
+        + dur["arma_css"],
         "launches_by_path": {
             "hw_path": css_launches,
             "resilient_path": res_row["arma_css_launches"],
@@ -6277,7 +6813,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "arimax_methods": arx_row["methods_arma_css_launches"],
             "serving_path": serv["arma_css"],
             "long_path": lng["arma_css"], "backtest_path": btl["arma_css"],
-            "fleet_path": flt["arma_css"]},
+            "fleet_path": flt["arma_css"], "durable_path": dur["arma_css"]},
         "launch_widths": {"arima_surface": surf_row["widths"]["arma_css"]},
         "by_width": [{"S": r["S"], "ragged": r["ragged"],
                       "ms": r["ms"]["css_kernel"]["new"],
@@ -6321,11 +6857,13 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_row["hw_sse_launches"]
-        + hwr_row["hw_sse_launches"] + serv["hw_sse"] + flt["hw_sse"],
+        + hwr_row["hw_sse_launches"] + serv["hw_sse"] + flt["hw_sse"]
+        + dur["hw_sse"],
         "launches_by_path": {
             "hw_path": hw_row["hw_sse_launches"],
             "hw_resilient_path": hwr_row["hw_sse_launches"],
-            "serving_path": serv["hw_sse"], "fleet_path": flt["hw_sse"]},
+            "serving_path": serv["hw_sse"], "fleet_path": flt["hw_sse"],
+            "durable_path": dur["hw_sse"]},
         "route_launches": fit_row["solver_route_hw_sse_launches"]
         + hwr_row["restart_vs_route"]["route_hw_sse_launches"],
         "max_abs_err": hw_max_abs,
@@ -6336,12 +6874,13 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_launches + hwr_row["hw_box_fit_launches"]
-        + serv["hw_box_fit"] + flt["hw_box_fit"],
+        + serv["hw_box_fit"] + flt["hw_box_fit"] + dur["hw_box_fit"],
         "launches_by_path": {
             "hw_path": hw_launches,
             "hw_resilient_path": hwr_row["hw_box_fit_launches"],
             "serving_path": serv["hw_box_fit"],
-            "fleet_path": flt["hw_box_fit"]},
+            "fleet_path": flt["hw_box_fit"],
+            "durable_path": dur["hw_box_fit"]},
         "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],

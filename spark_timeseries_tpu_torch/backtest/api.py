@@ -23,15 +23,17 @@ in-sample AIC only):
 
 Returns a :class:`BacktestReport`: per-series champions, per-horizon
 error tables, per-origin dispersion (the error bars), and a stable
-content digest.  The JAX package's durability knobs (``journal``,
-``deadline_s``, ``retry``, ``degrade=False``) belong to its engine's
-durability tier, which waits for ROADMAP Queue A item 5: they raise
-``NotImplementedError``.
+content digest.  ``journal=dir`` arms one crash-consistent journal per
+candidate (``dir/cand-XX-<slug>``), so a killed sweep rerun with the same
+arguments resumes its committed fits and reproduces the report bit for
+bit; ``deadline_s``, ``retry`` and ``degrade`` are the engine's
+per-chunk watchdog, chunk re-dispatch policy and OOM halving.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +41,7 @@ import torch
 
 from .._device import is_device_fault, resolve_device
 from ..utils import metrics as _metrics
+from ..utils.durability import JournalSpecMismatch, as_backoff
 from .evaluate import CandidateEval, evaluate_candidate
 from .grid import (FAMILIES, Candidate, CandidateGrid, OriginSchedule,
                    default_grid, plan_origins)
@@ -163,24 +166,41 @@ class BacktestReport(NamedTuple):
                 f"{self.schedule.n_origins} origins; champions: {counts})")
 
 
-def _fit_candidate_long(train: np.ndarray, cand: Candidate, dev):
+def _launches(ss: Dict[str, Any]) -> int:
+    """A fit's ``lm_fit_launches``: the fused path's count, or the sum
+    over a staged stream's chunks."""
+    n = ss.get("lm_fit_launches", 0)
+    return int(sum(n)) if isinstance(n, list) else int(n)
+
+
+def _fit_candidate_long(train: np.ndarray, cand: Candidate,
+                        jdir: Optional[str], deadline_s, retry,
+                        degrade: bool, dev):
     """Ultra-long route: arima candidates fit per series through the
-    DARIMA split-and-combine tier (``longseries.fit_long``, its fused
-    path: one ``arma_lm_fit`` launch a chunk of segments on the card);
-    the combined AR(n_ar) models stack into one batched ARIMAModel."""
+    DARIMA split-and-combine tier (``longseries.fit_long``: its fused
+    path, one ``arma_lm_fit`` launch a chunk of segments on the card, or
+    with a durability knob its staged path, one journaled segment stream
+    per series); the combined AR(n_ar) models stack into one batched
+    ARIMAModel."""
     from ..longseries import fit_long
     from ..models.arima import ARIMAModel
     rows = []
-    stats = {"path": "longseries", "lm_fit_launches": 0,
-             "chunk_failures": 0}
+    stats = {"path": "longseries", "journal_hits": 0, "journal_commits": 0,
+             "lm_fit_launches": 0, "chunk_failures": 0}
     n_ar = None
     d = cand.order[1]
     for i in range(train.shape[0]):
-        lf = fit_long(train[i], order=cand.order, warn=False, device=dev)
+        lf = fit_long(
+            train[i], order=cand.order, warn=False,
+            journal=os.path.join(jdir, f"s{i:05d}") if jdir else None,
+            deadline_s=deadline_s, chunk_retry=retry, degrade=degrade,
+            device=dev)
         rows.append(lf.model.coefficients.cpu().numpy().reshape(-1))
         n_ar = lf.model.p
         ss = lf.stream_stats or {}
-        stats["lm_fit_launches"] += int(ss.get("lm_fit_launches", 0))
+        stats["journal_hits"] += int(ss.get("journal_hits", 0))
+        stats["journal_commits"] += int(ss.get("journal_commits", 0))
+        stats["lm_fit_launches"] += _launches(ss)
         stats["chunk_failures"] += int(ss.get("chunk_failures", 0))
     model = ARIMAModel(n_ar, d, 0, torch.from_numpy(
         np.stack(rows).astype(train.dtype)).to(dev), True)
@@ -211,10 +231,13 @@ def _fittable_lanes(train: np.ndarray, family: str) -> np.ndarray:
     return has & (f.sum(axis=1) == span)
 
 
-def _fit_candidate(train: np.ndarray, cand: Candidate, *, engine,
-                   chunk_size: int, long_threshold: int, dev):
+def _fit_candidate(train: np.ndarray, cand: Candidate, idx: int,
+                   schedule: OriginSchedule, *, engine, chunk_size: int,
+                   journal: Optional[str], deadline_s, retry,
+                   degrade: bool, long_threshold: int, dev):
     """One candidate's parameters for the whole panel, streamed on
-    ``dev``.
+    ``dev`` (journaled under ``journal/cand-XX-<slug>`` when
+    ``journal`` is given).
 
     Lanes the family's fit path cannot take (interior gaps anywhere;
     any NaN for non-ragged families) are gathered out before the
@@ -223,8 +246,11 @@ def _fit_candidate(train: np.ndarray, cand: Candidate, *, engine,
     masked metrics, never champion).  ``stats`` carries
     ``lm_fit_launches`` (the stream's, summed; 0 on the CPU)."""
     spec = FAMILIES[cand.family]
+    jdir = os.path.join(journal, f"cand-{idx:02d}-{cand.slug}") \
+        if journal else None
     if cand.family == "arima" and train.shape[1] >= long_threshold:
-        return _fit_candidate_long(train, cand, dev)
+        return _fit_candidate_long(train, cand, jdir, deadline_s, retry,
+                                   degrade, dev)
     from ..engine import default_engine
     eng = engine if engine is not None else default_engine()
     ok = _fittable_lanes(train, cand.family)
@@ -237,9 +263,17 @@ def _fit_candidate(train: np.ndarray, cand: Candidate, *, engine,
                else " or missing ticks (this family has no ragged fit)")
             + " — impute first (Panel.fill)")
     sub = train if n_skipped == 0 else np.ascontiguousarray(train[ok])
+    meta = {"tier": "backtest",
+            "candidate": [cand.family, list(cand.order)],
+            "schedule": schedule.describe()}
+    # retry is the chunk re-dispatch policy only (a fits' RetryPolicy is
+    # refused, as the JAX package refuses it)
     res = eng.stream_fit(
         sub, cand.family, chunk_size=int(chunk_size), collect=True,
-        device=dev, **spec.stream_kwargs(cand.order))
+        journal=jdir, job_meta=meta, deadline_s=deadline_s,
+        retry=None if retry is None else as_backoff(retry),
+        degrade=degrade, job_label=f"backtest:{cand.label}", device=dev,
+        **spec.stream_kwargs(cand.order))
     width = spec.row_width(cand.order)
     rows = np.full((train.shape[0], width), np.nan, train.dtype)
     lane_ids = np.nonzero(ok)[0]
@@ -250,8 +284,9 @@ def _fit_candidate(train: np.ndarray, cand: Candidate, *, engine,
     stats = {"path": "stream", "n_chunks": res.n_chunks,
              "chunk_failures": len(res.chunk_failures),
              "lanes_skipped": n_skipped,
-             "lm_fit_launches": int(sum(res.stats.get("lm_fit_launches")
-                                        or []))}
+             "journal_hits": int(res.stats.get("journal_hits", 0)),
+             "journal_commits": int(res.stats.get("journal_commits", 0)),
+             "lm_fit_launches": _launches(res.stats)}
     return spec.rebuild(cand.order, rows, dev), stats
 
 
@@ -333,30 +368,25 @@ def backtest_panel(values, grid: Optional[CandidateGrid] = None, *,
     level the coverage metric tests; ``replay`` ("pinned" | "refilter"
     — the sequential oracle, O(origins) slower, for verification).
 
-    Streaming knobs: ``engine`` (a
-    :class:`~spark_timeseries_tpu_torch.engine.FitEngine`, default the
-    process engine) and ``chunk_size`` pass to ``engine.stream_fit`` per
-    candidate.  Panels with ``n_obs >= long_threshold`` route arima
-    candidates through ``longseries.fit_long``, one series at a time.
-    ``journal``, ``deadline_s``, ``retry`` (the JAX package's chunk
-    re-dispatch policy, not the fits' ``RetryPolicy``) and
-    ``degrade=False`` raise ``NotImplementedError``: they wait for the
-    engine's durability tier (ROADMAP Queue A item 5).
+    Streaming knobs pass to ``engine.stream_fit`` per candidate:
+    ``engine`` (a :class:`~spark_timeseries_tpu_torch.engine.FitEngine`,
+    default the process engine), ``chunk_size``, ``deadline_s``,
+    ``retry`` (the chunk re-dispatch policy: an int or a
+    ``BackoffPolicy``, not the fits' ``RetryPolicy``) and ``degrade``;
+    ``journal=dir`` arms one crash-consistent journal per candidate
+    under ``dir/cand-XX-<slug>``, so a killed sweep rerun with the same
+    arguments resumes committed fits (``journal_hits`` in
+    ``stream_stats``) and reproduces a digest-identical report.  Panels
+    with ``n_obs >= long_threshold`` route arima candidates through
+    ``longseries.fit_long`` (with a durability knob, one journaled
+    segment stream per series).
 
     Runs on ``device`` (``None`` means CUDA, float32; ``device="cpu"``
     float32 or float64).  A candidate whose fit raises scores as dead
     on every lane (``stream_stats[i]["path"] == "failed"``), except for
-    a kernel or card fault, which raises.
+    a kernel or card fault, which raises, and a journal that belongs to
+    another sweep (``JournalSpecMismatch``), which raises.
     """
-    waiting = [name for name, on in (
-        ("journal", journal is not None),
-        ("deadline_s", deadline_s is not None),
-        ("retry", retry is not None),
-        ("degrade", degrade is not True)) if on]
-    if waiting:
-        raise NotImplementedError(
-            f"backtest_panel's {waiting} belong to the JAX engine's "
-            f"durability tier, which waits for ROADMAP Queue A item 5")
     if select_by not in ("smape", "mase"):
         raise ValueError(f"select_by must be 'smape' or 'mase', got "
                          f"{select_by!r} (rmse/coverage are table "
@@ -413,13 +443,19 @@ def backtest_panel(values, grid: Optional[CandidateGrid] = None, *,
             with _metrics.span("backtest.fit"):
                 try:
                     model, stats = _fit_candidate(
-                        train, cand, engine=engine, chunk_size=chunk_size,
-                        long_threshold=long_threshold, dev=dev)
+                        train, cand, ci, schedule, engine=engine,
+                        chunk_size=chunk_size, journal=journal,
+                        deadline_s=deadline_s, retry=retry,
+                        degrade=degrade, long_threshold=long_threshold,
+                        dev=dev)
                 except Exception as e:  # noqa: BLE001 — candidate
                     # isolation: one family's fit path refusing the
                     # panel must cost that CANDIDATE its scores, not the
-                    # whole sweep; a kernel or card fault raises
-                    if is_device_fault(e):
+                    # whole sweep; a kernel or card fault raises, and so
+                    # does a journal of another sweep (changed data or
+                    # plan), whose refusal must stay loud
+                    if is_device_fault(e) \
+                            or isinstance(e, JournalSpecMismatch):
                         raise
                     reg.inc("backtest.candidate_failures")
                     spec = FAMILIES[cand.family]
@@ -467,6 +503,8 @@ def backtest_panel(values, grid: Optional[CandidateGrid] = None, *,
         reg.inc("backtest.candidates", len(cands))
         reg.inc("backtest.series", S)
         reg.inc("backtest.origins", schedule.n_origins)
+        reg.inc("backtest.journal_hits",
+                sum(s.get("journal_hits", 0) for s in stream_stats))
         dead = int(np.sum(champion < 0))
         if dead:
             reg.inc("backtest.dead_lanes", dead)

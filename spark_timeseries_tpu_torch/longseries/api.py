@@ -10,7 +10,9 @@ batched fits already do:
    ``stats.segment_plan``) into an ``(n_segments, window)`` panel;
 3. **fit segments as a batch**: fused (``combine.fused_fit_combine``,
    one LM-fit launch a chunk of segments on the card, the combination
-   folded in on the device), staged through ``engine.stream_fit``, or,
+   folded in on the device), staged through ``engine.stream_fit`` (with
+   its whole durability tier: journal and resume, per-chunk deadlines,
+   chunk retries, OOM halving), or,
    with ``auto=True``, through ``models.arima.auto_fit_panel``
    (per-segment (p, q) selection: DARIMA's heterogeneous-order mode);
 4. **combine by WLS** in the common AR-truncation space
@@ -22,10 +24,8 @@ batched fits already do:
    :meth:`LongSeriesFit.forecast` agrees with the sequential Kalman
    filter run over every observation.
 
-The JAX package's durability knobs (``journal``, ``deadline_s``,
-``chunk_retry``, ``degrade=False``) belong to its engine's durability
-tier, which the port does not have yet (ROADMAP Queue A item 5): they
-raise ``NotImplementedError``.
+The durability knobs (``journal``, ``deadline_s``, ``chunk_retry``,
+``degrade=False``) select the staged path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch
 from .._device import check_dtype, resolve_device
 from ..stats import SegmentPlan, segment_plan
 from ..utils import metrics as _metrics
+from ..utils.durability import as_backoff
 from . import combine as _combine
 from . import split as _split
 
@@ -61,10 +62,6 @@ DEFAULT_MA_TRUNCATION = 12
 # segments per chunk: big enough to fill the card, small enough that
 # chunk × window × n_ar stays a few GB at 10⁸-obs scale
 DEFAULT_CHUNK_SEGMENTS = 512
-
-# the durability knobs waiting for the engine's durability tier
-_WAITING = "ROADMAP Queue A item 5 (the engine's durability tier)"
-
 
 class LongSeriesFit:
     """A combined ultra-long fit: the global AR model, the split
@@ -253,16 +250,22 @@ def fit_long(ts, order: Tuple[int, int, int] = (2, 1, 2),
     ``screen_max_iter``); ``warn`` (default True) checks the combined
     model's stationarity.
 
+    Durability: ``journal=path`` commits every segment chunk
+    crash-consistently and a rerun resumes from it (the segmentation
+    geometry joins the journal spec through ``job_meta``, so a changed
+    split refuses resume), ``deadline_s`` / ``chunk_retry`` /
+    ``degrade`` are the engine's per-chunk watchdog, chunk re-dispatch
+    policy and OOM halving.  Each selects the staged path.
+
     Errors, in this order: a 2-D or NaN series and ``retry=`` raise
     ``ValueError`` (``retry`` is the fits' optimizer policy, which the
-    segment stream does not route; the JAX package's ``chunk_retry`` is
-    its chunk re-dispatch); ``fused=True`` with ``auto=True`` or with
+    segment stream does not route; ``chunk_retry`` is the chunk
+    re-dispatch); ``fused=True`` with ``auto=True`` or with
     ``journal``, ``deadline_s``, ``chunk_retry``, ``engine`` or
     ``degrade=False`` raises :class:`FusedDurabilityError`, as in the
-    JAX package; then ``journal``, ``deadline_s``, ``chunk_retry`` and
-    ``degrade=False`` raise ``NotImplementedError`` (ROADMAP Queue A
-    item 5); ``auto=True`` with ``engine`` or a changed
-    ``chunk_segments`` raises ``ValueError``.
+    JAX package; ``auto=True`` with any of those streaming knobs or a
+    changed ``chunk_segments`` raises ``ValueError`` (the auto path
+    never touches the stream).
 
     ``stream_stats`` of the result: the fused path's ``{"fused": True,
     "n_segments", "chunk_segments", "n_chunks", "lm_fit_launches"}``,
@@ -319,11 +322,6 @@ def fit_long(ts, order: Tuple[int, int, int] = (2, 1, 2),
         use_fused = True
     else:
         use_fused = False
-    waiting = [name for name in forcing if name != "engine"]
-    if waiting:
-        raise NotImplementedError(
-            f"fit_long's {waiting} belong to the JAX engine's "
-            f"durability tier, which waits for {_WAITING}")
     dev = resolve_device(device)
     check_dtype(torch.from_numpy(host[:0]).dtype, dev)
 
@@ -355,15 +353,22 @@ def fit_long(ts, order: Tuple[int, int, int] = (2, 1, 2),
                     f"which takes only max_iter/screen_max_iter; got "
                     f"{sorted(bad_kw)} (the grid always fits with an "
                     f"intercept and its own optimizer config)")
+            # a journal that never commits must fail now, not at the
+            # resume after a crash that finds nothing
             dead = [name for name, on in (
+                ("journal", journal is not None),
+                ("deadline_s", deadline_s is not None),
+                ("chunk_retry", chunk_retry is not None),
                 ("engine", engine is not None),
+                ("degrade", degrade is not True),
                 ("chunk_segments",
                  chunk_segments != DEFAULT_CHUNK_SEGMENTS)) if on]
             if dead:
                 raise ValueError(
-                    f"auto=True fits every segment in one auto_fit_panel "
-                    f"call; the streaming knobs {dead} have no effect "
-                    f"there — drop them or use auto=False")
+                    f"auto=True fits every segment in one fused "
+                    f"auto_fit_panel dispatch; the streaming knobs "
+                    f"{dead} have no effect there — drop them or use "
+                    f"auto=False")
             st: dict = {}
             pf = auto_fit_panel(torch.from_numpy(panel), max_p=max_p,
                                 max_d=0, max_q=max_q, device=dev, stats=st,
@@ -404,9 +409,19 @@ def fit_long(ts, order: Tuple[int, int, int] = (2, 1, 2),
             from ..engine import default_engine
             eng = engine if engine is not None else default_engine()
             cp, cq, c_icpt = p, q, include_intercept
+            meta = {"tier": "longseries", "order": [p, d, q],
+                    "seg_len": plan.seg_len, "overlap": plan.overlap,
+                    "head_drop": plan.head_drop}
+            # chunk_retry is the chunk re-dispatch policy only (a fits'
+            # RetryPolicy is refused here as the JAX package refuses it)
             result = eng.stream_fit(
                 panel, "arima", chunk_size=int(chunk_segments),
-                collect=True, device=dev, p=p, d=0, q=q, **fit_kwargs)
+                collect=True, journal=journal, job_meta=meta,
+                deadline_s=deadline_s,
+                retry=None if chunk_retry is None
+                else as_backoff(chunk_retry), degrade=degrade,
+                job_label=f"longseries:arima({p},{d},{q})", device=dev,
+                p=p, d=0, q=q, **fit_kwargs)
             stream_stats = dict(result.stats)
             stream_stats["n_chunks"] = result.n_chunks
             stream_stats["chunk_failures"] = len(result.chunk_failures)

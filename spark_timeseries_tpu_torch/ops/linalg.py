@@ -95,6 +95,34 @@ def spd_inverse(A: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _gram_solve_lanewise(Xw: torch.Tensor, Xs: torch.Tensor,
+                         y: torch.Tensor):
+    """``ols_gram``'s products on a card with each lane's arithmetic
+    independent of the batch: cuBLAS's batched GEMM runs a batch of more
+    than 65535 matrices as several launches whose remainder may take
+    another kernel, so a lane's gram could change with its chunk's size
+    (an OOM-halved chunk must be bitwise the whole one).  Here every
+    entry is an elementwise product reduced over ``n`` (a reduction whose
+    order follows ``n``, not the lane count) and the small products are
+    unrolled elementwise sums."""
+    p = Xs.shape[-2]
+    rows = [[None] * p for _ in range(p)]
+    for i in range(p):
+        for j in range(i + 1):
+            rows[i][j] = rows[j][i] = (Xw[..., i, :] * Xs[..., j, :]) \
+                .sum(dim=-1)
+    N = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    b = (Xw * y[..., None, :]).sum(dim=-1)
+    xtx_inv = spd_inverse(N)
+    beta = xtx_inv[..., :, 0] * b[..., 0:1]
+    for k in range(1, p):
+        beta = beta + xtx_inv[..., :, k] * b[..., k:k + 1]
+    fitted = Xs[..., 0, :] * beta[..., 0:1]
+    for i in range(1, p):
+        fitted = fitted + Xs[..., i, :] * beta[..., i:i + 1]
+    return N, b, xtx_inv, beta, fitted
+
+
 class OLSResult(NamedTuple):
     """Batched OLS fit artifacts (leading batch dims ``...``)."""
     beta: torch.Tensor        # (..., p) coefficients (intercept first)
@@ -126,11 +154,14 @@ def ols_gram(Xs: torch.Tensor, y: torch.Tensor,
         w = row_weights.to(Xs.dtype)
         Xw = Xs * w[..., None, :]
         dof = torch.clamp(w.sum(dim=-1) - p, min=1.0)
-    N = torch.einsum("...pn,...qn->...pq", Xw, Xs)
-    b = torch.einsum("...pn,...n->...p", Xw, y)
-    xtx_inv = spd_inverse(N)
-    beta = torch.einsum("...pq,...q->...p", xtx_inv, b)
-    fitted = torch.einsum("...pn,...p->...n", Xs, beta)
+    if Xs.is_cuda:
+        N, b, xtx_inv, beta, fitted = _gram_solve_lanewise(Xw, Xs, y)
+    else:
+        N = torch.einsum("...pn,...qn->...pq", Xw, Xs)
+        b = torch.einsum("...pn,...n->...p", Xw, y)
+        xtx_inv = spd_inverse(N)
+        beta = torch.einsum("...pq,...q->...p", xtx_inv, b)
+        fitted = torch.einsum("...pn,...p->...n", Xs, beta)
     resid = y - fitted
     if row_weights is not None:
         resid = resid * w          # dead rows carry garbage y: zero them

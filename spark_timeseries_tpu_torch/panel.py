@@ -424,12 +424,21 @@ class Panel:
     def stream_fit(self, family: str = "arima", *, engine=None, **kwargs):
         """Stream this panel's series through
         :meth:`~spark_timeseries_tpu_torch.engine.FitEngine.stream_fit` on
-        the panel's device, in chunks: ``chunk_size``, ``collect`` and the
-        family's fit parameters pass through.  The engine stages chunks
-        from the host, so a panel on a card is first copied to the host
-        once, as the JAX engine does (``stats["input_d2h_s"]``).  Interior
-        gaps must be filled first (:meth:`fill`).  ``engine`` an explicit
-        :class:`~spark_timeseries_tpu_torch.engine.FitEngine`."""
+        the panel's device, in chunks, with per-chunk failure isolation
+        and the opt-in durability tier: ``journal=path`` for
+        crash-consistent per-chunk commits with validated resume
+        (``job_meta=`` joins its spec), ``deadline_s=`` for the per-chunk
+        watchdog (``STS_CHUNK_DEADLINE_S``), ``retry=`` (an int or a
+        ``BackoffPolicy``) for end-of-stream retries of failed chunks, and
+        OOM halving (``degrade=``, ``degrade_floor=``); ``on_progress=`` /
+        ``job_label=`` for the run's ``JobProgress``.  ``resilient=True``
+        routes every chunk through the family's fail-soft chain with the
+        same scaffolding.  ``chunk_size``, ``prefetch``, ``collect`` and
+        the family's fit parameters pass through.  The engine stages
+        chunks from the host, so a panel on a card is first copied to the
+        host once, as the JAX engine does (``stats["input_d2h_s"]``).
+        Interior gaps must be filled first (:meth:`fill`).  ``engine`` an
+        explicit :class:`~spark_timeseries_tpu_torch.engine.FitEngine`."""
         from .engine import FitEngine
         with _metrics.span("panel.stream_fit"):
             eng = engine if engine is not None else FitEngine()

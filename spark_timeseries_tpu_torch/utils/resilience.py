@@ -32,11 +32,12 @@ JAX package.  Dispositions are counted under ``resilience.*`` in
 ``utils.metrics``.
 
 :func:`fault_injection` corrupts inputs, forces optimizer
-non-convergence, corrupts a serving session's ticks and state
-(:func:`serving_fault`), or floods, stalls, crashes or kills the fleet
-tier (:func:`fleet_fault`).  The engine's streaming-chunk fault hooks
-and the ``STS_FAULT_INJECT`` environment arm wait for the engine's
-durability tier and raise ``NotImplementedError``.
+non-convergence, hangs, OOMs, kills or corrupts the journal of the
+engine's streaming chunks (:func:`chunk_fault`), corrupts a serving
+session's ticks and state (:func:`serving_fault`), or floods, stalls,
+crashes or kills the fleet tier (:func:`fleet_fault`).  With
+``STS_FAULT_INJECT=1`` every :func:`resilient_fit` runs its base stage
+under a ``force_nonconverge`` fault (the CI arm), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -280,8 +281,18 @@ class FaultSpec(NamedTuple):
       after ``n_attempts`` tenant bundles have landed and before its
       manifest commits (forensics bundle first).
 
-    The JAX package's streaming-chunk modes are valid names here, but
-    entering them raises ``NotImplementedError``."""
+    Streaming-chunk modes, read host-side by ``engine.stream_fit`` at
+    each chunk through :func:`chunk_fault`; ``chunk_index`` picks the
+    chunk:
+
+    - ``"hang_chunk"``: the chunk's worker sleeps ``hang_s`` seconds
+      before its fit (what the per-chunk deadline must catch);
+    - ``"oom_chunk"``: the chunk raises :class:`InjectedOOM` at its full
+      size (its halves run clean);
+    - ``"kill_after_chunk"``: SIGKILL right after the chunk's journal
+      commit (forensics bundle first);
+    - ``"corrupt_journal"``: the chunk's committed journal entry is
+      garbled in place after its commit."""
     mode: str
     n_attempts: int = 1
     lane_stride: int = 2
@@ -289,17 +300,11 @@ class FaultSpec(NamedTuple):
     hang_s: float = 3600.0
 
 
-def _waits(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A item {item})")
-
-
 class InjectedOOM(RuntimeError):
-    """The ``oom_chunk`` fault's synthetic allocation failure: waits for
-    the engine's durability tier."""
-
-    def __init__(self, *args):
-        _waits("InjectedOOM (the engine's oom_chunk fault)", "5")
+    """Synthetic device allocation failure raised by the ``oom_chunk``
+    fault; its message carries ``RESOURCE_EXHAUSTED`` and
+    ``utils.durability.is_oom`` classifies it as a real
+    ``torch.cuda.OutOfMemoryError`` is."""
 
 
 class InjectedPumpCrash(RuntimeError):
@@ -310,15 +315,12 @@ class InjectedPumpCrash(RuntimeError):
 
 
 _FIT_MODES = ("force_nonconverge", "corrupt_nan", "corrupt_inf")
+_CHUNK_MODES = ("hang_chunk", "oom_chunk", "kill_after_chunk",
+                "corrupt_journal")
 _SERVING_MODES = ("tick_corrupt_nan", "tick_corrupt_inf", "state_poison")
 _FLEET_MODES = ("tenant_flood", "coalesce_straggler", "drop_tenant_process",
                 "pump_crash", "pump_hang", "checkpoint_torn")
-# the JAX package's streaming-chunk modes, with the ROADMAP item each
-# waits for
-_WAITING_MODES = {
-    "hang_chunk": "5", "oom_chunk": "5", "kill_after_chunk": "5",
-    "corrupt_journal": "5",
-}
+_VALID_MODES = _FIT_MODES + _CHUNK_MODES + _SERVING_MODES + _FLEET_MODES
 _active_fault: List[FaultSpec] = []
 # one never-reused id per fault_injection scope entry (unlike id(spec),
 # which a freed FaultSpec can hand to the next scope): what the
@@ -338,9 +340,15 @@ def fault_spec() -> Optional[FaultSpec]:
     return _active_fault[-1] if _active_fault else None
 
 
-def chunk_fault(mode: str, chunk_index: int):
-    """The engine's streaming-chunk fault hook: waits for item 5."""
-    _waits("chunk_fault (the engine's streaming-chunk faults)", "5")
+def chunk_fault(mode: str, chunk_index: int) -> Optional[FaultSpec]:
+    """The active fault spec when it is a streaming-chunk fault of the
+    given ``mode`` targeting ``chunk_index``, else None.  Read host-side
+    by ``engine.stream_fit`` at each chunk's fit and commit."""
+    spec = fault_spec()
+    if spec is not None and spec.mode == mode \
+            and int(spec.chunk_index) == int(chunk_index):
+        return spec
+    return None
 
 
 def serving_fault(mode: str) -> Optional[FaultSpec]:
@@ -393,13 +401,9 @@ def fault_injection(mode: str, n_attempts: int = 1, lane_stride: int = 2,
 
     Eager PyTorch has no compiled executables to keep apart, so entering
     and leaving the scope flushes nothing."""
-    if mode in _WAITING_MODES:
-        _waits(f"fault mode {mode!r}", _WAITING_MODES[mode])
-    live = _FIT_MODES + _SERVING_MODES + _FLEET_MODES
-    if mode not in live:
+    if mode not in _VALID_MODES:
         raise ValueError(
-            f"unknown fault mode {mode!r}; expected one of "
-            f"{live + tuple(_WAITING_MODES)}")
+            f"unknown fault mode {mode!r}; expected one of {_VALID_MODES}")
     if n_attempts < 1 or lane_stride < 1:
         raise ValueError("n_attempts and lane_stride must be >= 1")
     if chunk_index < 0 or hang_s <= 0:
@@ -561,8 +565,6 @@ def resilient_fit(values, fits: Sequence[Tuple[str, Callable]], *,
     ``frac_recovered`` / ``frac_fallback`` / ``frac_abandoned`` gauges."""
     if not fits:
         raise ValueError("resilient_fit needs at least one fit stage")
-    if os.environ.get("STS_FAULT_INJECT") == "1":
-        _waits("the STS_FAULT_INJECT environment fault arm", "5")
     reg = registry if registry is not None else _metrics._default_registry
     v = values if isinstance(values, torch.Tensor) \
         else torch.as_tensor(np.asarray(values))
@@ -573,6 +575,12 @@ def resilient_fit(values, fits: Sequence[Tuple[str, Callable]], *,
     n_series, n_obs = v.shape
     dev = v.device
 
+    # the CI arm (STS_FAULT_INJECT=1): the base stage runs under a
+    # force_nonconverge fault, so the primary's retry path is forced on
+    # every resilient fit while the fallback stages run clean; a scope
+    # the caller set applies everywhere instead
+    env_armed = os.environ.get("STS_FAULT_INJECT") == "1" \
+        and fault_spec() is None
     with _metrics.span(f"resilience.fit.{family}"):
         spec = fault_spec()
         if spec is not None:
@@ -608,15 +616,18 @@ def resilient_fit(values, fits: Sequence[Tuple[str, Callable]], *,
 
         # the first stage that returns is the base model; earlier stages
         # that raise are recorded
-        for i, (name, fn) in enumerate(fits):
-            try:
-                model = fn(safe)
-                base_idx = i
-                break
-            except Exception as e:  # noqa: BLE001 — stage isolation
-                if is_device_fault(e):
-                    raise
-                _stage_error(name, e)
+        base_ctx = fault_injection("force_nonconverge", n_attempts=1) \
+            if env_armed else contextlib.nullcontext()
+        with base_ctx:
+            for i, (name, fn) in enumerate(fits):
+                try:
+                    model = fn(safe)
+                    base_idx = i
+                    break
+                except Exception as e:  # noqa: BLE001 — stage isolation
+                    if is_device_fault(e):
+                        raise
+                    _stage_error(name, e)
         if model is None:
             raise RuntimeError(
                 f"resilient_fit({family}): every fit stage raised — "

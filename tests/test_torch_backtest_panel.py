@@ -4,8 +4,8 @@ generating processes of ``bench.py``'s backtest demo (AR(1), ARMA(1,1),
 SES), with a NaN-padded lane and a lane with an interior gap, swept
 through an AR / ARMA / EWMA grid; the report's champions, score tables,
 error bars, summary; the long-series route at a lowered
-``long_threshold``; candidate isolation; the knobs that wait for the
-engine's durability tier; validation.  Each JAX sweep runs once per
+``long_threshold``; candidate isolation; the durability knobs and a
+journaled sweep's bitwise resume; validation.  Each JAX sweep runs once per
 module.
 
 Tolerance: scores and tables within 1e-7 relative (1e-10 absolute): the
@@ -138,11 +138,60 @@ def test_long_route_matches_jax():
         _close(getattr(rep, name), getattr(want, name), name)
 
 
-@pytest.mark.parametrize("knob", [dict(journal="j"), dict(deadline_s=1.0),
+@pytest.fixture(scope="module")
+def port_report():
+    return backtest.backtest_panel(PANEL, backtest.CandidateGrid(FAMS,
+                                                                 (1, 2, 4)),
+                                   device="cpu", **KW)
+
+
+@pytest.mark.parametrize("knob", [dict(journal="j"), dict(deadline_s=30.0),
                                   dict(retry=object()), dict(degrade=False)])
-def test_durability_knobs_wait_for_the_engine_tier(knob):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        backtest.backtest_panel(PANEL, device="cpu", **KW, **knob)
+def test_durability_knobs_wait_for_the_engine_tier(knob, tmp_path,
+                                                   port_report):
+    """The durability knobs reach every streamed candidate, as in the JAX
+    package: a journal, a deadline and ``degrade=False`` leave the report
+    bit for bit the knob-free one; a ``retry`` that is not a chunk
+    re-dispatch policy fails each streamed candidate with the JAX
+    package's ``TypeError``."""
+    if "journal" in knob:
+        knob = dict(journal=str(tmp_path / "j"))
+    g = backtest.CandidateGrid(FAMS, (1, 2, 4))
+    rep = backtest.backtest_panel(PANEL, g, device="cpu", **KW, **knob)
+    if "retry" in knob:
+        assert [s["path"] for s in rep.stream_stats] == ["failed"] * 3
+        assert all("TypeError" in s["error"] and "BackoffPolicy"
+                   in s["error"] for s in rep.stream_stats)
+        assert (rep.champion == -1).all()
+    else:
+        assert rep.digest() == port_report.digest()
+
+
+def test_journal_resume_is_bitwise_and_counts_hits(tmp_path, port_report):
+    """``journal=dir`` keeps one journal per candidate
+    (``cand-XX-<slug>``); a second sweep restores every candidate's chunk
+    (``journal_hits``, nothing committed) and its report is the first's
+    and the journal-free one's bit for bit; a journal of another sweep
+    (changed data) refuses loudly instead of scoring dead candidates."""
+    import os
+
+    from spark_timeseries_tpu_torch.utils.durability import \
+        JournalSpecMismatch
+
+    g = backtest.CandidateGrid(FAMS, (1, 2, 4))
+    j = str(tmp_path / "bt")
+    a = backtest.backtest_panel(PANEL, g, device="cpu", journal=j, **KW)
+    b = backtest.backtest_panel(PANEL, g, device="cpu", journal=j, **KW)
+    assert sorted(os.listdir(j)) == ["cand-00-ar-1", "cand-01-arima-1-0-1",
+                                     "cand-02-ewma"]
+    assert [s["journal_commits"] for s in a.stream_stats] == [1, 1, 1]
+    assert [s["journal_hits"] for s in b.stream_stats] == [1, 1, 1]
+    assert [s["journal_commits"] for s in b.stream_stats] == [0, 0, 0]
+    assert a.digest() == b.digest() == port_report.digest()
+    other = PANEL.copy()
+    other[0, 50] += 1.0
+    with pytest.raises(JournalSpecMismatch, match="data_sha256"):
+        backtest.backtest_panel(other, g, device="cpu", journal=j, **KW)
 
 
 def test_validation_like_jax():

@@ -14,7 +14,9 @@ tier: a session on the card against the CPU's, ``update_batch`` bit for
 bit, ``heal()`` through the LM-fit kernel; and the long-series and
 backtest tiers: ``longseries.fit_long`` (fused and staged),
 ``arima.fit_long`` and ``backtest_panel`` on the card against the same
-float32 runs on the CPU, with their ``arma_lm_fit`` launches.
+float32 runs on the CPU, with their ``arma_lm_fit`` launches; and the
+engine's durability tier: OOM halving bit for bit, a journal's resume,
+the deadline watchdog over the side-stream staging.
 
 Every test here needs a card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so a machine without JAX runs it
@@ -1520,3 +1522,126 @@ def test_backtest_panel_on_cuda_matches_cpu(cuda):
     want = backtest_panel(y, grid, device="cpu", **kw)
     assert (got.champion == want.champion).mean() >= 0.95
     np.testing.assert_allclose(got.scores_mase, want.scores_mase, rtol=1e-3)
+
+
+# -- the engine's durability tier -----------------------------------------------
+
+def _cat_models(models, field="coefficients"):
+    if field == "coefficients":
+        return torch.cat([m.coefficients.cpu() for m in models])
+    return torch.cat([getattr(m.diagnostics, field).cpu() for m in models])
+
+
+def _bits(t):
+    """``t`` on the host, a float's bits as an integer (NaN lanes compare
+    equal to the same NaN)."""
+    t = t.cpu().contiguous()
+    if t.is_floating_point():
+        return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+    return t
+
+
+def _same_lanes(got, want):
+    return all(torch.equal(_bits(_cat_models(got, f)),
+                           _bits(_cat_models(want, f)))
+               for f in ("coefficients", "converged", "n_iter", "fun"))
+
+
+def test_oom_halving_on_cuda_is_bitwise(cuda):
+    """A ``torch.cuda.OutOfMemoryError`` (the ``oom_chunk`` fault, and a
+    real one raised from the fit) halves a 4096-lane chunk into two
+    2048-lane sub-chunks whose lanes are the whole chunk's bit for bit
+    (the Hannan-Rissanen grams reduce per lane, not through a batched
+    GEMM whose kernel may change with the batch); a kernel fault raises
+    out of the stream."""
+    from spark_timeseries_tpu_torch import engine
+    from spark_timeseries_tpu_torch._device import KernelError
+    from spark_timeseries_tpu_torch.utils import resilience
+
+    y = _panel(np.random.default_rng(61), 8192, 96).astype(np.float32)
+    kw = dict(chunk_size=4096, p=2, d=1, q=2, device=cuda, collect=True)
+    whole = FitEngine().stream_fit(y, "arima", **kw)
+    with resilience.fault_injection("oom_chunk", chunk_index=1):
+        injected = FitEngine().stream_fit(y, "arima", **kw)
+    assert injected.stats["degraded_chunks"] == 1
+    assert injected.stats["collected_ranges"] == [[0, 4096], [4096, 6144],
+                                                  [6144, 8192]]
+    assert _same_lanes(injected.models, whole.models)
+
+    real = engine._fit_values
+
+    def oom_at_full(family, statics, values, warn=False, stats=None):
+        if values.shape[0] == 4096:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
+        return real(family, statics, values, warn=warn, stats=stats)
+
+    engine._fit_values = oom_at_full
+    try:
+        halved = FitEngine().stream_fit(y, "arima", **kw)
+    finally:
+        engine._fit_values = real
+    assert halved.stats["degraded_chunks"] == 2
+    assert halved.stats["lm_fit_launches"] == [1, 1, 1, 1]
+    assert _same_lanes(halved.models, whole.models)
+
+    def fault(*a, **k):
+        raise KernelError("arma_lm_fit launch failed (test)")
+
+    engine._fit_values = fault
+    try:
+        with pytest.raises(KernelError):
+            FitEngine().stream_fit(y, "arima", **kw)
+    finally:
+        engine._fit_values = real
+
+
+def test_journal_resume_on_cuda_is_bitwise(cuda, tmp_path):
+    """A journaled stream on the card commits each chunk; a rerun
+    restores them (no launch) bit for bit, and a CPU stream of the same
+    panel refuses the card's journal (the spec records the device
+    type)."""
+    from spark_timeseries_tpu_torch.utils.durability import \
+        JournalSpecMismatch
+
+    y = _panel(np.random.default_rng(62), 3000, 96).astype(np.float32)
+    kw = dict(chunk_size=1024, p=2, d=1, q=2, collect=True,
+              journal=str(tmp_path / "j"))
+    lm0 = arma_ne.fit_css_lm.launches
+    first = FitEngine().stream_fit(y, "arima", device=cuda, **kw)
+    assert arma_ne.fit_css_lm.launches - lm0 == 3
+    assert first.stats["journal_commits"] == 3
+    lm0 = arma_ne.fit_css_lm.launches
+    again = FitEngine().stream_fit(y, "arima", device=cuda, **kw)
+    assert arma_ne.fit_css_lm.launches - lm0 == 0
+    assert again.stats["journal_hits"] == 3
+    assert _same_lanes(again.models, first.models)
+    with pytest.raises(JournalSpecMismatch, match="device"):
+        FitEngine().stream_fit(y, "arima", device="cpu", **kw)
+
+
+def test_deadline_worker_with_side_stream_staging_on_cuda(cuda):
+    """Under ``deadline_s`` every chunk fits in a worker thread on the
+    caller's stream while the next chunk's copy runs on the side stream
+    (``prefetch=2``): the results are the plain stream's bit for bit; a
+    hung chunk is abandoned with its staging slot, the stream goes on,
+    and the retry after the worker ends recovers it, bitwise."""
+    from spark_timeseries_tpu_torch.utils import resilience
+    from spark_timeseries_tpu_torch.utils.durability import BackoffPolicy
+
+    y = _panel(np.random.default_rng(63), 4096, 96).astype(np.float32)
+    kw = dict(chunk_size=1024, p=2, d=1, q=2, device=cuda, collect=True)
+    plain = FitEngine().stream_fit(y, "arima", **kw)
+    watched = FitEngine(prefetch=2).stream_fit(y, "arima", deadline_s=30.0,
+                                               **kw)
+    assert _same_lanes(watched.models, plain.models)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with resilience.fault_injection("hang_chunk", chunk_index=1,
+                                        hang_s=2.0):
+            hung = FitEngine(prefetch=2).stream_fit(
+                y, "arima", deadline_s=1.0,
+                retry=BackoffPolicy(max_retries=1, base_delay_s=5.0), **kw)
+    torch.cuda.synchronize()
+    assert (hung.stats["deadline_expired"], hung.stats["recovered"],
+            hung.stats["dead_chunks"]) == (1, 1, 0)
+    assert _same_lanes(hung.models, plain.models)

@@ -96,11 +96,22 @@ def test_stream_fit_isolates_a_bad_chunk():
     assert res.rate > 0
 
 
-def test_stream_fit_rejects_what_the_port_lacks(monkeypatch):
+def test_stream_fit_rejects_what_the_port_lacks(monkeypatch, tmp_path):
     y = np.zeros((8, 40))
-    with pytest.raises(NotImplementedError, match="journal"):
-        engine.FitEngine().stream_fit(y, "arima", journal="j.jsonl",
-                                      device="cpu")
+    # the durability tier is ported: a journal commits the chunk and a
+    # rerun restores it instead of fitting
+    y_fit = _panel(np.random.default_rng(4), 8, 40)
+    first = engine.FitEngine().stream_fit(y_fit, "arima", p=1, d=1, q=1,
+                                          journal=str(tmp_path / "j"),
+                                          device="cpu")
+    again = engine.FitEngine().stream_fit(y_fit, "arima", p=1, d=1, q=1,
+                                          journal=str(tmp_path / "j"),
+                                          device="cpu")
+    assert (first.stats["journal_commits"], first.stats["journal_hits"]) \
+        == (1, 0)
+    assert (again.stats["journal_commits"], again.stats["journal_hits"]) \
+        == (0, 1)
+    assert again.n_converged == first.n_converged
     # a family the JAX engine does not stream either: its ValueError
     with pytest.raises(ValueError, match="unknown engine family"):
         engine.FitEngine().stream_fit(y, "arimax", device="cpu")

@@ -7,9 +7,9 @@ coefficients, σ², segment accounting, ``describe()``, ``forecast`` and
 ``loglik`` against the JAX package's (each JAX fit computed once per
 module); the fused path's segments bit for bit the staged path's; the
 forecast against the sequential Kalman filter over the whole series;
-the counters; the error surface (``FusedDurabilityError``, the knobs
-that wait for the engine's durability tier, ``retry=``, NaN and 2-D
-input).
+the counters; the durability knobs (the staged path, a journal's
+bitwise resume); the error surface (``FusedDurabilityError``,
+``retry=``, NaN and 2-D input).
 
 Tolerances: coefficients and σ² within 1e-8 (both sides run the same
 float64 LM state machine to its 1e-10 relative stopping rule, with sums
@@ -191,13 +191,55 @@ def test_fused_true_refuses_what_it_cannot_honor(knob):
     assert str(got.value) == str(want.value)
 
 
-def test_durability_knobs_wait_for_the_engine_tier():
-    for knob in (dict(journal="j"), dict(deadline_s=1.0),
-                 dict(chunk_retry=object()), dict(degrade=False),
-                 dict(journal="j", auto=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            longseries.fit_long(Y0, (1, 0, 1), seg_len=SEG, device="cpu",
-                                **knob)
+def test_durability_knobs_wait_for_the_engine_tier(tmp_path):
+    """Each durability knob selects the staged (durable) path, as in the
+    JAX package: the combined coefficients are the staged path's bit for
+    bit.  A ``chunk_retry`` that is not a re-dispatch policy, and any
+    streaming knob under ``auto=True``, raise the JAX package's
+    errors."""
+    staged = longseries.fit_long(Y0, (1, 0, 1), seg_len=SEG, warn=False,
+                                 fused=False, device="cpu")
+    for knob in (dict(journal=str(tmp_path / "j")), dict(deadline_s=30.0),
+                 dict(chunk_retry=1), dict(degrade=False)):
+        fl = longseries.fit_long(Y0, (1, 0, 1), seg_len=SEG, warn=False,
+                                 device="cpu", **knob)
+        assert "fused" not in fl.stream_stats
+        assert torch.equal(fl.coefficients, staged.coefficients)
+    with pytest.raises(TypeError, match="BackoffPolicy") as got:
+        longseries.fit_long(Y0, (1, 0, 1), seg_len=SEG, device="cpu",
+                            chunk_retry=object())
+    with pytest.raises(TypeError, match="BackoffPolicy") as want:
+        jls.fit_long(Y0, (1, 0, 1), seg_len=SEG, chunk_retry=object())
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="auto=True") as got:
+        longseries.fit_long(Y0, (1, 0, 1), auto=True, seg_len=SEG,
+                            journal="j", device="cpu")
+    with pytest.raises(ValueError, match="auto=True") as want:
+        jls.fit_long(Y0, (1, 0, 1), auto=True, seg_len=SEG, journal="j")
+    assert str(got.value) == str(want.value)
+
+
+def test_journal_resume_is_bitwise(tmp_path):
+    """``journal=`` commits every segment chunk with the split geometry
+    in its spec (``job_meta``); a second call restores every chunk (no
+    commit, no fit) and combines to the same coefficients bit for bit; a
+    changed geometry refuses the journal, as in the JAX package."""
+    from spark_timeseries_tpu_torch.utils.durability import \
+        JournalSpecMismatch
+
+    j = str(tmp_path / "j")
+    kw = dict(seg_len=SEG, warn=False, device="cpu", journal=j,
+              chunk_segments=5)
+    a = longseries.fit_long(Y0, (1, 0, 1), **kw)
+    b = longseries.fit_long(Y0, (1, 0, 1), **kw)
+    assert a.stream_stats["journal_commits"] == a.stream_stats["n_chunks"] \
+        == b.stream_stats["journal_hits"] == 4
+    assert b.stream_stats["journal_commits"] == 0
+    assert torch.equal(a.coefficients, b.coefficients)
+    assert b.sigma2 == a.sigma2
+    with pytest.raises(JournalSpecMismatch, match="job"):
+        longseries.fit_long(Y0, (1, 0, 1), **dict(kw, seg_len=SEG // 2,
+                                                  n_ar=12))
 
 
 def test_bad_inputs_raise_like_jax():

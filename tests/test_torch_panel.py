@@ -233,15 +233,18 @@ def test_constructors():
         Panel(target[1], np.zeros((2, 10)), ["a"], device="cpu")
 
 
-def test_device_policy_and_waiting_methods(monkeypatch):
+def test_device_policy_and_waiting_methods(monkeypatch, tmp_path):
     jp, tp = _pair(_gappy(8, S=2, n=6))
     assert Panel(tp.index, tp.values.float(), tp.keys,
                  device="cpu").values.dtype == torch.float32
     for call, item in ((lambda: tp.shard(None), "5"),
-                       (lambda: tp.describe_costs(), "5"),
-                       (lambda: tp.backtest(journal="j"), "5")):
+                       (lambda: tp.describe_costs(), "5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
+    # the backtest's journal is the engine's durability tier now: it
+    # passes through, and this 6-step panel fails the schedule's own check
+    with pytest.raises(ValueError, match="cannot place any origin"):
+        tp.backtest(journal=str(tmp_path / "j"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Panel(tp.index, np.zeros((2, 6)), ["a", "b"])

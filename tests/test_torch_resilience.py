@@ -132,9 +132,17 @@ def test_fault_modes_corrupt_like_jax_and_the_rest_wait():
         got = resilience.corrupt_values(torch.from_numpy(y), spec)
         want = j_res.corrupt_values(y, j_res.FaultSpec(mode, lane_stride=3))
         np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        with resilience.fault_injection("oom_chunk"):
-            pass
+    # the streaming-chunk modes are live: the spec of the named mode at
+    # its chunk, None for another chunk, another mode or outside the scope
+    for mode in ("hang_chunk", "oom_chunk", "kill_after_chunk",
+                 "corrupt_journal"):
+        for mod in (resilience, j_res):
+            assert mod.chunk_fault(mode, 2) is None
+            with mod.fault_injection(mode, chunk_index=2, hang_s=0.5) as sp:
+                assert mod.chunk_fault(mode, 2) is sp
+                assert mod.chunk_fault(mode, 1) is None
+                other = "oom_chunk" if mode != "oom_chunk" else "hang_chunk"
+                assert mod.chunk_fault(other, 2) is None
     # the serving modes act as the JAX package's do: the active spec of
     # the named mode inside its scope, None outside it or for another
     # serving mode, ValueError for a mode that is not a serving one
@@ -163,10 +171,10 @@ def test_fault_modes_corrupt_like_jax_and_the_rest_wait():
     with resilience.fault_injection("tenant_flood", n_attempts=4) as spec:
         assert resilience.fleet_fault("tenant_flood") is spec
         assert spec.n_attempts == 4
-    with pytest.raises(NotImplementedError, match="item 5"):
-        resilience.chunk_fault("hang_chunk", 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        resilience.InjectedOOM("x")
+    oom = resilience.InjectedOOM("RESOURCE_EXHAUSTED: injected")
+    assert isinstance(oom, RuntimeError) and str(oom) \
+        == "RESOURCE_EXHAUSTED: injected"
+    assert issubclass(j_res.InjectedOOM, RuntimeError)
     err = resilience.InjectedPumpCrash("pump died")
     assert isinstance(err, RuntimeError) and str(err) == "pump died"
     assert issubclass(j_res.InjectedPumpCrash, RuntimeError)
@@ -205,10 +213,41 @@ def test_fleet_fault_modes_act_like_jax(mode):
 
 
 def test_env_fault_arm_waits(monkeypatch):
+    """``STS_FAULT_INJECT=1`` arms ``force_nonconverge`` around the base
+    stage only (the JAX package's CI arm): the primary sees one forced
+    failure, the fallback stage none; a scope the caller set wins
+    everywhere."""
+    from typing import NamedTuple
+
+    from spark_timeseries_tpu_torch.models.base import FitDiagnostics
+
+    class _Model(NamedTuple):
+        c: torch.Tensor
+        diagnostics: FitDiagnostics
+
+    seen = []
+
+    def stage(name, converged):
+        def fn(v):
+            seen.append((name, resilience.forced_optimizer_failures()))
+            n = v.shape[0]
+            return _Model(v[:, :1].clone(), FitDiagnostics(
+                torch.full((n,), converged), torch.zeros(n, dtype=torch.int32),
+                torch.zeros(n, dtype=v.dtype)))
+        return fn
+
+    y = torch.randn(4, 12, generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64)
+    fits = [("primary", stage("primary", False)),
+            ("fallback", stage("fallback", True))]
     monkeypatch.setenv("STS_FAULT_INJECT", "1")
-    with pytest.raises(NotImplementedError, match="STS_FAULT_INJECT"):
-        resilience.resilient_fit(torch.zeros((2, 8)),
-                                 [("m", lambda v: None)])
+    _, out = resilience.resilient_fit(y, fits)
+    assert seen == [("primary", 1), ("fallback", 0)]
+    assert (out.status == resilience.STATUS_FALLBACK).all()
+    seen.clear()
+    with resilience.fault_injection("force_nonconverge", n_attempts=3):
+        resilience.resilient_fit(y, fits)
+    assert seen == [("primary", 3), ("fallback", 3)]
 
 
 # -- the ARIMA chain --------------------------------------------------------
@@ -281,8 +320,12 @@ def test_fit_resilient_ok_lanes_equal_the_plain_fit(chain_pair):
 ])
 def test_a_kernel_or_device_fault_is_never_isolated(monkeypatch, fault):
     """A kernel that does not build or launch, or a card out of memory,
-    raises through every stage, the suspect screen and the engine's
-    chunks: no fallback serves lanes in its place."""
+    raises through every stage and the suspect screen: no fallback serves
+    lanes in its place.  The engine's chunks raise a kernel fault too; a
+    card out of memory is the durability tier's to route (halved while a
+    chunk can halve, then a recorded ``oom`` failure: here 8 and 4 lanes
+    at the floor of 8; the plain stream's first chunk, with an interior
+    gap, is a data failure before any fit), never a fallback's."""
     y = pathological_panel(S=12, seed=2)
 
     def broken(*a, **k):
@@ -291,13 +334,18 @@ def test_a_kernel_or_device_fault_is_never_isolated(monkeypatch, fault):
     monkeypatch.setattr(arima, "fit_css_lm", broken)
     with pytest.raises(type(fault)):
         arima.fit_resilient(y, 2, 1, 2, auto_order=True, device="cpu")
-    with pytest.raises(type(fault)):
-        engine.FitEngine().stream_fit(y, "arima", p=2, d=1, q=2,
-                                      resilient=True, chunk_size=8,
-                                      device="cpu")
-    with pytest.raises(type(fault)):
-        engine.FitEngine().stream_fit(y, "arima", p=2, d=1, q=2,
-                                      chunk_size=8, device="cpu")
+    for kw in (dict(resilient=True), {}):
+        if isinstance(fault, torch.cuda.OutOfMemoryError):
+            res = engine.FitEngine().stream_fit(
+                y, "arima", p=2, d=1, q=2, chunk_size=8, device="cpu", **kw)
+            assert res.n_fitted == 0 and res.stats["degraded_chunks"] == 0
+            first = "oom" if kw else "data"
+            assert [(f["chunk_start"], f["kind"])
+                    for f in res.chunk_failures] == [(0, first), (8, "oom")]
+            continue
+        with pytest.raises(type(fault)):
+            engine.FitEngine().stream_fit(y, "arima", p=2, d=1, q=2,
+                                          chunk_size=8, device="cpu", **kw)
 
 
 def test_a_stage_that_fails_on_its_numbers_is_isolated(monkeypatch):
