@@ -317,8 +317,9 @@ Phases, one JSON line each:
    the plain ones.  On its first 4 chunks, each case bitwise the plain
    run's models: ``oom_chunk`` at chunk 2 (two 65536-lane sub-chunks, 5
    launches; the resume restores 4 chunks, 0 launches); ``hang_chunk``
-   at chunk 1 under a 2 s deadline (one expiry, one retry after the
-   abandoned worker ends, no dead chunk); ``corrupt_journal`` at chunk 1
+   at chunk 1 under a 2 s deadline, which hangs every attempt as in the
+   JAX engine (two expiries, one retry after the abandoned worker ends,
+   one dead chunk, the other three bitwise); ``corrupt_journal`` at chunk 1
    (the resume quarantines the entry and refits 1 chunk); a child on the
    card under ``kill_after_chunk`` at chunk 1 (exit -9, 2 markers, its
    incident bundle; the resume here restores 2 and refits 2); a child
@@ -334,6 +335,29 @@ Phases, one JSON line each:
    the first 256 rows against the port's float64 CPU run within 1e-5 of
    the lane's scale, flags equal wherever the float64 score is more than
    1e-4 from the threshold.
+30. ``obs_path``: the compile tier and the host observability planes.
+   Two fresh ``python -m spark_timeseries_tpu_torch.engine --families
+   arima,holt_winters --shapes 131072x128 --serving --cache-dir D``
+   processes on a copy D of the build directory without the ``hw_sse``
+   library: the cold one builds that library alone (``kernels.builds``
+   1), the warm one nothing (0); seconds and reports of both.  While the
+   cold one compiles (one nvcc process on the host), two fresh
+   processes stream the north-star panel's first 4 chunks, one unwarmed
+   (its first and second streams), one after ``FitEngine.warmup(
+   ("arima",), [(131072, 128)], bucket=False)``: the first streams'
+   series/s, their models bitwise equal, the engines' ``cache_stats``.
+   Here: the telemetry exporter on a free port while the north-star
+   ``stream_fit`` runs 4 times in turns (A B B A, B scraped every 50 ms
+   on ``/metrics``, ``/snapshot.json``, ``/healthz`` and ``/trace.json``):
+   every scrape answers 200 and parses (the Prometheus grammar, JSON),
+   the job's row ends ``done`` with 8 chunks, 8 ``arma_lm_fit`` launches
+   a stream; the scraped stream's span events written with
+   ``utils.tracing.write_trace`` to ``chiprun_out/obs_path_trace.json``
+   and its ``self_time_report(10)`` printed; one warm chunk under
+   ``utils.observability.profile``: its trace file, and its one
+   ``arma_lm_fit`` launch counted from the runtime records inside the
+   launch's profiler range; a ``hang_chunk`` dead chunk's incident
+   bundle, schema-valid, its ``trace`` member holding the stream's spans.
 
 Then one line of per-kernel numbers (``launches`` counted over the main
 paths' runs, ``launches_by_path`` per run; for a kernel that only a
@@ -342,15 +366,19 @@ one-pass kernels, which only the comparisons launch, with
 ``comparison_only``, their launches counted over the path phases, each
 run with their counts set to 0 just before it, and checked to be 0, and
 their errors against the same plain passes as the series-major
-kernels'), the card's name and power limit, the css-cgd floor's check
-and, last, the result line.  Any
-failed check raises, so the script exits non-zero and prints no result
-line; without CUDA it exits 1 before doing anything.
+kernels'; ``obs_path``'s launches include those its child processes
+report), a summary line per phase (its seconds and headline figure), the
+card's name and power limit, the css-cgd floor's check and, last, the
+result line.  Every JSON line also goes to
+``chiprun_out/chip_smoke_rows.jsonl``.  Any failed check raises, so the
+script prints the summary of the phases before it, exits non-zero and
+prints no result line; without CUDA it exits 1 before doing anything.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -518,12 +546,63 @@ SURF_AUTO_SERIES = 8      # stepwise auto_fit: series, share of equal orders
 SURF_AUTO_FLOOR = 0.75
 
 
+# every JSON row also goes to this file (a long run's output may be kept
+# only in part), and each phase's row to the summary printed last
+ROWS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chiprun_out", "chip_smoke_rows.jsonl")
+_SUMMARY = []
+_FAILURES = []
+_T_START = time.perf_counter()
+
+# each phase's headline figure: the first of these its row holds
+_HEADLINES = (("exporter", "scraped_over_plain"), ("series_per_s",),
+              ("whole", "plain_series_per_s"), ("lane_ticks_per_s",),
+              ("tick", "p50_ms"), ("kernel_ms",), ("lm_fit_ms",),
+              ("box_fit_ms",), ("seconds",))
+
+
+def _headline(obj):
+    for path in _HEADLINES:
+        v = obj
+        for key in path:
+            v = v.get(key) if isinstance(v, dict) else None
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return "/".join(path), v
+    return None, None
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(ROWS_FILE), exist_ok=True)
+    with open(ROWS_FILE, "a") as f:
+        f.write(line + "\n")
+    if "phase" in obj:
+        name, value = _headline(obj)
+        _SUMMARY.append((obj["phase"], time.perf_counter() - _T_START,
+                         name, value))
+
+
+def print_summary() -> None:
+    """One line a phase row printed: its name, whether its checks held
+    (a failed check's message starts with its phase's name), the
+    script's seconds when the row printed and since the row before, and
+    its headline figure; then the failed check, if one was."""
+    prev = 0.0
+    failed = _FAILURES[0] if _FAILURES else ""
+    for phase, at, name, value in _SUMMARY:
+        head = f" {name}={value:.6g}" if name else ""
+        status = "FAILED" if failed.startswith(phase) else "ok"
+        print(f"summary: {phase} {status} at={at:.1f}s "
+              f"wall={at - prev:.1f}s{head}", flush=True)
+        prev = at
+    if failed:
+        print(f"summary: failed check: {failed[:300]}", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
+        _FAILURES.append(what)
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
@@ -6252,7 +6331,9 @@ def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
             _DURABLE_OOM_CHILD, head_path, dev, chunk,
             STS_DURABLE_OUT=oom_out))
 
-        def case(fault=None, **extra):
+        def case(fault=None, want=None, **extra):
+            """One run over the head rows; ``want`` the models it must
+            equal bit for bit (default: every head chunk's)."""
             c0 = counts()
             t0 = time.perf_counter()
             if fault is None:
@@ -6267,7 +6348,8 @@ def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
                 "models": len(res.models),
                 "ranges": st["collected_ranges"],
                 "failures": [f["kind"] for f in res.chunk_failures],
-                "bitwise": _models_bitwise(res.models, ref),
+                "bitwise": _models_bitwise(
+                    res.models, ref if want is None else want),
                 **{k: st[k] for k in (
                     "journal_hits", "journal_commits", "journal_corrupt",
                     "degraded_chunks", "deadline_expired", "retry_attempts",
@@ -6289,19 +6371,25 @@ def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
             f"into two {half}-lane sub-chunks, bitwise; the resume takes "
             f"them as one chunk)")
 
+        # the fault hangs every attempt at the chunk, as the JAX engine
+        # reads it: the retry waits out the abandoned worker (the backoff
+        # outlasts the hang), hangs again and expires again
         try:
             r3 = case(("hang_chunk", dict(chunk_index=1, hang_s=hang_s)),
-                      deadline_s=deadline_s,
+                      want=ref[:1] + ref[2:], deadline_s=deadline_s,
                       retry=BackoffPolicy(max_retries=1,
                                           base_delay_s=hang_s))
         finally:
             _join_chunk_workers()
         row["hang_chunk"] = dict(r3, deadline_s=deadline_s, hang_s=hang_s)
-        chk(r3["deadline_expired"] == 1 and r3["retry_attempts"] == 1
-            and r3["recovered"] == 1 and r3["dead_chunks"] == 0
-            and r3["launches"] == head_chunks and r3["bitwise"],
-            f"durable_path hang_chunk: {row['hang_chunk']} (one expiry, one "
-            f"retry, no dead chunk, bitwise)")
+        chk(r3["deadline_expired"] == 2 and r3["retry_attempts"] == 1
+            and r3["recovered"] == 0 and r3["dead_chunks"] == 1
+            and r3["abandoned_workers"] == 2
+            and r3["failures"] == ["deadline"]
+            and r3["launches"] == head_chunks - 1 and r3["bitwise"],
+            f"durable_path hang_chunk: {row['hang_chunk']} (two expiries, "
+            f"one retry, one dead chunk, no abandoned worker fitted, the "
+            f"other chunks bitwise)")
 
         cor_j = os.path.join(work.name, "corrupt")
         r4 = case(("corrupt_journal", dict(chunk_index=1)), journal=cor_j)
@@ -6494,9 +6582,10 @@ def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     # the whole panel twice, the oom case (3 chunks and 2 halves), the
-    # hang case (3 and the retry), the corrupt case and its one refit, the
-    # kill -9 resume, fit_long's and the backtest's first calls
-    want_lm = 2 * n_chunks + (head_chunks + 1) + head_chunks \
+    # hang case (the 3 chunks that do not hang), the corrupt case and its
+    # one refit, the kill -9 resume, fit_long's and the backtest's first
+    # calls
+    want_lm = 2 * n_chunks + (head_chunks + 1) + (head_chunks - 1) \
         + head_chunks + 1 \
         + (head_chunks - 2 if row.get("kill9", {}).get("resume") else 0) \
         + row["fit_long"]["launches"] + row["backtest"]["launches"]
@@ -6508,6 +6597,481 @@ def phase_durable_path(panel, hw_panel, dev, smi, chunk=CHUNK,
     chk(launches["arma_ne"] == 0 and launches["arma_css"] == 0
         and launches["hw_sse"] == 0,
         f"durable_path launched a one-pass kernel: {launches}")
+    chk.raise_first()
+    return row
+
+
+OBS_HEAD_CHUNKS = 4        # the warm-up children's rows: 4 full chunks
+OBS_SCRAPE_S = 0.05        # the scraper's period over the four routes
+OBS_DEADLINE_S = 1.0       # the flight-recorder case's per-chunk deadline
+OBS_HANG_S = 3.0           # ... and its injected hang
+OBS_LM_ANNOTATION = "chip_smoke.arma_lm_fit_launch"
+
+# the warm-up child: one fresh process streams the head rows, first
+# warmed (warmup of the stream's chunk shape) or not (twice, unwarmed)
+_OBS_WARM_CHILD = r"""
+import json, os, time
+import numpy as np
+import torch
+from spark_timeseries_tpu_torch import engine
+from spark_timeseries_tpu_torch.ops import arma_ne
+v = np.load(os.environ["STS_OBS_HEAD"])
+chunk = int(os.environ["STS_OBS_CHUNK"])
+warm = os.environ["STS_OBS_WARM"] == "1"
+dev = torch.device(os.environ["STS_OBS_DEVICE"])
+eng = engine.FitEngine()
+out = {"warm": warm}
+if warm:
+    out["warmup"] = eng.warmup(("arima",), [(chunk, v.shape[1])],
+                               bucket=False, device=dev)
+def stream():
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = eng.stream_fit(v, "arima", p=2, d=1, q=2, chunk_size=chunk,
+                         collect=True, device=dev)
+    return res, time.perf_counter() - t0
+res, s = stream()
+out["first_s"] = s
+out["first_series_per_s"] = v.shape[0] / s
+def cat(field):
+    return torch.cat([getattr(m.diagnostics if field != "coefficients"
+                              else m, field) for m in res.models]).numpy()
+np.savez(os.environ["STS_OBS_OUT"], **{f: cat(f) for f in (
+    "coefficients", "converged", "n_iter", "fun")})
+if not warm:
+    _, s2 = stream()
+    out["second_s"] = s2
+    out["second_series_per_s"] = v.shape[0] / s2
+out["cache_stats"] = eng.cache_stats()
+out["arma_lm_fit_launches"] = arma_ne.fit_css_lm.launches
+print(json.dumps(out))
+"""
+
+# the Prometheus text exposition grammar (format 0.0.4) the JAX
+# package's telemetry tests hold the exporter to
+_PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_PROM_HELP = re.compile(rf"^# HELP {_PROM_NAME} [^\n]*$")
+_PROM_TYPE = re.compile(
+    rf"^# TYPE ({_PROM_NAME}) (counter|gauge|summary|histogram|untyped)$")
+_PROM_LABELS = (r'\{[a-zA-Z_][a-zA-Z0-9_]*="[^"\\\n]*"'
+                r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"\\\n]*")*\}')
+_PROM_VALUE = (r"(-?[0-9]+(\.[0-9]+)?([eE][+-]?[0-9]+)?|[+-]?[Ii]nf"
+               r"|[Nn]a[Nn])")
+_PROM_SAMPLE = re.compile(
+    rf"^({_PROM_NAME})({_PROM_LABELS})? {_PROM_VALUE}$")
+
+
+def prometheus_errors(text: str) -> list:
+    """What in ``text`` breaks the exposition grammar or the summary
+    type's contract (each summary family emits ``_sum`` and
+    ``_count``); empty when it holds."""
+    if text == "":
+        return []
+    if not text.endswith("\n"):
+        return ["no trailing newline"]
+    errors, declared, sampled = [], {}, set()
+    for line in text[:-1].split("\n"):
+        if line.startswith("# HELP "):
+            if not _PROM_HELP.match(line):
+                errors.append(f"bad HELP line {line!r}")
+        elif line.startswith("# TYPE "):
+            m = _PROM_TYPE.match(line)
+            if not m or m.group(1) in declared:
+                errors.append(f"bad or duplicate TYPE line {line!r}")
+            else:
+                declared[m.group(1)] = m.group(2)
+        else:
+            m = _PROM_SAMPLE.match(line)
+            if not m:
+                errors.append(f"bad sample line {line!r}")
+            else:
+                sampled.add(m.group(1))
+    for name, kind in declared.items():
+        if kind == "summary" and not {f"{name}_sum",
+                                      f"{name}_count"} <= sampled:
+            errors.append(f"summary {name} lacks _sum or _count")
+    for name in sampled:
+        if name not in declared and not any(
+                name == f"{d}{sfx}" and declared[d] == "summary"
+                for d in declared for sfx in ("_sum", "_count")):
+            errors.append(f"sample {name} has no TYPE")
+    return errors
+
+
+def _http_get(url: str):
+    """``(status, body)`` of a GET, an HTTP error's included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class _Scraper:
+    """A thread that GETs the exporter's four routes every ``period``
+    seconds until stopped, keeping each answer's status and whether its
+    body parses (Prometheus grammar for ``/metrics``, JSON for the
+    rest)."""
+
+    ROUTES = ("/metrics", "/snapshot.json", "/healthz", "/trace.json")
+
+    def __init__(self, url: str, period: float):
+        import threading
+
+        self.url, self.period = url, period
+        self.answers = []
+        self.bytes = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="chip-smoke-scraper")
+
+    def _loop(self):
+        while not self._stop.is_set():
+            for route in self.ROUTES:
+                try:
+                    status, body = _http_get(self.url + route)
+                    self.bytes[route] = max(self.bytes.get(route, 0),
+                                            len(body))
+                    if route == "/metrics":
+                        errors = prometheus_errors(body)
+                    else:
+                        json.loads(body)
+                        errors = []
+                except Exception as e:  # noqa: BLE001 — reported below
+                    status, errors = None, [f"{type(e).__name__}: {e}"]
+                self.answers.append((route, status, errors))
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+
+    def summary(self) -> dict:
+        by = {r: {"scrapes": 0, "not_200": 0, "unparsed": 0}
+              for r in self.ROUTES}
+        first_error = None
+        for route, status, errors in self.answers:
+            by[route]["scrapes"] += 1
+            by[route]["not_200"] += status != 200
+            by[route]["unparsed"] += bool(errors)
+            if errors and first_error is None:
+                first_error = f"{route}: {errors[0]}"
+        return {"by_route": by, "max_bytes": dict(self.bytes),
+                "first_error": first_error}
+
+
+def _obs_child(head_path: str, out_path: str, chunk: int, warm: bool,
+               env: dict, dev) -> dict:
+    """Run :data:`_OBS_WARM_CHILD` in a fresh process; its report."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _OBS_WARM_CHILD], capture_output=True,
+        text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(
+            __file__)),
+        env=dict(env, STS_OBS_HEAD=head_path, STS_OBS_OUT=out_path,
+                 STS_OBS_CHUNK=str(chunk), STS_OBS_DEVICE=str(dev),
+                 STS_OBS_WARM="1" if warm else "0"))
+    check(out.returncode == 0,
+          f"obs_path warm-up child (warm={warm}) exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    rep["process_s"] = time.perf_counter() - t0
+    return rep
+
+
+def phase_obs_path(panel, dev, smi, chunk=CHUNK,
+                   head_chunks=OBS_HEAD_CHUNKS):
+    """The compile tier and the host observability planes on the card
+    (module docstring, 30)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_timeseries_tpu_torch import _build
+    from spark_timeseries_tpu_torch.engine import FitEngine
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+    from spark_timeseries_tpu_torch.utils import (flightrec, metrics,
+                                                  observability,
+                                                  resilience, telemetry,
+                                                  tracing)
+
+    wrappers = {"arma_lm_fit": arma_ne.fit_css_lm,
+                "arma_ne": arma_ne.normal_equations,
+                "arma_css": arma_ne.css_cost,
+                "hw_box_fit": hw_sse.box_fit,
+                "hw_sse": hw_sse.value_and_grad}
+    for w in wrappers.values():
+        w.launches = 0
+    row = {"phase": "obs_path", "nvidia_smi": smi}
+    chk = _Checks()
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=scratch)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STS_COMPILE_CACHE", "STS_TELEMETRY_PORT",
+                        "STS_INCIDENT_DIR", "STS_TRACE")}
+    n_all = panel.shape[0]
+    n_chunks = -(-n_all // chunk)
+    kw = dict(chunk_size=chunk, p=2, d=1, q=2, device=dev)
+    child_launches = {"arma_lm_fit": 0, "hw_box_fit": 0}
+    children = []
+    lm_call = arma_ne._lm_call
+    try:
+        # -- the kernel build cache: a cold and a warm CLI process ---------
+        cache = os.path.join(work.name, "kernels")
+        shutil.copytree(_build.BUILD_DIR, cache,
+                        ignore=shutil.ignore_patterns("hw_sse-*", "*.tmp*"))
+        cli = [sys.executable, "-m", "spark_timeseries_tpu_torch.engine",
+               "--families", "arima,holt_winters",
+               "--shapes", f"{chunk}x{panel.shape[1]}", "--serving",
+               "--cache-dir", cache, "--device", str(dev)]
+        row["cli"] = {}
+
+        def cli_done(name, proc, t0):
+            stdout, stderr = proc.communicate(timeout=900)
+            check(proc.returncode == 0,
+                  f"obs_path: the {name} engine CLI exited "
+                  f"{proc.returncode}: {stderr[-3000:]}")
+            rep = json.loads(stdout)
+            k = rep["kernels"]
+            row["cli"][name] = {
+                "seconds": time.perf_counter() - t0,
+                "warmup_wall_s": rep["wall_s"], "built": rep["built"],
+                "executables": rep["executables"],
+                "serving": [r["bucket"] for r in rep["serving"]],
+                "kernels": k}
+            for kern in child_launches:
+                child_launches[kern] += k["launches"][kern]
+            chk(k["launches"]["arma_lm_fit"] == 2
+                and k["launches"]["hw_box_fit"] == 1
+                and not any(k["launches"][n] for n in ("arma_ne",
+                                                       "arma_css",
+                                                       "hw_sse")),
+                f"obs_path {name} CLI launches {k['launches']} (want one "
+                f"arma_lm_fit per ARIMA variant, one hw_box_fit)")
+
+        # the cold process spends most of its time in one nvcc process
+        # on the host; the warm-up children (below) use the card meanwhile
+        t_cold = time.perf_counter()
+        cold_proc = subprocess.Popen(cli, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=root, env=env)
+        children.append(cold_proc)
+
+        # -- warm-up: a first stream in a fresh process, warmed or not -----
+        head = np.ascontiguousarray(panel[:head_chunks * chunk])
+        head_path = os.path.join(work.name, "head.npy")
+        np.save(head_path, head)
+        outs = {w: os.path.join(work.name, f"coefs-{w}.npz")
+                for w in ("cold", "warm")}
+        cold_rep = _obs_child(head_path, outs["cold"], chunk, False, env,
+                              dev)
+        warm_rep = _obs_child(head_path, outs["warm"], chunk, True, env,
+                              dev)
+        cli_done("cold", cold_proc, t_cold)
+        t0 = time.perf_counter()
+        warm_proc = subprocess.Popen(cli, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=root, env=env)
+        children.append(warm_proc)
+        cli_done("warm", warm_proc, t0)
+        cold, warm = row["cli"]["cold"]["kernels"], \
+            row["cli"]["warm"]["kernels"]
+        chk(cold["builds"] == 1 and cold["cache_hits"] == 1
+            and warm["builds"] == 0 and warm["cache_hits"] == 2
+            and any(n.startswith("hw_sse-") for n in os.listdir(cache)),
+            f"obs_path build cache: cold {cold}, warm {warm} (the cold "
+            f"process builds hw_sse alone, the warm one builds nothing)")
+
+        a, b = np.load(outs["cold"]), np.load(outs["warm"])
+        bitwise = all(_bitwise_equal(a[f], b[f]) for f in a.files)
+        child_launches["arma_lm_fit"] += cold_rep["arma_lm_fit_launches"] \
+            + warm_rep["arma_lm_fit_launches"]
+        row["warmup"] = {
+            "series": int(head.shape[0]), "unwarmed": cold_rep,
+            "warmed": {k: v for k, v in warm_rep.items() if k != "warmup"},
+            "warmup_report": {k: warm_rep["warmup"][k] for k in (
+                "wall_s", "platform", "executables", "cache_hits",
+                "cache_misses")},
+            "first_stream_speedup": warm_rep["first_series_per_s"]
+            / cold_rep["first_series_per_s"],
+            "bitwise": bitwise}
+        chk(bitwise, "obs_path: the warmed first stream's models are not "
+            "bitwise the unwarmed one's")
+        chk(warm_rep["cache_stats"] == {"executables": 2,
+                                        "cache_hits": head_chunks,
+                                        "cache_misses": 2}
+            and cold_rep["cache_stats"] == {
+                "executables": 1, "cache_hits": 2 * head_chunks - 1,
+                "cache_misses": 1}
+            and warm_rep["arma_lm_fit_launches"] == head_chunks + 2
+            and cold_rep["arma_lm_fit_launches"] == 2 * head_chunks,
+            f"obs_path warm-up children: {row['warmup']}")
+
+        # -- the exporter during the north-star stream, in turns -----------
+        eng = FitEngine()
+        eng.stream_fit(panel[:chunk], "arima", **kw)        # warm
+        telemetry.stop()
+        srv = telemetry.start(port=0)
+        runs, scrape, trace_window = [], None, None
+        for i, scraped in enumerate((False, True, True, False)):
+            label = f"obs-{i}"
+            c0 = arma_ne.fit_css_lm.launches
+            ctx = _Scraper(srv.url, OBS_SCRAPE_S) if scraped \
+                else contextlib.nullcontext()
+            with ctx as sc:
+                _sync(dev)
+                t_ring = time.perf_counter()
+                t0 = time.perf_counter()
+                res = eng.stream_fit(panel, "arima", job_label=label, **kw)
+                secs = time.perf_counter() - t0
+            runs.append({"scraped": scraped, "seconds": secs,
+                         "series_per_s": n_all / secs,
+                         "arma_lm_fit": arma_ne.fit_css_lm.launches - c0,
+                         "chunks": res.n_chunks})
+            if i == 1:
+                scrape = sc.summary()
+                trace_window = (t_ring, time.perf_counter())
+        snap = json.loads(_http_get(srv.url + "/snapshot.json")[1])
+        hz_status, _ = _http_get(srv.url + "/healthz")
+        job = [j for j in snap["recent_jobs"] if j["family"] == "obs-1"]
+        telemetry.stop()
+        plain = [r["series_per_s"] for r in runs if not r["scraped"]]
+        scraped_rates = [r["series_per_s"] for r in runs if r["scraped"]]
+        row["exporter"] = {
+            "runs": runs, "scrape": scrape, "healthz_status": hz_status,
+            "job": job[0] if job else None,
+            "scraped_over_plain": float(np.median(scraped_rates)
+                                        / np.median(plain)),
+            "scrape_s": metrics.snapshot()["histograms"].get(
+                "telemetry.scrape_s"),
+            "snapshot_kernels": snap["kernels"]}
+        chk(all(r["arma_lm_fit"] == n_chunks for r in runs),
+            f"obs_path exporter runs launched {[r['arma_lm_fit'] for r in runs]}"
+            f" arma_lm_fit (want {n_chunks} each)")
+        by = scrape["by_route"]
+        chk(all(v["scrapes"] >= 1 and v["not_200"] == 0
+                and v["unparsed"] == 0 for v in by.values())
+            and hz_status == 200 and job
+            and job[0]["status"] == "done"
+            and job[0]["chunks_done"] == n_chunks,
+            f"obs_path exporter: {row['exporter']}")
+
+        # -- the stream's host-side span breakdown and a profiled chunk ----
+        evs = [e for e in metrics.trace_events()
+               if trace_window[0] <= e["ts"] <= trace_window[1]]
+        out_dir = os.path.join(root, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        trace_path = tracing.write_trace(
+            os.path.join(out_dir, "obs_path_trace.json"), events=evs)
+        report = tracing.self_time_report(10, evs)
+        print("obs_path self_time_report(10):", json.dumps(report),
+              flush=True)
+        row["trace"] = {"path": os.path.relpath(trace_path, root),
+                        "bytes": os.path.getsize(trace_path),
+                        "events": len(evs), "self_times": report}
+        chk(any(e["name"].endswith("engine.dispatch") for e in evs),
+            "obs_path: the stream's trace holds no engine.dispatch span")
+
+        def annotated(*args, **kwargs):
+            with torch.profiler.record_function(OBS_LM_ANNOTATION):
+                return lm_call(*args, **kwargs)
+
+        arma_ne._lm_call = annotated
+        prof_dir = os.path.join(work.name, "profile")
+        c0 = arma_ne.fit_css_lm.launches
+        with observability.profile(prof_dir) as prof:
+            eng.stream_fit(panel[:chunk], "arima", **kw)
+        arma_ne._lm_call = lm_call
+        kevs = list(prof.profiler.kineto_results.events())
+        # the range on the host's timeline (the profiler also draws it
+        # on the card's, over the card's span of the work)
+        spans = [(e.start_ns(), e.end_ns()) for e in kevs
+                 if e.name() == OBS_LM_ANNOTATION
+                 and e.device_type() == torch.autograd.DeviceType.CPU]
+        runtime = [e for e in kevs if _ENQUEUE.match(e.name())]
+        in_span = [e.name() for e in runtime
+                   if any(a <= e.start_ns() <= b for a, b in spans)]
+        files = os.listdir(prof_dir)
+        row["profile"] = {
+            "trace_files": files,
+            "trace_bytes": sum(os.path.getsize(os.path.join(prof_dir, f))
+                               for f in files),
+            "annotations": len(spans), "runtime_ops_in_launch": in_span,
+            "runtime_ops": len(runtime),
+            "device_records": sum(
+                1 for e in kevs
+                if e.device_type() == torch.autograd.DeviceType.CUDA),
+            "device_lm_fit_records": sum(
+                1 for e in kevs if "arma_lm_fit" in e.name()
+                and e.device_type() == torch.autograd.DeviceType.CUDA),
+            "arma_lm_fit": arma_ne.fit_css_lm.launches - c0}
+        chk(len(files) == 1 and row["profile"]["trace_bytes"] > 0
+            and len(spans) == 1 and len(in_span) == 1
+            and row["profile"]["arma_lm_fit"] == 1,
+            f"obs_path profile: {row['profile']} (one trace file, one "
+            f"arma_lm_fit launch counted by its runtime record)")
+
+        # -- a dead chunk's incident bundle carries the trace --------------
+        inc_dir = os.path.join(work.name, "incidents")
+        flightrec.configure(inc_dir)
+        try:
+            with resilience.fault_injection("hang_chunk", chunk_index=0,
+                                            hang_s=OBS_HANG_S):
+                hung = eng.stream_fit(panel[:2 * chunk], "arima",
+                                      deadline_s=OBS_DEADLINE_S, retry=0,
+                                      **kw)
+        finally:
+            flightrec.configure(None)
+            _join_chunk_workers()
+        index = flightrec.list_incidents(inc_dir)
+        dead = [e for e in index if e["kind"] == "chunk_dead"]
+        bundle = flightrec.load_incident(dead[0]["path"]) if dead else {}
+        tev = bundle.get("trace", {}).get("traceEvents", [])
+        leaves = sorted({e["name"].rsplit("/", 1)[-1] for e in tev
+                         if e.get("ph") == "X"})
+        row["flightrec"] = {
+            "kinds": sorted(e["kind"] for e in index),
+            "dead_chunks": hung.stats["dead_chunks"],
+            "schema_problems": flightrec.validate_bundle(bundle),
+            "trace_events": len(tev), "span_leaves": leaves}
+        chk(len(dead) == 1 and not row["flightrec"]["schema_problems"]
+            and {"engine.stage", "engine.dispatch", "engine.collect",
+                 "engine.publish"} <= set(leaves),
+            f"obs_path flightrec: {row['flightrec']} (a schema-valid "
+            f"chunk_dead bundle whose trace holds the stream's spans)")
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        arma_ne._lm_call = lm_call
+        telemetry.stop()
+        work.cleanup()
+
+    launches = {k: w.launches for k, w in wrappers.items()}
+    row["launches"] = launches
+    row["child_launches"] = child_launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    # the warm-up stream, the four north-star streams, the profiled chunk
+    # and the hung stream's other chunk
+    want_lm = 1 + 4 * n_chunks + 1 + 1
+    chk(launches["arma_lm_fit"] == want_lm and launches["hw_box_fit"] == 0
+        and not any(launches[k] for k in ("arma_ne", "arma_css", "hw_sse")),
+        f"obs_path launched {launches} here (want arma_lm_fit {want_lm} "
+        f"and nothing else)")
     chk.raise_first()
     return row
 
@@ -6547,6 +7111,8 @@ def main(argv=None) -> int:
     from spark_timeseries_tpu_torch import _build
     from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
 
+    os.makedirs(os.path.dirname(ROWS_FILE), exist_ok=True)
+    open(ROWS_FILE, "w").close()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6582,6 +7148,9 @@ def main(argv=None) -> int:
     try:
         return _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
                     t0)
+    except BaseException:
+        print_summary()         # the phases that passed before the failure
+        raise
     finally:
         for pool, _ in (refit, auto_ref):
             pool.terminate()
@@ -6696,6 +7265,12 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     # just before it and read just after
     dur = paths.run("durable_path", phase_durable_path, panel, hw_panel,
                     dev, smi)["launches"]
+    # the compile tier and the host observability planes, driven with
+    # the counts set to 0 just before it and read just after; its child
+    # processes report their own launches
+    obs_row = paths.run("obs_path", phase_obs_path, panel, dev, smi)
+    obs = {k: obs_row["launches"][k] + obs_row["child_launches"].get(k, 0)
+           for k in obs_row["launches"]}
     surf = surf_row["launches"]
     # the auto-order stage's launches are the grid row's (its screen and
     # refine, as on the auto-fit path); the rest the LM-fit row's
@@ -6715,7 +7290,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         + arx_row["resilient_arma_lm_fit_launches"]
         + exact_row["arma_lm_fit_launches"]
         + serv_row["arma_lm_fit_launches"] + lng["arma_lm_fit"]
-        + btl["arma_lm_fit"] + flt["arma_lm_fit"] + dur["arma_lm_fit"],
+        + btl["arma_lm_fit"] + flt["arma_lm_fit"] + dur["arma_lm_fit"]
+        + obs["arma_lm_fit"],
         "launches_by_path": {
             "main_path": lm_launches,
             "panel_path": panel_row["arma_lm_fit_launches"],
@@ -6729,7 +7305,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "long_path": lng["arma_lm_fit"],
             "backtest_path": btl["arma_lm_fit"],
             "fleet_path": flt["arma_lm_fit"],
-            "durable_path": dur["arma_lm_fit"]},
+            "durable_path": dur["arma_lm_fit"],
+            "obs_path": obs["arma_lm_fit"]},
         "long_path_launch": {
             k: long_row["lm_fit"][k] for k in (
                 "lanes", "n_obs", "lm_fit_ms", "bound_ms", "bound_by",
@@ -6874,13 +7451,15 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_launches + hwr_row["hw_box_fit_launches"]
-        + serv["hw_box_fit"] + flt["hw_box_fit"] + dur["hw_box_fit"],
+        + serv["hw_box_fit"] + flt["hw_box_fit"] + dur["hw_box_fit"]
+        + obs["hw_box_fit"],
         "launches_by_path": {
             "hw_path": hw_launches,
             "hw_resilient_path": hwr_row["hw_box_fit_launches"],
             "serving_path": serv["hw_box_fit"],
             "fleet_path": flt["hw_box_fit"],
-            "durable_path": dur["hw_box_fit"]},
+            "durable_path": dur["hw_box_fit"],
+            "obs_path": obs["hw_box_fit"]},
         "max_abs_err": fit_row["vs_plain_max_abs_x_same_iter"],
         "ms": fit_row["box_fit_ms"], "plain_ms": fit_row["plain_ms"],
         "plain_lanes": fit_row["plain_lanes"],
@@ -6906,6 +7485,7 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "padded_launch_ms": grid_row["padded_launch_ms"],
         "padded_bound_ms": grid_row["padded_bound_ms"],
         "library_ms": None}]})
+    print_summary()
     print(smi, flush=True)
     check(not any(paths.total.values()),
           f"a path launched a time-major comparison kernel: "

@@ -15,7 +15,13 @@ the wrappers pass pointers and the stream as ``ctypes.c_void_p``.
 
 Importing this module needs no compiler; building happens when a CUDA
 tensor first reaches a kernel wrapper (or :func:`build_all` is called),
-and a missing nvcc raises then.  :func:`check_inputs` and :func:`launch`
+and a missing nvcc raises then.  The build directory is the kernel build
+cache: a process pointed at a directory that already holds a library's
+current build loads it without compiling (:func:`set_build_dir`, which
+``engine.configure_compile_cache`` / ``STS_COMPILE_CACHE`` call).  The
+default metrics registry counts ``kernels.builds`` (CUDA libraries
+compiled and linked by nvcc) and ``kernels.cache_hits`` (CUDA libraries
+whose build was found on disk at their first load).  :func:`check_inputs` and :func:`launch`
 are the wrappers' side of the binding: what may cross into a kernel, and
 a launch on the current stream whose error code raises.
 """
@@ -34,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ._device import KernelError, KernelInputError
+from .utils import metrics as _metrics
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
@@ -125,6 +132,7 @@ def build_all() -> List[Path]:
         tmp.unlink(missing_ok=True)
     if failed:
         raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
+    _metrics.inc("kernels.builds", len(todo))
     return [_target(name) for name in _sources()]
 
 
@@ -134,7 +142,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             so = _target(name)
-            if not so.exists():
+            if so.exists():
+                _metrics.inc("kernels.cache_hits")
+            else:
                 build_all()
             try:
                 lib = ctypes.CDLL(str(so))
@@ -142,6 +152,23 @@ def library(name: str) -> ctypes.CDLL:
                 raise KernelError(f"cannot load {so}: {e}") from e
             _libs[name] = lib
         return lib
+
+
+def set_build_dir(path) -> Path:
+    """Point the kernel build cache at ``path`` (created at the first
+    build).  A process's CUDA kernels come from one directory: once a
+    CUDA library is loaded from another, this raises."""
+    global BUILD_DIR
+    new = Path(path).resolve()
+    with _lock:
+        loaded = sorted(n for n in _sources() if n in _libs)
+        if new != BUILD_DIR and loaded:
+            raise RuntimeError(
+                f"CUDA libraries {loaded} are already loaded from "
+                f"{BUILD_DIR}; set the build directory before the first "
+                f"kernel loads")
+        BUILD_DIR = new
+    return new
 
 
 def host_library(name: str) -> Optional[ctypes.CDLL]:

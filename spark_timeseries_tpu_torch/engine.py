@@ -33,9 +33,22 @@ its meaning of the fits' restarts), OOM-adaptive chunk halving
 (``degrade=``, ``degrade_floor=``: a ``torch.cuda.OutOfMemoryError`` in a
 chunk halves it), a ``telemetry.JobProgress`` per run (``on_progress=``,
 ``job_label=``) and flight-recorder incidents under ``STS_INCIDENT_DIR``.
-What only XLA needs does not come across: the AOT executable cache, its
-compile-cache directory and buffer donation; ``donate=`` and ``fused=``
-are taken and change nothing (one publish path, no donation).
+``STS_TELEMETRY_PORT`` set, ``stream_fit`` starts the telemetry exporter
+(``utils.telemetry``) before its first chunk, as the JAX engine does.
+
+The compile tier: eager PyTorch has no executables, so what the JAX
+engine caches per ``(family, statics, bucket, dtype, variant)`` key is
+here a record that this engine has run or warmed that key
+(:meth:`FitEngine.cache_stats`: the JAX engine's counters, counted in
+the same sequence), and its persistent compilation cache is the kernel
+build cache (:func:`configure_compile_cache`, ``STS_COMPILE_CACHE``).
+:meth:`FitEngine.warmup` builds the kernels a family needs and runs one
+fit per key on the device, which loads the kernel modules, creates the
+cuBLAS / cuSOLVER handles and grows the caching allocator before the
+first real chunk.  ``python -m spark_timeseries_tpu_torch.engine`` is
+its command line (:func:`main`).  Buffer donation does not come across:
+``donate=`` and ``fused=`` are taken and change nothing (one publish
+path, no donation).
 """
 
 from __future__ import annotations
@@ -48,11 +61,13 @@ import threading
 import time
 import traceback as _traceback
 from collections import deque
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
+from . import _build
 from ._device import (as_tensor, check_dtype, is_device_fault,
                       resolve_device)
 from .ops.ragged import ragged_view
@@ -65,9 +80,10 @@ from .utils.durability import (BackoffPolicy, ChunkDeadlineExceeded,
                                JournalSpecMismatch)
 
 __all__ = ["SERIES_BUCKET_FLOOR", "OBS_BUCKET_MULTIPLE", "pad_bucket",
-           "series_bucket", "FitEngine", "StreamResult", "default_engine",
+           "series_bucket", "configure_compile_cache", "FitEngine",
+           "StreamResult", "default_engine", "ENGINE_FAMILIES",
            "RAGGED_FAMILIES", "BackoffPolicy", "ChunkDeadlineExceeded",
-           "JournalSpecMismatch"]
+           "JournalSpecMismatch", "main"]
 
 SERIES_BUCKET_FLOOR = 8
 OBS_BUCKET_MULTIPLE = 32
@@ -90,6 +106,39 @@ def pad_bucket(n_series: int, n_obs: int) -> Tuple[int, int]:
     return series_bucket(n_series), t
 
 
+# ---------------------------------------------------------------------------
+# kernel build cache (STS_COMPILE_CACHE)
+# ---------------------------------------------------------------------------
+
+_cache_state = {"dir": None}
+
+
+def configure_compile_cache(path: Optional[str] = None) -> Optional[str]:
+    """Arm the kernel build cache: the counterpart of the JAX engine's
+    persistent compilation cache.
+
+    ``path`` (or, when None, the ``STS_COMPILE_CACHE`` environment
+    variable) becomes the directory the CUDA kernels are built into and
+    loaded from (``_build.BUILD_DIR``), and the ``engine.compile_cache_
+    enabled`` gauge is set.  Returns the armed directory, or None when
+    neither source names one (the default build directory stays).
+    Idempotent; it must be armed before the first kernel loads.  A fresh
+    process pointed at a warm directory loads the libraries instead of
+    running nvcc (``kernels.cache_hits`` counts the proof, and
+    ``kernels.builds`` stays 0).
+    """
+    if path is None:
+        path = os.environ.get("STS_COMPILE_CACHE")
+    if not path:
+        return None
+    if _cache_state["dir"] == path:
+        return path
+    _build.set_build_dir(path)
+    _cache_state["dir"] = path
+    _metrics.set_gauge("engine.compile_cache_enabled", 1.0)
+    return path
+
+
 _STATICS_BUILDERS = {
     "arima": lambda p=2, d=1, q=2, include_intercept=True,
     method="css-lm", max_iter=None, retry=None, objective="css":
@@ -104,6 +153,11 @@ _STATICS_BUILDERS = {
     "holt_winters": lambda period=12, model_type="additive":
         (int(period), str(model_type)),
 }
+
+ENGINE_FAMILIES = tuple(_STATICS_BUILDERS)
+
+# the CUDA libraries (``csrc/<name>.cu``) each family's fit launches
+_FAMILY_KERNELS = {"arima": ("arma_ne",), "holt_winters": ("hw_sse",)}
 
 # families fitted by an iterative solver whose per-lane iterations
 # stream_fit reports as solver_iterations
@@ -165,6 +219,37 @@ def _interior_gap_count(host: np.ndarray) -> int:
     last = n - 1 - obs[:, ::-1].argmax(axis=-1)
     window = np.where(any_obs, last - start + 1, 0)
     return int(np.sum(obs.sum(axis=-1) != window))
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch, numpy or string dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def _dtype_name(dtype) -> str:
+    """A dtype's numpy name (``"float32"``), the run keys' spelling."""
+    return str(_torch_dtype(dtype)).replace("torch.", "")
+
+
+# volatility families: warmed on returns (white noise), not levels
+_RETURN_FAMILIES = ("garch", "argarch", "egarch")
+
+
+def _warm_panel(family: str, shape: Tuple[int, int], variant: str,
+                dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """The panel :meth:`FitEngine.warmup` fits at one key: random walks
+    (white noise for the volatility families) from a fixed seed; the
+    ragged variant NaN-pads the last quarter of every other lane."""
+    n_series, n_obs = shape
+    g = torch.Generator().manual_seed(0)
+    v = torch.randn((n_series, n_obs), generator=g, dtype=torch.float64)
+    if family not in _RETURN_FAMILIES:
+        v = v.cumsum(1)
+    if variant == "ragged":
+        v[::2, n_obs - n_obs // 4:] = float("nan")
+    return v.to(device=dev, dtype=dtype)
 
 
 def _map_tensors(obj, fn):
@@ -369,14 +454,52 @@ class FitEngine:
     (default the process registry); ``prefetch`` how many chunks
     :meth:`stream_fit` stages ahead of the one fitting (1: the double
     buffer); ``donate`` is the JAX engine's buffer-donation switch,
-    taken and inert (no executable to donate to)."""
+    taken and inert (no executable to donate to);
+    ``compile_cache_dir`` arms the kernel build cache
+    (:func:`configure_compile_cache`; None reads ``STS_COMPILE_CACHE``).
+    Thread-safe: the record of run keys is lock-guarded."""
 
     def __init__(self, *, registry: Optional[Any] = None,
-                 prefetch: int = 1, donate: Optional[bool] = None):
+                 prefetch: int = 1, donate: Optional[bool] = None,
+                 compile_cache_dir: Optional[str] = None):
         self._reg = registry if registry is not None \
             else _metrics.get_registry()
         self.prefetch = max(1, int(prefetch))
         self._donate = donate
+        self._lock = threading.RLock()
+        self._entries: set = set()
+        configure_compile_cache(compile_cache_dir)
+
+    # -- the record of run keys (the JAX engine's executable cache) ---------
+
+    def _entry(self, family: str, statics: tuple, bucket: Tuple[int, int],
+               dtype, variant: str, device: torch.device) -> bool:
+        """Count one run of ``(family, statics, bucket, dtype, variant)``
+        on ``device``'s type where the JAX engine looks an executable up:
+        a key run or warmed before is ``engine.cache_hits``, a new one
+        ``engine.cache_misses`` (and grows the ``engine.executables``
+        gauge).  True for a new key."""
+        key = (family, statics, tuple(int(b) for b in bucket),
+               _dtype_name(dtype), variant, device.type)
+        with self._lock:
+            if key in self._entries:
+                self._reg.inc("engine.cache_hits")
+                return False
+            self._reg.inc("engine.cache_misses")
+            self._entries.add(key)
+            self._reg.set_gauge("engine.executables", len(self._entries))
+        return True
+
+    def cache_stats(self) -> Dict[str, int]:
+        """``executables`` (keys this engine has run or warmed),
+        ``cache_hits`` and ``cache_misses`` (the registry's
+        ``engine.cache_*`` counters): the JAX engine's keys."""
+        snap = self._reg.snapshot()["counters"]
+        with self._lock:
+            n = len(self._entries)
+        return {"executables": n,
+                "cache_hits": int(snap.get("engine.cache_hits", 0)),
+                "cache_misses": int(snap.get("engine.cache_misses", 0))}
 
     def fit(self, values, family: str = "arima", *, bucket_obs: bool = True,
             device=None, warn: bool = False, **kwargs):
@@ -389,14 +512,17 @@ class FitEngine:
         valid windows (holt_winters left-aligns its own); NaN inside a
         window raises.
 
-        ``bucket_obs`` is the JAX engine's (whether to pad the observation
-        axis to its bucket); the port fits every panel at its own shape,
-        so it changes nothing.  As the JAX engine's direct bypass does,
-        a panel that is not 2-D, or keywords the family's statics builder
-        rejects (arima's ``user_init_params``), go to the family's own fit
-        (:meth:`_direct`); a family the engine does not fit raises
-        ``ValueError``."""
-        del bucket_obs
+        The port fits every panel at its own shape: eager PyTorch has no
+        compiled program for padding to serve.  The JAX engine's bucket
+        (``bucket_obs``: whether the observation axis pads to its
+        multiple of 32) and its dense / ragged routing only key the run
+        in :meth:`cache_stats`, where a family without a ragged path
+        given NaN or an unbucketed observation axis counts nothing (the
+        JAX engine bypasses its cache for it).  As the JAX engine's
+        direct bypass does, a panel that is not 2-D or keywords the
+        family's statics builder rejects (arima's ``user_init_params``)
+        go to the family's own fit (:meth:`_direct`); a family the engine
+        does not fit raises ``ValueError``."""
         dev = resolve_device(device)
         v = as_tensor(values, dev)
         builder = _STATICS_BUILDERS.get(family)
@@ -406,7 +532,16 @@ class FitEngine:
             statics = builder(**kwargs)
         except TypeError:
             return self._direct(v, family, warn, kwargs)
-        return _fit_values(family, statics, v, warn)
+        n_series, n_obs = v.shape
+        bs, bt = pad_bucket(n_series, n_obs)
+        if not bucket_obs:
+            bt = n_obs
+        model = _fit_values(family, statics, v, warn)
+        variant = "ragged" if bool(torch.isnan(v).any()) or n_obs != bt \
+            else "dense"
+        if variant == "dense" or family in RAGGED_FAMILIES:
+            self._entry(family, statics, (bs, bt), v.dtype, variant, dev)
+        return model
 
     @staticmethod
     def _direct(values: torch.Tensor, family: str, warn: bool, kwargs):
@@ -484,6 +619,74 @@ class FitEngine:
             None if outcome.orders is None
             else outcome.orders[:n_series])
         return model, outcome
+
+    # -- warm-up ------------------------------------------------------------
+
+    def warmup(self, families: Sequence[str] = ("arima",),
+               shapes: Sequence[Tuple[int, int]] = ((1024, 128),),
+               *, dtype=None, variants: Optional[Sequence[str]] = None,
+               bucket: bool = True, device=None,
+               **kwargs) -> Dict[str, Any]:
+        """Ready the engine ahead of traffic: build every CUDA library
+        the families' fits launch, then run one fit per new ``(family,
+        bucket(shape), variant)`` key on ``device`` (``None`` means CUDA)
+        over a panel drawn from a fixed seed (random walks; white noise
+        for the volatility families; the ragged variant NaN-pads the
+        last quarter of every other lane).  That loads the kernel
+        modules, creates the cuBLAS / cuSOLVER handles and grows the
+        caching allocator to the chunk's size; the fits' results are
+        dropped, and no fit after a warm-up changes by a bit.
+
+        ``kwargs`` parameterize every family's statics (families that
+        reject a keyword use their defaults).  ``bucket=False`` keys each
+        shape verbatim, as :meth:`stream_fit` keys its full chunks at
+        ``(chunk_size, n_obs)``; the default pads it through
+        :func:`pad_bucket`, as :meth:`fit` keys a panel.  Variants
+        default to dense and ragged for :data:`RAGGED_FAMILIES`, dense
+        for the rest.  Returns the JAX engine's report: ``built`` (one
+        row per key), ``wall_s``, ``platform`` (``"cuda"`` or ``"cpu"``)
+        and the :meth:`cache_stats` counts."""
+        dev = resolve_device(device)
+        dt = _torch_dtype(torch.float32 if dtype is None else dtype)
+        check_dtype(dt, dev)
+        plan = []
+        for family in families:
+            builder = _STATICS_BUILDERS.get(family)
+            if builder is None:
+                raise ValueError(
+                    f"unknown engine family {family!r}; expected a subset "
+                    f"of {sorted(_STATICS_BUILDERS)}")
+            try:
+                statics = builder(**kwargs)
+            except TypeError:
+                statics = builder()
+            fam_variants = variants if variants is not None else (
+                ("dense", "ragged") if family in RAGGED_FAMILIES
+                else ("dense",))
+            plan.append((family, statics, fam_variants))
+        built = []
+        t0 = time.perf_counter()
+        with _metrics.span("engine.warmup", self._reg):
+            if dev.type == "cuda":
+                for family, _, _ in plan:
+                    for lib in _FAMILY_KERNELS.get(family, ()):
+                        _build.library(lib)
+            for family, statics, fam_variants in plan:
+                for shape in shapes:
+                    bkt = pad_bucket(*shape) if bucket else tuple(shape)
+                    for variant in fam_variants:
+                        if self._entry(family, statics, bkt, dt, variant,
+                                       dev):
+                            _fit_values(family, statics,
+                                        _warm_panel(family, bkt, variant,
+                                                    dt, dev), stats={})
+                        built.append({"family": family,
+                                      "bucket": list(bkt),
+                                      "variant": variant})
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return {"built": built, "wall_s": round(time.perf_counter() - t0, 3),
+                "platform": dev.type, **self.cache_stats()}
 
     def stream_fit(self, values, family: str = "arima", *,
                    chunk_size: int = 131072,
@@ -722,6 +925,9 @@ class _StreamRun:
     # -- the run -------------------------------------------------------------
 
     def run(self) -> StreamResult:
+        # the STS_TELEMETRY_PORT opt-in, before the job registers so an
+        # operator can watch the run from chunk 0
+        _telemetry.ensure_started_from_env()
         self.progress = _telemetry.JobProgress(
             _telemetry.new_job_id(self.label), self.label, self.n_series,
             len(self.partition), self.chunk,
@@ -807,8 +1013,9 @@ class _StreamRun:
         if self.jr is not None and self._resume(start, stop):
             return None
         try:
-            part, bs, variant = self._prep(start, stop)
-            return bs, variant, self.feed.put(part)
+            with _metrics.span("engine.stage", self.reg):
+                part, bs, variant = self._prep(start, stop)
+                return bs, variant, self.feed.put(part)
         except Exception as e:  # noqa: BLE001 — chunk isolation
             if _fatal(e):
                 raise
@@ -917,19 +1124,18 @@ class _StreamRun:
                 "RESOURCE_EXHAUSTED: injected oom_chunk fault")
 
     @staticmethod
-    def _hang(idx: int, retrying: bool, abandoned: threading.Event) -> bool:
-        """The ``hang_chunk`` fault at a chunk's first attempt (a retry
-        runs clean); True when the worker was abandoned meanwhile and
-        must not fit."""
-        hang = None if retrying \
-            else _resilience.chunk_fault("hang_chunk", idx)
+    def _hang(idx: int, abandoned: threading.Event) -> bool:
+        """The ``hang_chunk`` fault, at every attempt at the chunk (a
+        retry hangs again, as in the JAX engine); True when the worker
+        was abandoned meanwhile and must not fit."""
+        hang = _resilience.chunk_fault("hang_chunk", idx)
         if hang is None:
             return False
         time.sleep(hang.hang_s)
         return abandoned.is_set()
 
-    def _attempt(self, idx: int, start: int, stop: int, staged=None,
-                 retrying: bool = False) -> None:
+    def _attempt(self, idx: int, start: int, stop: int,
+                 staged=None) -> None:
         """Fit exactly ``[start, stop)`` once and publish it; raises on
         failure.  ``staged`` is the ``(bucket, variant, slot)`` the
         pipelined loop prepared; without it the range is prepped and
@@ -943,8 +1149,10 @@ class _StreamRun:
         self._check_oom_fault(idx, start, stop)
 
         def work(abandoned):
-            if self._hang(idx, retrying, abandoned):
+            if self._hang(idx, abandoned):
                 return None
+            self.eng._entry(self.family, self.statics, (bs, self.n_obs),
+                            self.host.dtype, variant, self.dev)
             with self._on_stream():
                 if slot is None:
                     values = torch.from_numpy(part).to(self.dev, copy=True)
@@ -952,27 +1160,30 @@ class _StreamRun:
                     values = self.feed.take(slot, bs)
                 solver: Dict[str, Any] = {}
                 try:
-                    model = _fit_values(self.family, self.statics, values,
-                                        stats=solver)
+                    with _metrics.span("engine.dispatch", self.reg):
+                        model = _fit_values(self.family, self.statics,
+                                            values, stats=solver)
                 finally:
                     # even a failed fit may have enqueued reads of the slot
                     if slot is not None:
                         self.feed.release(slot)
-                diag = model.diagnostics
-                # the chunk's one host sync: every count it reports
-                reads = [diag.converged[:n_real].sum()]
-                if self.lm_path or self.family == "holt_winters" \
-                        or self.family in _SOLVER_FAMILIES:
-                    reads.append(diag.n_iter.max().long())
-                if self.family == "holt_winters":
-                    reads.append(solver["evaluations"].sum())
-                counts = torch.stack(reads).tolist()
-                host_model = None
-                if self.keep_models:
-                    host_model = _map_tensors(
-                        model, lambda t: (t[:n_real] if t.ndim >= 1
-                                          and t.shape[0] == bs
-                                          else t).cpu())
+                # the chunk's one host sync (every count it reports): the
+                # span holds the wait for the card's work of the chunk
+                with _metrics.span("engine.collect", self.reg):
+                    diag = model.diagnostics
+                    reads = [diag.converged[:n_real].sum()]
+                    if self.lm_path or self.family == "holt_winters" \
+                            or self.family in _SOLVER_FAMILIES:
+                        reads.append(diag.n_iter.max().long())
+                    if self.family == "holt_winters":
+                        reads.append(solver["evaluations"].sum())
+                    counts = torch.stack(reads).tolist()
+                    host_model = None
+                    if self.keep_models:
+                        host_model = _map_tensors(
+                            model, lambda t: (t[:n_real] if t.ndim >= 1
+                                              and t.shape[0] == bs
+                                              else t).cpu())
             return counts, solver, host_model
 
         self.progress.heartbeat("fit", chunk=(start, stop))
@@ -998,21 +1209,21 @@ class _StreamRun:
                        "bucket": [int(bs), int(self.n_obs)],
                        "variant": variant})
 
-    def _attempt_resilient(self, idx: int, start: int, stop: int,
-                           retrying: bool = False) -> None:
+    def _attempt_resilient(self, idx: int, start: int, stop: int) -> None:
         """One resilient chain over exactly ``[start, stop)``."""
         self._check_oom_fault(idx, start, stop)
 
         def work(abandoned):
-            if self._hang(idx, retrying, abandoned):
+            if self._hang(idx, abandoned):
                 return None
             with self._on_stream():
                 part = torch.from_numpy(self.host[start:stop]).to(self.dev)
                 st: Dict[str, Any] = {}
                 kw = dict(self.kwargs, stats=st) if self.kernel \
                     else self.kwargs
-                model, outcome = self.eng.fit_resilient(
-                    part, self.family, device=self.dev, **kw)
+                with _metrics.span("engine.dispatch", self.reg):
+                    model, outcome = self.eng.fit_resilient(
+                        part, self.family, device=self.dev, **kw)
                 if self.keep_models:
                     model = _map_tensors(model, lambda t: t.cpu())
             return model if self.keep_models else None, outcome, st
@@ -1043,37 +1254,38 @@ class _StreamRun:
                  meta: Dict[str, Any]) -> None:
         """A fitted range's journal commit (and the faults that act on
         it), collection and progress."""
-        self.reg.inc("engine.chunks")
-        if self.jr is not None:
-            t0 = time.perf_counter()
-            self.jr.commit(start, stop, model, meta)
-            self.commit_s += time.perf_counter() - t0
-            self.durex["journal_commits"] += 1
-            self.reg.inc("engine.journal_commits")
-            self.progress.note(journal_commits=1)
-            full = (start, stop) == self.partition[idx]
-            if full and _resilience.chunk_fault(
-                    "kill_after_chunk", idx) is not None:
-                # SIGKILL runs no handler: the bundle is written first
-                _flightrec.record_incident(
-                    "kill_after_chunk", job=self.progress,
-                    journal_path=self._jpath(),
-                    extra={"chunk": [int(start), int(stop)],
-                           "chunk_index": int(idx),
-                           "note": "injected SIGKILL after journal "
-                                   "commit"},
-                    registry=self.reg)
-                os.kill(os.getpid(), signal.SIGKILL)
-            if full and _resilience.chunk_fault(
-                    "corrupt_journal", idx) is not None:
-                self.jr.corrupt_entry(start, stop)
-        if self.collect:
-            self.collected[start] = (stop, model)
-        if (start, stop) in self.partition_set:
-            self.progress.note_chunk_done()
-        else:
-            self.progress.note(subchunks_done=1)
-        self._publish_progress()
+        with _metrics.span("engine.publish", self.reg):
+            self.reg.inc("engine.chunks")
+            if self.jr is not None:
+                t0 = time.perf_counter()
+                self.jr.commit(start, stop, model, meta)
+                self.commit_s += time.perf_counter() - t0
+                self.durex["journal_commits"] += 1
+                self.reg.inc("engine.journal_commits")
+                self.progress.note(journal_commits=1)
+                full = (start, stop) == self.partition[idx]
+                if full and _resilience.chunk_fault(
+                        "kill_after_chunk", idx) is not None:
+                    # SIGKILL runs no handler: the bundle is written first
+                    _flightrec.record_incident(
+                        "kill_after_chunk", job=self.progress,
+                        journal_path=self._jpath(),
+                        extra={"chunk": [int(start), int(stop)],
+                               "chunk_index": int(idx),
+                               "note": "injected SIGKILL after journal "
+                                       "commit"},
+                        registry=self.reg)
+                    os.kill(os.getpid(), signal.SIGKILL)
+                if full and _resilience.chunk_fault(
+                        "corrupt_journal", idx) is not None:
+                    self.jr.corrupt_entry(start, stop)
+            if self.collect:
+                self.collected[start] = (stop, model)
+            if (start, stop) in self.partition_set:
+                self.progress.note_chunk_done()
+            else:
+                self.progress.note(subchunks_done=1)
+            self._publish_progress()
 
     def _publish_progress(self) -> None:
         """``engine.job.*`` gauges and the caller's ``on_progress``
@@ -1101,17 +1313,16 @@ class _StreamRun:
         return _durability.is_oom(e) and self.degrade \
             and (stop - start) > self.floor
 
-    def _run_sync(self, idx: int, start: int, stop: int,
-                  retrying: bool = False) -> None:
+    def _run_sync(self, idx: int, start: int, stop: int) -> None:
         """One synchronous attempt at exactly ``[start, stop)``; raises
         on failure.  An OOM that can still split degrades instead (each
         half then succeeds or routes itself), which counts as this
         attempt succeeding."""
         try:
             if self.resilient:
-                self._attempt_resilient(idx, start, stop, retrying)
+                self._attempt_resilient(idx, start, stop)
             else:
-                self._attempt(idx, start, stop, retrying=retrying)
+                self._attempt(idx, start, stop)
             return
         except Exception as e:  # noqa: BLE001 — classified below
             if not self._can_split(e, start, stop):
@@ -1235,8 +1446,7 @@ class _StreamRun:
                 elif delay > 0:
                     time.sleep(delay)
                 try:
-                    self._run_sync(q["idx"], q["start"], q["stop"],
-                                   retrying=True)
+                    self._run_sync(q["idx"], q["start"], q["stop"])
                     recovered = True
                     break
                 except Exception as e:  # noqa: BLE001 — retried
@@ -1343,9 +1553,94 @@ _default_lock = threading.Lock()
 
 def default_engine() -> FitEngine:
     """The process-wide engine (lazily created) that the entry points
-    which are not handed one route through (``ServingSession.heal``)."""
+    which are not handed one route through (``ServingSession.heal``);
+    ``STS_COMPILE_CACHE`` is honoured at creation."""
     global _default_engine
     with _default_lock:
         if _default_engine is None:
             _default_engine = FitEngine()
         return _default_engine
+
+
+# ---------------------------------------------------------------------------
+# CLI: `python -m spark_timeseries_tpu_torch.engine`
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    """Warm a process's kernels and fits at the given shapes and print
+    the warm-up report as JSON, with a ``kernels`` block (builds,
+    build-cache hits, launches) in place of the JAX CLI's ``jax``
+    block."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m spark_timeseries_tpu_torch.engine",
+        description="Build the CUDA kernels and run one fit per shape "
+                    "bucket (with --cache-dir or STS_COMPILE_CACHE the "
+                    "kernel builds persist there, so later processes "
+                    "pointed at it build nothing).")
+    ap.add_argument("--families", default="arima",
+                    help=f"comma-separated subset of {ENGINE_FAMILIES} "
+                         f"(default arima)")
+    ap.add_argument("--shapes", default="16384x128",
+                    help="comma-separated n_seriesXn_obs raw shapes; each "
+                         "warms its padding bucket (default 16384x128)")
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--cache-dir", default=None,
+                    help="kernel build cache directory (default: "
+                         "$STS_COMPILE_CACHE when set)")
+    ap.add_argument("--serving", action="store_true",
+                    help="also warm the serving tier's per-tick update at "
+                         "the same series counts (statespace.serving."
+                         "warmup_update; families with a state-space form "
+                         "only)")
+    ap.add_argument("--device", default="cuda",
+                    help="device to warm (default cuda; cpu for a "
+                         "machine without a card)")
+    args = ap.parse_args(argv)
+
+    families = [f for f in args.families.split(",") if f]
+    unknown = [f for f in families if f not in _STATICS_BUILDERS]
+    if unknown:
+        ap.error(f"unknown families {unknown}; expected subset of "
+                 f"{sorted(_STATICS_BUILDERS)}")
+    shapes = []
+    try:
+        for tok in args.shapes.split(","):
+            if not tok:
+                continue
+            s, t = (int(x) for x in tok.lower().split("x"))
+            if s < 1 or t < 1:
+                raise ValueError
+            shapes.append((s, t))
+        if not shapes:
+            raise ValueError
+    except ValueError:
+        ap.error(f"--shapes must be <n_series>x<n_obs>[,...] with positive "
+                 f"ints, got {args.shapes!r}")
+
+    dtype = _torch_dtype(args.dtype)
+    eng = FitEngine(compile_cache_dir=args.cache_dir)
+    report = eng.warmup(families, shapes, dtype=dtype, device=args.device)
+    if args.serving:
+        from .statespace import serving as _serving
+        served = []
+        for fam in families:
+            if fam not in _serving.WARMUP_FAMILIES:
+                continue
+            for s, _t in shapes:
+                served.append(_serving.warmup_update(
+                    fam, s, dtype=dtype, device=args.device))
+        if served and torch.device(args.device).type == "cuda":
+            torch.cuda.synchronize()
+        report["serving"] = served or (
+            f"no serving-capable families in {families}; expected a "
+            f"subset of {list(_serving.WARMUP_FAMILIES)}")
+    report["kernels"] = _telemetry.kernel_stats()
+    print(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

@@ -413,12 +413,11 @@ def lineage_summary() -> Dict[str, Any]:
 
 
 def trace_events(limit: Optional[int] = None) -> List[dict]:
-    """Completed lineage stages as timeline events in the JAX package's
-    Chrome-trace input shape (``span`` dicts on the shared
-    ``perf_counter`` clock; the tracing plane that exports them is not
-    ported yet, ROADMAP Queue A item 5).  Records are striped over a few
-    synthetic integer lanes to keep concurrent ticks visually
-    separable."""
+    """Completed lineage stages as timeline events in the trace ring's
+    shape (``span`` dicts on the shared ``perf_counter`` clock), which
+    ``utils.tracing.to_chrome_trace`` interleaves with the engine's
+    spans.  Records are striped over a few synthetic integer lanes to
+    keep concurrent ticks visually separable."""
     recs = records()
     if limit is not None and limit >= 0:
         recs = recs[-limit:]

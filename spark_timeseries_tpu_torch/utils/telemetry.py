@@ -1,43 +1,95 @@
-"""The host-side pieces of the telemetry plane that the serving and
-fleet tiers call (counterpart of ``spark_timeseries_tpu/utils/
-telemetry.py``): the shared parser of positive numeric ``STS_*`` knobs,
-:func:`json_safe`, job heartbeats (:class:`JobProgress`: the fleet
-runtime's pump publishes one) and the registry of active jobs, and the
-weak registries of live serving sessions, fleet schedulers and fleet
-runtimes, which the exporter will read.
+"""Live telemetry plane: an HTTP scrape endpoint over the running process
+(counterpart of ``spark_timeseries_tpu/utils/telemetry.py``).
 
-The scrape exporter itself (``/snapshot.json``, ``/healthz``,
-``/trace.json``) is not ported yet (ROADMAP Queue A item 5): with
-``STS_TELEMETRY_PORT`` unset :func:`ensure_started_from_env` does
-nothing, and with it set it raises.
+- a **scrape server** (:func:`start` / ``STS_TELEMETRY_PORT``): a stdlib
+  ``http.server`` daemon thread serving
+
+  ===================  ====================================================
+  route                payload
+  ===================  ====================================================
+  ``/metrics``         Prometheus text (``metrics.to_prometheus``)
+  ``/snapshot.json``   registry snapshot + active job progress + serving
+                       session and fleet summaries + recent incident index
+                       + kernel builds and launches
+  ``/trace.json``      the trace ring as Chrome trace JSON
+                       (``?limit=N`` keeps the newest N events)
+  ``/healthz``         liveness + per-job heartbeat staleness (HTTP 503
+                       when any active job's or fleet pump's heartbeat is
+                       stale)
+  ===================  ====================================================
+
+  No thread runs until :func:`start` is called, or a job or session
+  entry point (``engine.stream_fit``, ``ServingSession``,
+  ``FleetScheduler``) sees ``STS_TELEMETRY_PORT`` in the environment
+  (:func:`ensure_started_from_env`).  Strictly host-side: the exporter
+  reads registries and host-side progress structs, never a tensor, and
+  a scrape never initialises CUDA or builds a kernel.
+
+- **job heartbeats** (:class:`JobProgress`): ``engine.stream_fit``
+  registers one per run and stamps it as each chunk is fitted, so a hung
+  chunk is visible (heartbeat age grows) before its deadline fires.
+  Chunk completions feed an EW-smoothed chunk cadence, which yields the
+  ETA in ``/snapshot.json``.  Staleness (``/healthz``): a heartbeat older
+  than ``STS_TELEMETRY_STALE_FACTOR`` (default 5) times the expected
+  chunk cadence (the EW estimate once a chunk has completed,
+  :data:`DEFAULT_EXPECTED_CHUNK_S` before that) reports the job, and the
+  process, unhealthy.
+
+- **serving session, fleet and fleet runtime registries**: weakly
+  tracked, summarized into ``/snapshot.json`` (and the runtimes' pump
+  heartbeats into ``/healthz``); they vanish when garbage-collected,
+  never pinned.
+
+``/snapshot.json`` carries the JAX document's keys, with ``kernels``
+(:func:`kernel_stats`: kernel builds, build-cache hits and the kernel
+wrappers' launch counts) in place of its ``jax`` block of XLA compile
+counters, which eager PyTorch has no counterpart of.  The incident index
+comes from :mod:`~spark_timeseries_tpu_torch.utils.flightrec` (imported
+at call time: the two modules reference each other).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import math
 import os
+import sys
 import threading
 import time
 import weakref
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 from . import metrics as _metrics
 
-__all__ = ["env_positive", "json_safe", "JobProgress", "new_job_id",
-           "register_job", "finish_job", "active_jobs", "register_session",
-           "register_fleet", "register_fleet_runtime",
-           "ensure_started_from_env", "DEFAULT_STALE_FACTOR",
-           "DEFAULT_EXPECTED_CHUNK_S"]
+__all__ = [
+    "JobProgress", "TelemetryAlreadyStarted", "TelemetryServer",
+    "start", "stop", "server", "ensure_started_from_env",
+    "new_job_id", "register_job", "finish_job", "active_jobs",
+    "recent_jobs", "register_session", "live_sessions",
+    "session_summaries", "register_fleet", "live_fleets",
+    "fleet_summaries", "register_fleet_runtime", "live_fleet_runtimes",
+    "fleet_runtime_rows",
+    "snapshot_doc", "healthz_doc", "kernel_stats", "json_safe",
+    "env_positive",
+    "DEFAULT_STALE_FACTOR", "DEFAULT_EXPECTED_CHUNK_S", "RECENT_JOBS_KEPT",
+]
 
-# EW smoothing factor for the chunk-completion cadence
+# EW smoothing factor for the chunk-completion cadence (higher = more
+# reactive ETA, noisier under jittery chunk times).
 EW_ALPHA = 0.3
 
 # heartbeat staleness = age > factor * expected chunk cadence
 DEFAULT_STALE_FACTOR = 5.0
 
-# cadence assumed for a job whose first chunk has not completed yet
+# cadence assumed for a job whose first chunk hasn't completed yet (a
+# first chunk may pay the kernels' build, so the pre-cadence grace must
+# be generous; 5x60s = 5 minutes by default)
 DEFAULT_EXPECTED_CHUNK_S = 60.0
+
+# finished jobs kept for /snapshot.json context (bounded)
+RECENT_JOBS_KEPT = 16
 
 
 def json_safe(obj: Any) -> Any:
@@ -56,7 +108,10 @@ def json_safe(obj: Any) -> Any:
 def env_positive(name: str, cast: type = float, default: Any = None):
     """Parse a positive numeric environment knob: unset (or empty)
     returns ``default``; junk or a non-positive value raises a named
-    ValueError."""
+    ValueError.  The one implementation behind every ``STS_*`` numeric
+    knob the telemetry plane reads (staleness factor, serving SLO,
+    incident retention/trace budget), so the error contract cannot
+    drift between them."""
     env = os.environ.get(name)
     if not env:
         return default
@@ -90,13 +145,15 @@ def new_job_id(family: str = "job") -> str:
 
 class JobProgress:
     """Mutable, lock-protected progress/heartbeat record for one
-    long-running job (the JAX package's ``engine.stream_fit`` runs; here
-    the fleet runtime's pump).
+    long-running job (an ``engine.stream_fit`` run, a fleet runtime's
+    pump).
 
-    The job stamps :meth:`heartbeat` as it works (so a hung job shows a
-    growing heartbeat age) and :meth:`note_chunk_done` on every
-    completed chunk, which feeds the EW-smoothed cadence behind
-    :attr:`eta_s`.  Everything is host wall-clock (``time.time``)."""
+    The engine stamps :meth:`heartbeat` as each chunk is fitted (so a
+    hung chunk shows a growing heartbeat age while the watchdog counts
+    down) and calls :meth:`note_chunk_done` on every completion, which
+    feeds the EW-smoothed chunk cadence behind :attr:`eta_s`.
+    Everything is host wall-clock (``time.time``).
+    """
 
     def __init__(self, job_id: str, family: str, n_series: int,
                  n_chunks: int, chunk_size: int, *,
@@ -260,11 +317,12 @@ class JobProgress:
 
 
 # ---------------------------------------------------------------------------
-# job / session registries (what the exporter walks)
+# job / session registries (what /snapshot.json walks)
 # ---------------------------------------------------------------------------
 
 _jobs_lock = threading.Lock()
 _active_jobs: Dict[str, JobProgress] = {}
+_recent_jobs: deque = deque(maxlen=RECENT_JOBS_KEPT)
 
 
 def register_job(progress: JobProgress,
@@ -284,6 +342,7 @@ def finish_job(progress: JobProgress, status: str,
     progress.finish(status, error)
     with _jobs_lock:
         _active_jobs.pop(progress.job_id, None)
+        _recent_jobs.append(progress)
         n = len(_active_jobs)
     reg.set_gauge("engine.jobs_active", n)
 
@@ -293,9 +352,18 @@ def active_jobs() -> List[JobProgress]:
         return list(_active_jobs.values())
 
 
-# live ServingSessions, weakly referenced (the registry must never keep
-# a session and its device buffers alive), for the exporter's session
-# summaries when it is ported
+def recent_jobs() -> List[JobProgress]:
+    with _jobs_lock:
+        return list(_recent_jobs)
+
+
+# live ServingSessions, weakly referenced: the telemetry plane must
+# never keep a session (and its device buffers) alive.  The lock
+# serializes registration against the exporter thread's copy — a bare
+# WeakSet.add racing list(set) raises "Set changed size during
+# iteration", which would turn /snapshot.json and /healthz scrapes
+# into spurious 500s (GC-driven removals are deferred internally by
+# WeakSet's own iteration guard; only add needs the lock).
 _sessions_lock = threading.Lock()
 _sessions: "weakref.WeakSet" = weakref.WeakSet()
 
@@ -305,13 +373,33 @@ def register_session(session: Any) -> None:
         _sessions.add(session)
 
 
+def live_sessions() -> List[Any]:
+    with _sessions_lock:
+        return list(_sessions)
+
+
+def session_summaries() -> List[Dict[str, Any]]:
+    """One summary dict per live session (``telemetry_summary()``),
+    defensively: a session mid-mutation must degrade to an error entry,
+    never take the scrape down."""
+    out = []
+    for sess in live_sessions():
+        try:
+            out.append(json_safe(sess.telemetry_summary()))
+        except Exception as e:  # noqa: BLE001 — scrape isolation
+            out.append({"error": f"{type(e).__name__}: {e}"})
+    return out
+
+
 # live FleetSchedulers, weakly referenced like the sessions (the
 # exporter must never pin a scheduler and its tenants' device buffers)
 _fleets_lock = threading.Lock()
 _fleets: "weakref.WeakSet" = weakref.WeakSet()
 
-# live FleetRuntimes (statespace.runtime), whose pump heartbeats the
-# exporter's health route reads; weakly referenced like the fleets
+# live FleetRuntimes (statespace.runtime): the /healthz route consults
+# their pump heartbeats — a stale pump answers 503 so an external
+# supervisor can restart the process.  Same weak-reference + lock
+# discipline as the fleets above.
 _runtimes_lock = threading.Lock()
 _runtimes: "weakref.WeakSet" = weakref.WeakSet()
 
@@ -321,18 +409,360 @@ def register_fleet(fleet: Any) -> None:
         _fleets.add(fleet)
 
 
+def live_fleets() -> List[Any]:
+    with _fleets_lock:
+        return list(_fleets)
+
+
 def register_fleet_runtime(runtime: Any) -> None:
     with _runtimes_lock:
         _runtimes.add(runtime)
 
 
-def ensure_started_from_env() -> None:
-    """The ``STS_TELEMETRY_PORT`` opt-in, called at serving session
-    construction: unset is a no-op; set, it raises, because the exporter
-    that would serve on that port is not ported yet."""
+def live_fleet_runtimes() -> List[Any]:
+    with _runtimes_lock:
+        return list(_runtimes)
+
+
+def fleet_runtime_rows() -> List[Dict[str, Any]]:
+    """One ``pump_health()`` row per live runtime for ``/healthz`` —
+    scrape isolation as everywhere else."""
+    out = []
+    for rt in live_fleet_runtimes():
+        try:
+            out.append(json_safe(rt.pump_health()))
+        except Exception as e:  # noqa: BLE001 — scrape isolation
+            out.append({"error": f"{type(e).__name__}: {e}"})
+    return out
+
+
+def fleet_summaries() -> List[Dict[str, Any]]:
+    """One per-fleet panel (``telemetry_summary()``: aggregate p95/SLO/
+    shed state + per-tenant rows) for ``/snapshot.json`` — scrape
+    isolation as for sessions."""
+    out = []
+    for fl in live_fleets():
+        try:
+            out.append(json_safe(fl.telemetry_summary()))
+        except Exception as e:  # noqa: BLE001 — scrape isolation
+            out.append({"error": f"{type(e).__name__}: {e}"})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# payload builders (route handlers call these; tests call them directly)
+# ---------------------------------------------------------------------------
+
+_started_unix = time.time()
+
+
+def kernel_stats(registry: Optional[Any] = None) -> Dict[str, Any]:
+    """The kernel block of ``/snapshot.json`` and of the engine CLI's
+    report: CUDA libraries built (nvcc) and found built on disk in this
+    process (``kernels.builds`` / ``kernels.cache_hits``), the build
+    directory, torch's version and each kernel wrapper's launch count.  Reads modules
+    already imported and imports none (a scrape must not build or load
+    a kernel): a wrapper whose module is not loaded has launched 0."""
+    reg = registry if registry is not None else _metrics.get_registry()
+    counters = reg.snapshot()["counters"]
+    pkg = __name__.rsplit(".", 2)[0]
+    build = sys.modules.get(f"{pkg}._build")
+    ne = sys.modules.get(f"{pkg}.ops.arma_ne")
+    hw = sys.modules.get(f"{pkg}.ops.hw_sse")
+    wrappers = {
+        "arma_lm_fit": (ne, "fit_css_lm"),
+        "arma_ne": (ne, "normal_equations"),
+        "arma_css": (ne, "css_cost"),
+        "hw_box_fit": (hw, "box_fit"),
+        "hw_sse": (hw, "value_and_grad"),
+    }
+    torch = sys.modules.get("torch")
+    return {
+        "builds": int(counters.get("kernels.builds", 0)),
+        "cache_hits": int(counters.get("kernels.cache_hits", 0)),
+        "build_dir": str(build.BUILD_DIR) if build is not None else None,
+        "torch_version": getattr(torch, "__version__", None),
+        "launches": {name: int(getattr(getattr(mod, fn, None),
+                                       "launches", 0))
+                     for name, (mod, fn) in wrappers.items()},
+    }
+
+
+def snapshot_doc(registry: Optional[Any] = None) -> Dict[str, Any]:
+    """The ``/snapshot.json`` payload: registry snapshot, kernel builds
+    and launches, jobs (active + recent), serving session and fleet
+    summaries, recent incident index, and process identity."""
+    reg = registry if registry is not None else _metrics.get_registry()
+    snap = reg.snapshot()
+    doc: Dict[str, Any] = {
+        "format": 1,
+        "pid": os.getpid(),
+        "time_unix": time.time(),
+        "uptime_s": round(time.time() - _started_unix, 3),
+        "registry": json_safe(snap),
+        "kernels": kernel_stats(reg),
+        "jobs": [p.to_dict() for p in active_jobs()],
+        "recent_jobs": [p.to_dict() for p in recent_jobs()],
+        "serving_sessions": session_summaries(),
+        "fleets": fleet_summaries(),
+    }
+    # performance attribution: exclusive span self-times with
+    # per-subsystem rollups from the process trace ring, plus the
+    # streaming engine's host-overhead / bubble gauges where recorded
+    try:
+        from . import tracing as _tracing
+        gauges = snap.get("gauges", {})
+        doc["attribution"] = {
+            "self_times": _tracing.self_time_report(8),
+            "engine": {k: gauges[k]
+                       for k in ("engine.host_overhead_frac",
+                                 "engine.bubble_ms_total")
+                       if k in gauges},
+        }
+    except Exception as e:  # noqa: BLE001 — scrape isolation
+        doc["attribution"] = {"error": f"{type(e).__name__}: {e}"}
+    # tick lineage: per-tenant end-to-end latency with stage
+    # decomposition and slowest-tick exemplars
+    try:
+        from . import lineage as _lineage
+        doc["lineage"] = json_safe(_lineage.lineage_summary())
+    except Exception as e:  # noqa: BLE001 — scrape isolation
+        doc["lineage"] = {"error": f"{type(e).__name__}: {e}"}
+    try:
+        from . import flightrec as _flightrec
+        doc["incident_dir"] = _flightrec.incident_dir()
+        doc["incidents"] = _flightrec.list_incidents(limit=8)
+    except Exception as e:  # noqa: BLE001 — scrape isolation
+        doc["incidents"] = [{"error": f"{type(e).__name__}: {e}"}]
+    return doc
+
+
+def healthz_doc(registry: Optional[Any] = None) -> Dict[str, Any]:
+    """The ``/healthz`` payload.  ``status`` is ``"ok"`` unless any
+    active job's heartbeat is stale (older than the staleness threshold
+    — see :meth:`JobProgress.stale_after_s`) or any fleet runtime's
+    pump heartbeat is stale (same ``STS_TELEMETRY_STALE_FACTOR``
+    contract; see ``FleetRuntime.stale_after_s``), in which case it is
+    ``"stale"`` and the HTTP route answers 503 — the signal an external
+    supervisor restarts the process on."""
+    jobs = []
+    any_stale = False
+    for p in active_jobs():
+        stale = p.is_stale()
+        any_stale = any_stale or stale
+        jobs.append({
+            "job_id": p.job_id,
+            "stage": p.heartbeat_stage,
+            "heartbeat_age_s": round(p.heartbeat_age_s(), 3),
+            "stale_after_s": round(p.stale_after_s(), 3),
+            "stale": stale,
+        })
+    pumps = fleet_runtime_rows()
+    for row in pumps:
+        any_stale = any_stale or bool(row.get("stale"))
+    return {
+        "status": "stale" if any_stale else "ok",
+        "pid": os.getpid(),
+        "time_unix": time.time(),
+        "uptime_s": round(time.time() - _started_unix, 3),
+        "n_active_jobs": len(jobs),
+        "n_serving_sessions": len(live_sessions()),
+        "n_fleet_pumps": len(pumps),
+        "jobs": jobs,
+        "fleet_pumps": pumps,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the scrape server
+# ---------------------------------------------------------------------------
+
+class TelemetryAlreadyStarted(RuntimeError):
+    """:func:`start` was called while an exporter is already serving.
+    One process gets one scrape endpoint; :func:`stop` the old one
+    first (double-binding would split scrapes across two ports)."""
+
+
+def _trace_limit(query: str) -> Optional[int]:
+    """``?limit=N`` for ``/trace.json``; a malformed value raises (the
+    route answers 400) rather than silently serving the unbounded
+    ~10 MB ring the limit exists to prevent."""
+    for part in query.split("&"):
+        if part.startswith("limit="):
+            raw = part[len("limit="):]
+            try:
+                return max(1, int(raw))
+            except ValueError:
+                raise ValueError(
+                    f"limit must be an integer, got {raw!r}") from None
+    return None
+
+
+class TelemetryServer:
+    """A running scrape endpoint: stdlib ``ThreadingHTTPServer`` on a
+    daemon thread.  Build via :func:`start`; :meth:`stop` shuts the
+    socket down and joins the thread (bounded)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 registry: Optional[Any] = None):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = registry if registry is not None else _metrics.get_registry()
+        self._reg = reg
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            server_version = "sts-telemetry/1"
+
+            def log_message(self, *args):  # silence stderr access logs
+                pass
+
+            def do_GET(self):
+                t0 = time.perf_counter()
+                raw = self.path.split("?", 1)
+                route = raw[0]
+                query = raw[1] if len(raw) > 1 else ""
+                status = 200
+                ctype = "application/json"
+                try:
+                    if route == "/metrics":
+                        body = outer._reg.to_prometheus().encode()
+                        ctype = ("text/plain; version=0.0.4; "
+                                 "charset=utf-8")
+                    elif route == "/snapshot.json":
+                        body = json.dumps(
+                            snapshot_doc(outer._reg)).encode()
+                    elif route == "/trace.json":
+                        from . import tracing as _tracing
+                        try:
+                            limit = _trace_limit(query)
+                        except ValueError as e:
+                            status = 400
+                            body = json.dumps({"error": str(e)}).encode()
+                        else:
+                            body = json.dumps(_tracing.to_chrome_trace(
+                                limit=limit)).encode()
+                    elif route in ("/healthz", "/health"):
+                        doc = healthz_doc(outer._reg)
+                        status = 200 if doc["status"] == "ok" else 503
+                        body = json.dumps(doc).encode()
+                    elif route == "/":
+                        body = json.dumps({
+                            "routes": ["/metrics", "/snapshot.json",
+                                       "/trace.json", "/healthz"],
+                            "pid": os.getpid()}).encode()
+                    else:
+                        status = 404
+                        body = json.dumps(
+                            {"error": f"no route {route!r}"}).encode()
+                except Exception as e:  # noqa: BLE001 — a scrape bug
+                    # must answer 500, never kill the server thread
+                    status = 500
+                    body = json.dumps(
+                        {"error": f"{type(e).__name__}: {e}"}).encode()
+                    outer._reg.inc("telemetry.scrape_errors")
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                try:
+                    self.wfile.write(body)
+                finally:
+                    outer._reg.inc("telemetry.scrapes")
+                    outer._reg.record("telemetry.scrape_s",
+                                      time.perf_counter() - t0)
+
+        self._httpd = ThreadingHTTPServer((host, int(port)), Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever,
+            kwargs={"poll_interval": 0.1},
+            name="sts-telemetry", daemon=True)
+        self._thread.start()
+        reg.set_gauge("telemetry.port", self.port)
+
+    @property
+    def port(self) -> int:
+        return int(self._httpd.server_address[1])
+
+    @property
+    def url(self) -> str:
+        host = self._httpd.server_address[0]
+        return f"http://{host}:{self.port}"
+
+    @property
+    def alive(self) -> bool:
+        return self._thread.is_alive()
+
+    def stop(self, timeout: float = 5.0) -> bool:
+        """Shut down and join the server thread; True when the thread
+        exited within ``timeout`` (no dangling thread)."""
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout)
+        self._reg.set_gauge("telemetry.port", 0.0)
+        return not self._thread.is_alive()
+
+
+_server_lock = threading.Lock()
+_server: Optional[TelemetryServer] = None
+
+
+def server() -> Optional[TelemetryServer]:
+    """The process' running exporter, or None."""
+    return _server
+
+
+def start(port: int = 0, host: str = "127.0.0.1",
+          registry: Optional[Any] = None) -> TelemetryServer:
+    """Start the process' scrape endpoint (``port=0`` picks a free
+    port; read it back from ``.port``/``.url``).  Raises
+    :class:`TelemetryAlreadyStarted` when one is already serving."""
+    global _server
+    with _server_lock:
+        if _server is not None and _server.alive:
+            raise TelemetryAlreadyStarted(
+                f"telemetry exporter already serving at {_server.url}; "
+                f"telemetry.stop() it before starting another")
+        srv = TelemetryServer(host=host, port=port, registry=registry)
+        _server = srv
+    return srv
+
+
+def stop(timeout: float = 5.0) -> bool:
+    """Stop the module-level exporter (no-op → True when none runs)."""
+    global _server
+    with _server_lock:
+        srv, _server = _server, None
+    if srv is None:
+        return True
+    return srv.stop(timeout)
+
+
+def ensure_started_from_env() -> Optional[TelemetryServer]:
+    """The ``STS_TELEMETRY_PORT`` opt-in: called by the library's
+    long-running entry points (``engine.stream_fit``, serving session
+    construction).  Unset or already-started is a no-op; a junk value
+    raises a named ValueError; a bind failure (port taken) is counted
+    (``telemetry.start_errors``) and swallowed — observability must not
+    take the job down."""
     env = os.environ.get("STS_TELEMETRY_PORT")
     if not env:
         return None
-    raise NotImplementedError(
-        f"STS_TELEMETRY_PORT={env!r} asks for the telemetry exporter, which "
-        f"is not ported yet (ROADMAP Queue A item 5); unset it")
+    if _server is not None and _server.alive:
+        return _server
+    try:
+        port = int(env)
+        if port < 0 or port > 65535:
+            raise ValueError
+    except ValueError:
+        raise ValueError(
+            f"STS_TELEMETRY_PORT must be a port number in [0, 65535] "
+            f"(0 = pick a free port), got {env!r}") from None
+    try:
+        return start(port=port)
+    except TelemetryAlreadyStarted:
+        return _server
+    except OSError:
+        _metrics.inc("telemetry.start_errors")
+        return None

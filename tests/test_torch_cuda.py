@@ -1645,3 +1645,53 @@ def test_deadline_worker_with_side_stream_staging_on_cuda(cuda):
     assert (hung.stats["deadline_expired"], hung.stats["recovered"],
             hung.stats["dead_chunks"]) == (1, 1, 0)
     assert _same_lanes(hung.models, plain.models)
+
+
+def test_engine_warmup_on_cuda(cuda):
+    """The warm-up builds and launches each family's kernel once per new
+    key on the card; a fit after it is bitwise a fresh engine's."""
+    y = _panel(np.random.default_rng(7), 4096, 128).astype(np.float32)
+    cold = FitEngine().fit(y, "arima", device=cuda)
+    eng = FitEngine()
+    before = (arma_ne.fit_css_lm.launches, hw_sse.box_fit.launches)
+    rep = eng.warmup(("arima", "holt_winters"), [(4096, 128)], device=cuda)
+    assert rep["platform"] == "cuda"
+    assert [(r["family"], r["variant"]) for r in rep["built"]] == [
+        ("arima", "dense"), ("arima", "ragged"), ("holt_winters", "dense")]
+    assert (arma_ne.fit_css_lm.launches - before[0],
+            hw_sse.box_fit.launches - before[1]) == (2, 1)
+    again = eng.warmup(("arima",), [(4096, 128)], device=cuda)
+    assert again["cache_hits"] == rep["cache_hits"] + 2
+    assert arma_ne.fit_css_lm.launches - before[0] == 2
+    warm = eng.fit(y, "arima", device=cuda)
+    for a, b in ((warm.coefficients, cold.coefficients),
+                 (warm.diagnostics.n_iter, cold.diagnostics.n_iter)):
+        assert torch.equal(a, b)
+
+
+def test_warm_build_directory_runs_no_nvcc(cuda, tmp_path):
+    """A fresh process pointed at a directory that holds the current
+    builds (``--cache-dir``, the kernel build cache) loads them: the
+    engine CLI's report counts no build and a cache hit."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from spark_timeseries_tpu_torch import _build
+
+    _build.build_all()
+    cache = str(tmp_path / "kernels")
+    shutil.copytree(_build.BUILD_DIR, cache)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "STS_COMPILE_CACHE"}
+    out = subprocess.run(
+        [sys.executable, "-m", "spark_timeseries_tpu_torch.engine",
+         "--families", "arima", "--shapes", "1024x64", "--cache-dir",
+         cache], capture_output=True, text=True, timeout=600, cwd=repo,
+        env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    kern = json.loads(out.stdout)["kernels"]
+    assert kern["builds"] == 0 and kern["cache_hits"] == 1
+    assert kern["launches"]["arma_lm_fit"] == 2

@@ -148,6 +148,13 @@ def _scenarios(pkg, work):
                                  dict(chunk_index=0, hang_s=HANG_S)),
             deadline_s=DEADLINE_S,
             retry=pkg.dur.BackoffPolicy(max_retries=2, base_delay_s=0.01))
+        # the backoff outlasts the hang: the abandoned worker has ended
+        # when the retry dispatches, and the retry hangs and expires too
+        run("hang_every_attempt", fault=("hang_chunk",
+                                         dict(chunk_index=1, hang_s=HANG_S)),
+            deadline_s=DEADLINE_S,
+            retry=pkg.dur.BackoffPolicy(max_retries=1,
+                                        base_delay_s=HANG_S + 0.5))
     finally:
         _join_workers()
     arima_kw = dict(ARIMA_KW)
@@ -167,7 +174,7 @@ def both(tmp_path_factory):
 
 SCENARIOS = ("journal", "oom_chunk", "oom_at_floor", "degraded_resume",
              "corrupt_journal", "hang_deadline", "retry_gate",
-             "arima_journal")
+             "hang_every_attempt", "arima_journal")
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
@@ -407,3 +414,28 @@ def test_retry_keywords_and_env_knobs(monkeypatch):
         .stats["deadline_s"] == 30.0
     with pytest.raises(TypeError, match="BackoffPolicy"):
         engine.FitEngine().stream_fit(y, "arima", retry="2", **kw)
+
+
+def test_retry_policy_is_a_port_reading_and_other_types_raise_as_jax():
+    """``stream_fit(retry=RetryPolicy())`` is a port-only reading: the
+    fits' multi-start restarts, no chunk re-dispatch (the JAX engine
+    raises ``TypeError`` for it).  Every other type that is not None, an
+    int or a ``BackoffPolicy`` raises the JAX engine's ``TypeError``,
+    word for word."""
+    y = ARIMA[:8]
+    kw = dict(chunk_size=8, p=1, d=1, q=1)
+    res = engine.FitEngine().stream_fit(
+        y, "arima", retry=resilience.RetryPolicy(max_restarts=1),
+        device="cpu", collect=True, **kw)
+    assert res.stats["retries"] == 0 and res.stats["retry_attempts"] == 0
+    assert res.models[0].diagnostics.attempts is not None
+    with pytest.raises(TypeError):
+        jengine.FitEngine().stream_fit(
+            y, "arima", retry=jres.RetryPolicy(max_restarts=1), **kw)
+    for bad in ("2", 2.5, True, [1], object()):
+        with pytest.raises(TypeError) as got:
+            engine.FitEngine().stream_fit(y, "arima", retry=bad,
+                                          device="cpu", **kw)
+        with pytest.raises(TypeError) as want:
+            jengine.FitEngine().stream_fit(y, "arima", retry=bad, **kw)
+        assert str(got.value) == str(want.value)

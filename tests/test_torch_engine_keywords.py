@@ -124,8 +124,15 @@ def test_fit_sends_rejected_keywords_to_the_family_fit(walk):
                                atol=1e-7)
 
 
+@pytest.fixture(scope="module")
+def direct60(walk):
+    """The JAX package's direct fit of the first 60 observations, once
+    per module (both ``bucket_obs`` cases hold against it)."""
+    return j_arima.fit(1, 1, 1, jnp.asarray(walk[:, :60]), warn=False)
+
+
 @pytest.mark.parametrize("bucket_obs", [False, True])
-def test_fit_takes_bucket_obs(walk, bucket_obs):
+def test_fit_takes_bucket_obs(walk, direct60, bucket_obs):
     """60 observations: the JAX engine pads them to 64 (NaN, its ragged
     program) with ``bucket_obs`` and fits them as they are without; the
     port fits every panel at its own shape.  Both are the direct fit."""
@@ -134,7 +141,7 @@ def test_fit_takes_bucket_obs(walk, bucket_obs):
                                  bucket_obs=bucket_obs, device="cpu")
     want = jengine.FitEngine().fit(jnp.asarray(y), "arima", p=1, d=1, q=1,
                                    bucket_obs=bucket_obs)
-    j_direct = j_arima.fit(1, 1, 1, jnp.asarray(y), warn=False)
+    j_direct = direct60
     np.testing.assert_array_equal(got.diagnostics.converged.numpy(),
                                   np.asarray(want.diagnostics.converged))
     for ref in (want, j_direct):
