@@ -40,10 +40,12 @@ Phases, one JSON line each:
    against ``css_cost_plain``, dense and ragged, at the ARIMA chunk shape,
    for AR orders in registers and one past them (the runtime-p form); the
    time-major kernel it replaced against the same float32 plain pass.
-8. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the Holt-Winters
-   kernel) against ``value_and_grad_plain`` in float32 on the card and in
-   float64 on the CPU: additive period 12 dense and ragged,
-   multiplicative period 12, and period 52 (the generic form).
+8. ``hw_kernel_vs_plain``: ``ops.hw_sse.value_and_grad`` (the one-pass
+   Holt-Winters kernel on the caller's rows) against
+   ``value_and_grad_plain`` in float32 on the card and in float64 on the
+   CPU, and bit for bit on every lane against the time-major kernel it
+   replaced (``value_and_grad_time_major``): additive period 12 dense and
+   ragged, multiplicative period 12, and period 52.
 9. ``hw_path``: ``FitEngine().stream_fit(panel, "holt_winters",
    period=12, model_type="additive")`` over a 1,048,576 x 120 float32
    panel (``bench_suite.py``'s monthly recipe) in 131072-series chunks,
@@ -51,10 +53,15 @@ Phases, one JSON line each:
    chunk, and no single-pass launch); ``log_likelihood_css`` of one ARIMA
    chunk's fitted models on the card (the cost-only kernel on a path);
    the float64 CPU refit compared by objective.
-10. ``hw_timing``: CUDA-event times of the single-pass Holt-Winters
-   kernel and the cost-only ARMA kernel (three orders: two with the AR
-   order in registers, one in the runtime-p form; series-major, the
-   time-major one beside it), their plain versions and their bounds.
+10. ``hw_timing``: the one-pass Holt-Winters kernel against the
+   time-major one at the four cases of ``hw_kernel_vs_plain``: CUDA-event
+   times in turns, device times from one fresh profiler session, the
+   ``value_and_grad`` call against the time-major call (the panel copied
+   per call), the call's initial components and copy apart, each case's
+   bound and share, registers, spills, resident lanes and waves of every
+   instantiation; then the cost-only ARMA kernel (three orders: two with
+   the AR order in registers, one in the runtime-p form; series-major,
+   the time-major one beside it); plain versions and bounds.
 11. ``hw_fit_vs_solver``: on the first 131072-lane Holt-Winters chunk,
    the box-fit kernel (``ops.hw_sse.box_fit``, block sizes 64/128/256)
    against the batched solver over the single-pass kernel
@@ -466,6 +473,7 @@ HW_SOLVER_SHARE = (0.95, 0.95)
 # route part on at most 1 - HW_SOLVER_SHARE of lanes)
 HW_PLAIN_MARGIN = 0.1
 HW_PLAIN_LANES = 256     # lanes of the plain box fit on the card
+HW_TIMING_REPS = 10      # CUDA-event reps a turn in hw_timing
 HW_FUN_RTOL = 1e-5
 
 # LM-fit kernel vs the batched LM over the single-pass kernel, per lane:
@@ -883,16 +891,18 @@ def _widths(wrapper) -> dict:
 
 
 class ComparisonLaunches:
-    """The launches of the time-major one-pass kernels, kept as the
-    series-major kernels' comparison, on the paths: each path phase runs
+    """The launches of the time-major one-pass kernels (ARMA and
+    Holt-Winters), kept as the series-major kernels' comparison, on the
+    paths: each path phase runs
     through :meth:`run`, which sets their counts to 0 just before it and
     reads them just after.  Launches made to compare kernels outside the
     path phases are not counted."""
 
-    def __init__(self, arma_ne):
+    def __init__(self, arma_ne, hw_sse):
         self.wrappers = {
             "arma_ne_time_major": arma_ne.normal_equations_time_major,
-            "arma_css_time_major": arma_ne.css_cost_time_major}
+            "arma_css_time_major": arma_ne.css_cost_time_major,
+            "hw_sse_time_major": hw_sse.value_and_grad_time_major}
         self.total = dict.fromkeys(self.wrappers, 0)
         self.by_path = {name: {} for name in self.wrappers}
 
@@ -1311,6 +1321,8 @@ def phase_hw_kernel_vs_plain(hw_panel, seed, dev):
         prm_d = torch.from_numpy(params).to(dev)
         nv_d = None if nv is None else torch.from_numpy(nv).to(dev)
         got = hw_sse.value_and_grad(prm_d, y_d, m, model_type, n_valid=nv_d)
+        old = hw_sse.value_and_grad_time_major(prm_d, y_d, m, model_type,
+                                               n_valid=nv_d)
         plain = hw_sse.value_and_grad_plain(prm_d, y_d, m, model_type,
                                             n_valid=nv_d)
         ref64 = hw_sse.value_and_grad_plain(
@@ -1321,19 +1333,25 @@ def phase_hw_kernel_vs_plain(hw_panel, seed, dev):
             torch.cuda.synchronize()
         vs_plain = _hw_errors(got, plain)
         vs_f64 = _hw_errors([t[:k] for t in got], ref64)
+        bitwise = _bits_equal(got, old)
+        check(bitwise, f"{name}: hw_sse_rows_kernel differs from the "
+                       f"time-major hw_sse_kernel on some lane")
         if name == "additive m=12":
             max_abs = max((a - b).abs().max().item()
                           for a, b in zip(got, plain))
+            tm_max_abs = max((a - b).abs().max().item()
+                             for a, b in zip(old, plain))
         rows.append({"case": name, "S": y.shape[0], "n_obs": y.shape[1],
                      "period": m, "vs_plain_f32": vs_plain,
                      "vs_plain_f64_cpu": vs_f64, "f64_lanes": k,
+                     "bitwise_vs_time_major": bitwise,
                      "tol": HW_TOL, "tol_all": HW_TOL_ALL})
         for label, errs in (("plain f32", vs_plain), ("plain f64", vs_f64)):
             for key, err in errs.items():
                 tol = HW_TOL_ALL if key == "grad_max" else HW_TOL
                 check(err <= tol, f"{name}: hw kernel vs {label} {key} "
                                   f"error {err:.3g} > {tol:g}")
-    return rows, max_abs
+    return rows, max_abs, tm_max_abs
 
 
 def phase_hw_path(hw_panel, arima_panel, arima_model, refit, dev,
@@ -1446,12 +1464,19 @@ def phase_hw_path(hw_panel, arima_panel, arima_model, refit, dev,
         launches, css_launches
 
 
-def hw_bound_s(S: int, n_steps: int, m: int):
-    """Least time of one additive, dense Holt-Winters kernel call: y,
-    init, params read once and out written once over the HBM rate, 81
-    flop per lane-step (csrc/hw_sse.cu's count) over the fp32 rate."""
-    n_bytes = 4 * S * (n_steps + 2 + m + 3 + 4)
-    flops = 81 * n_steps * S
+# flop a Holt-Winters lane-step (csrc/hw_sse.cu's count): additive,
+# multiplicative (its products in e and de, the four quotients and their
+# tangents' scalings); a ragged lane's step weights e and de (4 more)
+HW_STEP_FLOPS = {True: 81, False: 97}
+
+
+def hw_bound_s(S: int, n_steps: int, m: int, additive: bool = True,
+               ragged: bool = False):
+    """Least time of one Holt-Winters kernel call: y, init, params (and
+    n_valid) read once and out written once over the HBM rate, the
+    lane-steps' flop over the fp32 rate."""
+    n_bytes = 4 * S * (n_steps + 2 + m + 3 + 4 + int(ragged))
+    flops = (HW_STEP_FLOPS[additive] + 4 * int(ragged)) * n_steps * S
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), n_bytes, flops
@@ -1468,19 +1493,144 @@ def css_bound_s(S: int, n_obs: int, p: int, q: int, icpt: int):
                                  else "operations"), n_bytes, flops
 
 
+def _device_ms_each(fns, reps: int):
+    """Median device duration of the one kernel each of ``fns`` launches,
+    in one fresh ``torch.profiler`` session (``reps`` calls of each in
+    turn, after one of each outside it); None for all where the session
+    did not receive every launch's device record (PERF.md §6)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != reps * len(fns):
+        return [None] * len(fns)
+    return [float(np.median([e.time_range.elapsed_us()
+                             for e in evs[k * reps:(k + 1) * reps]])) / 1e3
+            for k in range(len(fns))]
+
+
+def _sse_config_row(cfg) -> dict:
+    return {**cfg._asdict(), "resident_lanes": cfg.resident_lanes,
+            "waves": cfg.waves}
+
+
+def hw_sse_instantiations(S: int, dev) -> dict:
+    """Registers, spill bytes and residency of every instantiation of the
+    two one-pass kernels at S lanes: the time-major kernel's periods in
+    registers and its generic form (m = 52); the series-major kernel
+    reading rows or a time-major copy, its ring in shared memory (m = 12,
+    52) or in its global scratch (m = 500)."""
+    from spark_timeseries_tpu_torch.ops import hw_sse
+
+    old, new = [], []
+    for additive in (True, False):
+        for ragged in (False, True):
+            for m in (4, 7, 12, 24, 52):
+                cfg = hw_sse.sse_config_time_major(S, m, additive, ragged,
+                                                   dev)
+                old.append({"period": m, "additive": additive,
+                            "ragged": ragged, **_sse_config_row(cfg)})
+            for rows in (True, False):
+                for m in (12, 52, 500):
+                    cfg = hw_sse.sse_config(S, m, additive, ragged, rows,
+                                            dev)
+                    new.append({"period": m, "additive": additive,
+                                "ragged": ragged, "rows": rows,
+                                **_sse_config_row(cfg)})
+    return {"S": S, "time_major": old, "rows": new}
+
+
 def phase_hw_timing(hw_panel, arima_panel, seed, dev):
+    """The one-pass Holt-Winters kernels at the four ``hw_cases``: the
+    series-major ``hw_sse_rows_kernel`` on the caller's rows and the
+    time-major ``hw_sse_kernel`` it replaced on its copy, CUDA-event
+    medians in turns (old, new, new, old) and device medians from one
+    fresh profiler session; the ``value_and_grad`` call against the
+    time-major call (the panel copied, then the old kernel) in turns, and
+    the call's preparation apart (initial components, the copy), and the
+    series-major kernel on the time-major copy; each case's bound,
+    registers, spills, residency and waves; then the cost-only ARMA
+    kernel."""
     import torch
 
     from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
 
+    reps = HW_TIMING_REPS
+    cases, kernels = [], []
+    for name, m, model_type, y, params, nv in hw_cases(hw_panel, seed):
+        y_d = torch.from_numpy(y).to(dev)
+        prm = torch.from_numpy(params).to(dev)
+        prm_t = prm.T.contiguous()
+        nv_d = None if nv is None else torch.from_numpy(nv).to(dev)
+        additive = model_type == "additive"
+        inp = hw_sse.prepare(y_d, m, model_type, nv_d, time_major=False)
+        inp_tm = hw_sse.prepare(y_d, m, model_type, nv_d)
+        S, n = y.shape
+
+        def new_kernel(inp=inp, prm=prm):
+            return hw_sse._launch(prm.T, inp)
+
+        def old_kernel(inp_tm=inp_tm, prm_t=prm_t):
+            return hw_sse._launch_time_major(prm_t, inp_tm)
+
+        def new_on_copy(inp_tm=inp_tm, prm=prm):
+            return hw_sse._launch(prm.T, inp_tm)
+
+        old_ms, new_ms = _in_turns(old_kernel, new_kernel, reps)
+        copy_in_ms = _event_ms(new_on_copy, reps)
+        old_call, new_call = _in_turns(
+            lambda: hw_sse.value_and_grad_time_major(
+                prm, y_d, m, model_type, n_valid=nv_d),
+            lambda: hw_sse.value_and_grad(prm, y_d, m, model_type,
+                                          n_valid=nv_d), reps)
+        init_ms = _event_ms(
+            lambda: hw_sse.init_components(y_d, m, additive), reps)
+        copy_ms = _event_ms(lambda: y_d[:, m:].T.contiguous(), reps)
+        bound_s, bound_by, n_bytes, flops = hw_bound_s(
+            S, n - m, m, additive, nv is not None)
+        cfg = hw_sse.sse_config(S, m, additive, nv is not None, True, dev)
+        cfg_tm = hw_sse.sse_config_time_major(S, m, additive,
+                                              nv is not None, dev)
+        kernels += [old_kernel, new_kernel, new_on_copy]
+        cases.append({
+            "case": name, "S": S, "n_obs": n, "period": m,
+            "kernel_ms": new_ms, "time_major_kernel_ms": old_ms,
+            "kernel_on_time_major_copy_ms": copy_in_ms,
+            "call_ms": new_call, "time_major_call_ms": old_call,
+            "init_components_ms": init_ms, "time_major_copy_ms": copy_ms,
+            "bound_us": bound_s * 1e6, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": flops,
+            "share_of_bound": bound_s * 1e3 / new_ms,
+            "time_major_share_of_bound": bound_s * 1e3 / old_ms,
+            "config": _sse_config_row(cfg),
+            "time_major_config": _sse_config_row(cfg_tm)})
+    device = _device_ms_each(kernels, 2 * reps)
+    for k, case in enumerate(cases):
+        old_dev, new_dev, copy_dev = device[3 * k:3 * k + 3]
+        case.update(time_major_device_ms=old_dev, device_ms=new_dev,
+                    on_time_major_copy_device_ms=copy_dev,
+                    device_share_of_bound=None if new_dev is None
+                    else case["bound_us"] / 1e3 / new_dev,
+                    time_major_device_share_of_bound=None if old_dev is None
+                    else case["bound_us"] / 1e3 / old_dev)
+
     name, m, model_type, y, params, _ = hw_cases(hw_panel, seed)[0]
     y_d = torch.from_numpy(y).to(dev)
-    S, n = y.shape
     inp = hw_sse.prepare(y_d, m, model_type)
     prm_t = torch.from_numpy(params).to(dev).T.contiguous()
-    kernel_ms = _event_ms(lambda: hw_sse._launch(prm_t, inp), 20)
     plain_ms = _event_ms(lambda: hw_sse._packed_plain(prm_t, inp), 3)
-    bound_s, bound_by, n_bytes, flops = hw_bound_s(S, n - m, m)
+    main = cases[0]
 
     # the cost-only ARMA kernel at the ARIMA chunk shape: the main path's
     # order and the largest AR order in registers, then one past them
@@ -1508,11 +1658,16 @@ def phase_hw_timing(hw_panel, arima_panel, seed, dev):
                     "bound_us": c_bound_s * 1e6, "bound_by": c_bound_by,
                     "bytes": c_bytes, "flops": c_flops,
                     "share_of_bound": c_bound_s * 1e3 / css_ms})
-    return {"phase": "hw_timing", "case": name, "S": S, "n_obs": n,
-            "period": m, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_us": bound_s * 1e6, "bound_by": bound_by,
-            "bytes": n_bytes, "flops": flops,
-            "kernel_share_of_bound": bound_s * 1e3 / kernel_ms,
+    return {"phase": "hw_timing", "case": name, "S": main["S"],
+            "n_obs": main["n_obs"], "period": m,
+            "kernel_ms": main["kernel_ms"],
+            "time_major_kernel_ms": main["time_major_kernel_ms"],
+            "device_ms": main["device_ms"], "plain_ms": plain_ms,
+            "bound_us": main["bound_us"], "bound_by": main["bound_by"],
+            "bytes": main["bytes"], "flops": main["flops"],
+            "kernel_share_of_bound": main["share_of_bound"],
+            "reps": reps, "cases": cases,
+            "instantiations": hw_sse_instantiations(main["S"], dev),
             "css": css}
 
 
@@ -7130,6 +7285,7 @@ def main(argv=None) -> int:
     arma_ne._rows_fns()
     arma_ne._lm_fns()
     hw_sse._kernel_fn()
+    hw_sse._rows_fns()
     hw_sse._box_fns()
     build_s = time.perf_counter() - t0
     from spark_timeseries_tpu_torch import io
@@ -7169,8 +7325,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
     rows, max_abs, tm_max_abs = phase_kernel_vs_plain(panel, args.seed, dev)
     emit({"phase": "kernel_vs_plain", "cases": rows})
 
-    from spark_timeseries_tpu_torch.ops import arma_ne
-    paths = ComparisonLaunches(arma_ne)
+    from spark_timeseries_tpu_torch.ops import arma_ne, hw_sse
+    paths = ComparisonLaunches(arma_ne, hw_sse)
     main_row, lm_launches, arima_model = paths.run("main_path",
                                                    phase_main_path, panel,
                                                    dev)
@@ -7187,7 +7343,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         panel, args.seed, dev)
     emit({"phase": "css_cost_vs_plain", "cases": css_rows})
 
-    hw_rows, hw_max_abs = phase_hw_kernel_vs_plain(hw_panel, args.seed, dev)
+    hw_rows, hw_max_abs, hw_tm_max_abs = phase_hw_kernel_vs_plain(
+        hw_panel, args.seed, dev)
     emit({"phase": "hw_kernel_vs_plain", "cases": hw_rows})
 
     hw_row, hw_launches, css_launches = paths.run(
@@ -7431,7 +7588,8 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
         "bound_ms": css["bound_us"] / 1e3,
         "bound_by": css["bound_by"], "library_ms": None}, {
         "name": "hw_sse", "route": "cuda",
-        "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
+        "kernel": "hw_sse_rows_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/hw_sse.rows.cu",
         "replaces": "docs/experiments/hw_pallas.py:61",
         "launches": hw_row["hw_sse_launches"]
         + hwr_row["hw_sse_launches"] + serv["hw_sse"] + flt["hw_sse"]
@@ -7443,8 +7601,33 @@ def _run(args, dev, smi, hw_panel, refit, auto_panel, auto_ref,
             "durable_path": dur["hw_sse"]},
         "route_launches": fit_row["solver_route_hw_sse_launches"]
         + hwr_row["restart_vs_route"]["route_hw_sse_launches"],
+        "by_case": [{k: c[k] for k in (
+            "case", "kernel_ms", "device_ms", "call_ms", "bound_us",
+            "bound_by", "share_of_bound", "device_share_of_bound")}
+            for c in hw_timing["cases"]],
         "max_abs_err": hw_max_abs,
-        "ms": hw_timing["kernel_ms"], "plain_ms": hw_timing["plain_ms"],
+        "ms": hw_timing["kernel_ms"], "device_ms": hw_timing["device_ms"],
+        "plain_ms": hw_timing["plain_ms"],
+        "bound_ms": hw_timing["bound_us"] / 1e3,
+        "bound_by": hw_timing["bound_by"], "library_ms": None}, {
+        # the time-major kernel it replaced, kept as its comparison
+        # (hw_kernel_vs_plain: bit for bit on every lane of the four cases)
+        "name": "hw_sse_time_major", "route": "cuda",
+        "kernel": "hw_sse_kernel",
+        "source": "spark_timeseries_tpu_torch/csrc/hw_sse.cu",
+        "replaces": "docs/experiments/hw_pallas.py:61",
+        "launches": paths.total["hw_sse_time_major"],
+        "launches_by_path": paths.by_path["hw_sse_time_major"],
+        "comparison_only": True,
+        "by_case": [{"case": c["case"],
+                     "kernel_ms": c["time_major_kernel_ms"],
+                     "device_ms": c["time_major_device_ms"],
+                     "call_ms": c["time_major_call_ms"],
+                     "share_of_bound": c["time_major_share_of_bound"]}
+                    for c in hw_timing["cases"]],
+        "max_abs_err": hw_tm_max_abs,
+        "ms": hw_timing["time_major_kernel_ms"],
+        "plain_ms": hw_timing["plain_ms"],
         "bound_ms": hw_timing["bound_us"] / 1e3,
         "bound_by": hw_timing["bound_by"], "library_ms": None}, {
         "name": "hw_box_fit", "route": "cuda",

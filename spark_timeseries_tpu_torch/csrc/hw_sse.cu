@@ -1,6 +1,11 @@
-// Fused Holt-Winters SSE value and gradient (hw_sse_kernel), and the whole
+// Fused Holt-Winters SSE value and gradient: the one pass of
+// ops/hw_sse.py::value_and_grad (hw_sse_rows_kernel, in
+// csrc/hw_sse.rows.cu, a part of this library), the time-major
+// hw_sse_kernel it replaced (kept below as its comparison), and the whole
 // projected-gradient box fit of a panel in one persistent launch
-// (hw_box_fit_kernel, further down).  Both run the one pass below.
+// (hw_box_fit_kernel, further down).  All run hw_step (hw_step.cuh),
+// whose roundings are written out, so they agree bit for bit wherever
+// their rings live.
 //
 // Replaces the Pallas TPU kernel docs/experiments/hw_pallas.py::_hw_kernel
 // (itself the drop-in for models/holt_winters.py::_hw_sse_value_and_grad)
@@ -19,29 +24,45 @@
 // (m + t < nv), AFTER the ring updates (the JAX pass's order; the zero
 // tail still runs through the recurrence).
 //
-// Layout (time-major, so a warp's loads at one step are 32 consecutive
-// floats): params (3, S), init (2 + m, S) = (level0, trend0, season0[m]),
-// y (n_steps, S) = series[m:], nv (S,) or null, out (4, S) =
-// (sse, dsse/dalpha, dsse/dbeta, dsse/dgamma).  All float32.
+// The one pass is bounded on the H100 (3.35 TB/s, 67 TFLOP/s fp32
+// outside the tensor cores) at m = 12, n = 120, S = 131072 by bytes: the
+// call must read y (108 x S floats, 56.6 MB), init (14 x S, 7.3 MB) and
+// params (1.6 MB) and write out (2.1 MB): 67.6 MB, ~20 us.  An additive
+// lane-step is 81 flop (base 4, e 2, de 6, lw 1, dlw 3, level 4, dlevel
+// 11, trend 5, dtrend 15, sw 1, dsw 3, dseason 12, season 3, sse 2, grad
+// 9), 1.15 GFLOP in all, ~17 us.  A thread a lane (the recurrence is
+// serial in t) issues ~45 fp32 instructions a step for those flop, so the
+// pass comes near its bound only while every scheduler issues on most
+// cycles; reading the caller's rows in 32-byte pieces costs it more
+// (PERF.md has the measured split).
 //
-// The pass: for the periods users fit most (m = 4, 7, 12, 24) the ring and
-// its tangents (4m floats; 60 floats of carry in all at m = 12) live in
-// registers: the pass is templated on M and its time loop unrolled by M,
-// so step j of each group of M reads and rewrites slot j.  Any other m
+// hw_sse_rows_kernel (csrc/hw_sse.rows.cu): the season ring in shared
+// memory, one float4 (s and its three tangents) a slot, laid out
+// [slot][lane], so every lane of a block reads and writes one 512-byte
+// row of a slot a step without bank conflicts; the carry in registers
+// falls to level, trend, their tangents and the accumulators (72
+// registers, 7 blocks of 128 lanes an SM at m = 12, where the time-major
+// kernel's ring in registers took 95 and allowed 5).  The same pass runs
+// every period, its slot at run time, where the time-major kernel kept
+// the ring of any period but 4, 7, 12 and 24 in a (4m, S) global scratch
+// (32 bytes of traffic a lane-step).  y comes from the caller's (S, n)
+// rows, staged 8 steps a window through a tile a warp with 4-byte
+// cp.async, the next window in flight while a window's steps run: the
+// call copies no panel time-major.  A period whose ring does not fit a
+// block of 32 lanes (m > ~450) keeps it in a global scratch, in the same
+// pass.
+//
+// hw_sse_kernel (the comparison): time-major operands (params (3, S),
+// init (2 + m, S), y (n_steps, S) = series[m:] copied, nv (S,) or null,
+// out (4, S)), one thread a lane; for m = 4, 7, 12, 24 the ring and its
+// tangents (4m floats; 60 floats of carry in all at m = 12) live in
+// registers, the pass templated on M and its time loop unrolled by M, so
+// step j of each group of M reads and rewrites slot j.  Any other m
 // (M = 0 below) runs the generic form, whose ring lives in a scratch
 // buffer (4m, T) slot-major, so its accesses stay coalesced: T = S and the
 // column is the lane in hw_sse_kernel; in hw_box_fit_kernel T is the
 // number of threads in the grid and the column is the thread, because a
 // thread there works through many lanes.
-//
-// hw_sse_kernel: one thread per lane, one pass.  Bound on the H100
-// (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores) at m = 12,
-// n = 120, S = 131072: the call must read y (108 x S floats, 56.6 MB),
-// init (14 x S, 7.3 MB) and params (1.6 MB) and write out (2.1 MB):
-// 67.6 MB, ~20 us.  An additive lane-step is 81 flop (base 4, e 2, de 6,
-// lw 1, dlw 3, level 4, dlevel 11, trend 5, dtrend 15, sw 1, dsw 3,
-// dseason 12, season 3, sse 2, grad 9), 1.15 GFLOP in all, ~17 us.  So
-// bytes bound one pass.
 //
 // hw_box_fit_kernel: per lane, the state machine of the projected-gradient
 // fit ops/optimize.py::minimize_box (the JAX _minimize_box_one): project
@@ -53,7 +74,7 @@
 // stops at max_iter iterations.  The solver's arithmetic is written in the
 // torch solver's order with __fmul_rn / __fadd_rn / __fsub_rn, so no FMA
 // contraction moves an accept or stop decision away from minimize_box over
-// hw_sse_kernel.  Outputs x (3, S), fun, converged, n_iter and the
+// the one-pass kernel.  Outputs x (3, S), fun, converged, n_iter and the
 // evaluations per lane (value-and-grad passes: 1 + its trials).
 //
 // Its bound is operations: 81 flop x n_steps per evaluation, and a lane
@@ -87,96 +108,14 @@
 
 #include <cuda_runtime.h>
 
+#include "hw_step.cuh"
+
 namespace {
 
-// One step of the recurrence and its tangents on one ring slot (s, ds).
-template <bool ADD, bool RAGGED>
-__device__ __forceinline__ void hw_step(
-    const float x, const float w, const float a, const float b,
-    const float g, float& level, float& trend, float (&dl)[3],
-    float (&db)[3], float& s, float (&ds)[3], float& sse,
-    float (&grad)[3]) {
-  const float base = level + trend;
-  float dbase[3], de[3], dlw[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) dbase[j] = dl[j] + db[j];
-  float e, lw;
-  if (ADD) {
-    e = x - (base + s);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) de[j] = -(dbase[j] + ds[j]);
-    lw = x - s;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) dlw[j] = -ds[j];
-  } else {
-    e = x - base * s;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) de[j] = -(dbase[j] * s + base * ds[j]);
-    lw = x / s;
-    const float x_s2 = x / (s * s);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) dlw[j] = -x_s2 * ds[j];
-  }
-  const float nl = a * lw + (1.0f - a) * base;
-  float dnl[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) dnl[j] = a * dlw[j] + (1.0f - a) * dbase[j];
-  dnl[0] += lw - base;
-  const float nt = b * (nl - level) + (1.0f - b) * trend;
-  float dnt[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) dnt[j] = b * (dnl[j] - dl[j]) + (1.0f - b) * db[j];
-  dnt[1] += nl - level - trend;
-  float sw, dsw[3];
-  if (ADD) {
-    sw = x - nl;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) dsw[j] = -dnl[j];
-  } else {
-    sw = x / nl;
-    const float x_l2 = x / (nl * nl);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) dsw[j] = -x_l2 * dnl[j];
-  }
-  float dns[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) dns[j] = g * dsw[j] + (1.0f - g) * ds[j];
-  dns[2] += sw - s;
-  s = g * sw + (1.0f - g) * s;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    ds[j] = dns[j];
-    dl[j] = dnl[j];
-    db[j] = dnt[j];
-  }
-  level = nl;
-  trend = nt;
-  if (RAGGED) {
-    e *= w;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) de[j] *= w;
-  }
-  sse += e * e;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) grad[j] += 2.0f * e * de[j];
-}
-
-// A column of a row-major table: row r at p[r * stride].  The lane's
-// column of a time-major panel (stride S), or a thread's column of the
-// shared tile (stride blockDim.x).
-struct Column {
-  const float* p;
-  size_t stride;
-  __device__ __forceinline__ float operator[](int r) const {
-    return p[static_cast<size_t>(r) * stride];
-  }
-};
-
-// The step weight of a ragged lane: 1 while m + t < nv, then 0.
-template <bool RAGGED>
-__device__ __forceinline__ float step_weight(int m_plus_t, float n_valid) {
-  return RAGGED && !(static_cast<float>(m_plus_t) < n_valid) ? 0.0f : 1.0f;
-}
+using hw::Column;
+using hw::hw_step;
+using hw::Smoothing;
+using hw::step_weight;
 
 // One value-and-grad pass of a lane at (a, b, g).  M > 0: the ring in
 // registers (m == M); M == 0: the ring in `ring` (4m rows of stride
@@ -186,6 +125,7 @@ __device__ __forceinline__ void hw_pass(
     const float a, const float b, const float g, const Column init,
     const Column y, const float n_valid, const int n_steps, const int m,
     float* ring, const size_t ring_stride, float& sse, float (&grad)[3]) {
+  const Smoothing p(a, b, g);
   float level = init[0], trend = init[1];
   float dl[3] = {0.0f, 0.0f, 0.0f}, db[3] = {0.0f, 0.0f, 0.0f};
   sse = 0.0f;
@@ -202,14 +142,14 @@ __device__ __forceinline__ void hw_pass(
 #pragma unroll
       for (int j = 0; j < M; ++j)
         hw_step<ADD, RAGGED>(y[t + j], step_weight<RAGGED>(M + t + j, n_valid),
-                             a, b, g, level, trend, dl, db, sea[j], dsea[j],
+                             p, level, trend, dl, db, sea[j], dsea[j],
                              sse, grad);
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       if (t + j < n_steps)
         hw_step<ADD, RAGGED>(y[t + j], step_weight<RAGGED>(M + t + j, n_valid),
-                             a, b, g, level, trend, dl, db, sea[j], dsea[j],
+                             p, level, trend, dl, db, sea[j], dsea[j],
                              sse, grad);
     }
   } else {
@@ -223,7 +163,7 @@ __device__ __forceinline__ void hw_pass(
       float* r = ring + static_cast<size_t>(4 * slot) * ring_stride;
       float s = r[0];
       float ds[3] = {r[ring_stride], r[2 * ring_stride], r[3 * ring_stride]};
-      hw_step<ADD, RAGGED>(y[t], step_weight<RAGGED>(m + t, n_valid), a, b, g,
+      hw_step<ADD, RAGGED>(y[t], step_weight<RAGGED>(m + t, n_valid), p,
                            level, trend, dl, db, s, ds, sse, grad);
       r[0] = s;
       r[ring_stride] = ds[0];
@@ -284,6 +224,25 @@ cudaError_t dispatch(const float* params, const float* init, const float* y,
 }
 
 bool in_registers(int m) { return m == 4 || m == 7 || m == 12 || m == 24; }
+
+using SseKernel = void (*)(const float*, const float*, const float*,
+                           const float*, float*, float*, int, int, int);
+
+template <int M, bool ADD>
+SseKernel pick_sse_variant(bool ragged) {
+  return ragged ? &hw_sse_kernel<M, ADD, true> : &hw_sse_kernel<M, ADD, false>;
+}
+
+template <bool ADD>
+SseKernel pick_sse(int m, bool ragged) {
+  switch (m) {
+    case 4: return pick_sse_variant<4, ADD>(ragged);
+    case 7: return pick_sse_variant<7, ADD>(ragged);
+    case 12: return pick_sse_variant<12, ADD>(ragged);
+    case 24: return pick_sse_variant<24, ADD>(ragged);
+    default: return pick_sse_variant<0, ADD>(ragged);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The persistent box fit.
@@ -533,6 +492,29 @@ extern "C" int hw_sse_launch(const float* params, const float* init,
                                 m, st)
                : dispatch<false>(params, init, y, nv, ring, out, S, n_steps,
                                  m, st));
+}
+
+// The time-major kernel's instantiation for (m, additive, ragged):
+// cfg[0..3] = (threads a block, resident blocks per SM, registers a
+// thread, local (spill) bytes a thread).  Returns 0, a cudaError_t, or -1
+// for bad arguments.
+extern "C" int hw_sse_config(int m, int additive, int ragged, int* cfg) {
+  if (m < 1) return -1;
+  const void* fn = reinterpret_cast<const void*>(
+      additive ? pick_sse<true>(m, ragged != 0)
+               : pick_sse<false>(m, ragged != 0));
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg[0] = kThreads;
+  cfg[1] = blocks;
+  cfg[2] = attr.numRegs;
+  cfg[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // The box fit's launch configuration for `threads` a block and at most

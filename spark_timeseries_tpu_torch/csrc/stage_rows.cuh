@@ -4,7 +4,8 @@
 // arma_ne.sse.cu).  A block runs `lanes` consecutive series, one thread a
 // series; their rows of y (S, n_obs) are one contiguous range of device
 // memory, which the block copies into shared memory before its threads
-// run the recurrence on it.
+// run the recurrence on it.  (hw_sse.rows.cu takes pick_lanes and
+// cp_async4 for its own windows of rows.)
 //
 // Copies: 4-byte cp.async (cp.async.ca), one warp a row, its threads on
 // consecutive steps, so each warp instruction reads 128 contiguous bytes.

@@ -12,9 +12,12 @@ PyTorch version on a CPU tensor, with no fallback between the two (a
 kernel that fails to build or launch raises):
 
 - :func:`value_and_grad`, one pass for a batch of parameter sets
-  (``hw_sse_kernel``, the port of the Pallas ``_hw_kernel``; plain:
+  (``hw_sse_rows_kernel`` of ``csrc/hw_sse.rows.cu``, the port of the
+  Pallas ``_hw_kernel``, reading the caller's ``(S, n)`` rows and
+  ``(S, 3)`` parameters where they lie; plain:
   :func:`value_and_grad_plain`, a Python loop over steps on the lane
-  batch);
+  batch).  The time-major ``hw_sse_kernel`` it replaced stays as its
+  comparison (:func:`value_and_grad_time_major`, bit for bit);
 - :func:`box_fit`, the whole projected-gradient fit of a panel
   (``hw_box_fit_kernel``: one persistent launch that runs every lane's
   solver state machine on the card; plain: :func:`box_fit_plain`,
@@ -23,7 +26,8 @@ kernel that fails to build or launch raises):
 
 The initial components depend on the data alone, so :func:`prepare`
 computes them once per fit, with the time-major panel ``(n - m, S)`` the
-kernels read; :func:`evaluator` then gives a solver its batched
+box fit reads (or, for the one-pass kernel, a view of the caller's
+rows); :func:`evaluator` then gives a solver its batched
 ``x (S, 3) -> (f (S,), g (S, 3))``.  What bounds the kernels on the H100
 is written in the source note of ``csrc/hw_sse.cu``.
 """
@@ -42,8 +46,9 @@ from .. import _build
 from .lag import lag_matrix
 from .optimize import MinimizeResult, minimize_box
 
-# periods whose ring the kernels keep in registers; any other runs the
-# generic form with its ring in a scratch buffer
+# periods whose ring the time-major and box-fit kernels keep in
+# registers; any other runs their generic form with its ring in a scratch
+# buffer
 REGISTER_PERIODS = (4, 7, 12, 24)
 
 # threads a block of the box-fit kernel, in order of preference: the
@@ -120,7 +125,8 @@ def init_components(ts: torch.Tensor, period: int, additive: bool):
 
 class HWInputs(NamedTuple):
     """A panel prepared for the pass: ``y (n - m, S)`` = ``series[:, m:]``
-    time-major, ``init (2 + m, S)`` = (level0, trend0, season0[m]),
+    laid out time-major (or a transposed view of the caller's rows, see
+    :func:`prepare`), ``init (2 + m, S)`` = (level0, trend0, season0[m]),
     ``n_valid (S,)`` or None."""
     y: torch.Tensor
     init: torch.Tensor
@@ -130,10 +136,14 @@ class HWInputs(NamedTuple):
 
 
 def prepare(series: torch.Tensor, period: int, model_type: str,
-            n_valid: Optional[torch.Tensor] = None) -> HWInputs:
+            n_valid: Optional[torch.Tensor] = None,
+            time_major: bool = True) -> HWInputs:
     """Validate ``series (S, n)`` (left-aligned and zero-tailed where
-    ``n_valid`` is given), compute its initial components and lay both out
-    time-major — once per fit."""
+    ``n_valid`` is given) and compute its initial components — once per
+    fit.  ``time_major`` copies ``series[:, m:]`` time-major, the layout
+    the box-fit kernel reads; otherwise ``y`` is the view
+    ``series[:, m:].T`` of the caller's rows, which the one-pass kernel
+    reads where it lies."""
     additive = check_model_type(model_type)
     if period < 1:
         raise ValueError(f"period must be >= 1, got {period}")
@@ -146,7 +156,8 @@ def prepare(series: torch.Tensor, period: int, model_type: str,
     init = torch.cat([level0[None], trend0[None], season0.T]).contiguous()
     nv = None if n_valid is None \
         else n_valid.to(series.dtype).reshape(S).contiguous()
-    return HWInputs(series[:, period:].T.contiguous(), init, nv, period,
+    y = series[:, period:].T
+    return HWInputs(y.contiguous() if time_major else y, init, nv, period,
                     additive)
 
 
@@ -159,9 +170,138 @@ def _kernel_fn():
     return fn
 
 
-def _launch(params_t: torch.Tensor, inp: HWInputs) -> torch.Tensor:
-    """Launch ``csrc/hw_sse.cu`` on the current stream; returns the
-    ``(4, S)`` output (not synchronised)."""
+@functools.lru_cache(maxsize=None)
+def _rows_fns():
+    lib = _build.library("hw_sse")
+    config = lib.hw_sse_rows_config
+    config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    config.restype = ctypes.c_int
+    launch = lib.hw_sse_rows_launch
+    i64, ptr = ctypes.c_longlong, ctypes.c_void_p
+    launch.argtypes = [ptr, i64, i64, ptr, ptr, i64, i64, ptr, ptr, ptr] \
+        + [ctypes.c_int] * 5 + [ptr]
+    launch.restype = ctypes.c_int
+    time_major = lib.hw_sse_config
+    time_major.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    time_major.restype = ctypes.c_int
+    return config, launch, time_major
+
+
+class SseConfig(NamedTuple):
+    """The one-pass kernel's launch on a prepared panel: lanes (threads)
+    a block, whether the season ring sits in shared memory (else in a
+    global scratch), dynamic shared bytes a block, blocks, resident
+    blocks per SM, SMs, registers and spill bytes a thread."""
+    lanes: int
+    ring_in_smem: bool
+    smem_bytes: int
+    blocks: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+    @property
+    def resident_lanes(self) -> int:
+        return self.blocks_per_sm * self.sms * self.lanes
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / max(1, self.blocks_per_sm * self.sms)
+
+
+def _config_error(what: str, rc: int) -> _build.KernelError:
+    return _build.KernelError(
+        f"{what}: " + ("unsupported arguments" if rc < 0
+                       else f"CUDA error {rc}"))
+
+
+def sse_config(S: int, period: int, additive: bool, ragged: bool,
+               rows: bool = True, device=None, lanes: int = 0) -> SseConfig:
+    """How :func:`value_and_grad` launches on ``S`` lanes at ``period`` on
+    ``device``'s card: ``rows`` for a series-major ``y`` (step stride 1,
+    the caller's rows), else time-major; ``lanes`` 0: the kernel's own
+    pick of a block."""
+    return _sse_config(S, period, bool(additive), bool(ragged), bool(rows),
+                       torch.device(device or "cuda").index or 0, lanes)
+
+
+@functools.lru_cache(maxsize=256)
+def _sse_config(S, period, additive, ragged, rows, index, lanes):
+    config, _, _ = _rows_fns()
+    cfg = (ctypes.c_int * 8)()
+    with torch.cuda.device(index):
+        rc = config(S, period, int(additive), int(ragged), int(rows), lanes,
+                    cfg)
+    if rc != 0:
+        raise _config_error(f"hw_sse_rows configuration failed for period "
+                            f"{period} S={S} lanes={lanes}", rc)
+    return SseConfig(cfg[0], bool(cfg[1]), *cfg[2:])
+
+
+def sse_config_time_major(S: int, period: int, additive: bool,
+                          ragged: bool, device=None) -> SseConfig:
+    """The time-major ``hw_sse_kernel``'s instantiation for ``period``
+    (its ring in registers for :data:`REGISTER_PERIODS`, else in its
+    ``(4m, S)`` scratch) as an :class:`SseConfig` at ``S`` lanes."""
+    _, _, time_major = _rows_fns()
+    cfg = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = time_major(period, int(additive), int(ragged), cfg)
+    if rc != 0:
+        raise _config_error(f"hw_sse configuration failed for period "
+                            f"{period}", rc)
+    threads = cfg[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return SseConfig(threads, period in REGISTER_PERIODS, 0,
+                     -(-S // threads), cfg[1], sms, cfg[2], cfg[3])
+
+
+def _launch(params_t: torch.Tensor, inp: HWInputs,
+            lanes: int = 0) -> torch.Tensor:
+    """Launch ``hw_sse_rows_kernel`` on the current stream on
+    ``params_t (3, S)`` and ``inp.y (n - m, S)`` at their strides (the
+    caller's rows or a time-major copy); returns the ``(4, S)`` output
+    (not synchronised).  ``lanes`` 0: the kernel's pick of a block."""
+    y, m = inp.y, inp.period
+    n_steps, S = y.shape
+    _build.check_inputs([inp.init]
+                        + ([] if inp.n_valid is None else [inp.n_valid]),
+                        "Holt-Winters")
+    for t in (y, params_t):
+        if t.device != inp.init.device or t.dtype != torch.float32:
+            raise _build.KernelInputError(
+                f"the CUDA Holt-Winters kernel takes float32 operands on one "
+                f"device, got {t.dtype} on {t.device}")
+    if params_t.shape != (3, S) or inp.init.shape != (2 + m, S):
+        raise ValueError(
+            f"shape mismatch: params {tuple(params_t.shape)} (expected "
+            f"{(3, S)}), init {tuple(inp.init.shape)}, y "
+            f"{tuple(y.shape)}")
+    dev = y.device
+    cfg = sse_config(S, m, inp.additive, inp.n_valid is not None,
+                     y.stride(0) == 1, dev, lanes)
+    out = torch.empty((4, S), dtype=torch.float32, device=dev)
+    ring = None if cfg.ring_in_smem else torch.empty(
+        (m, cfg.blocks * cfg.lanes, 4), dtype=torch.float32, device=dev)
+    _, launch, _ = _rows_fns()
+    _build.launch(launch, dev, params_t.data_ptr(), params_t.stride(0),
+                  params_t.stride(1), inp.init.data_ptr(), y.data_ptr(),
+                  y.stride(0), y.stride(1),
+                  0 if inp.n_valid is None else inp.n_valid.data_ptr(),
+                  0 if ring is None else ring.data_ptr(), out.data_ptr(), S,
+                  n_steps, m, int(inp.additive), lanes,
+                  what=f"hw_sse_rows kernel launch failed for period {m} "
+                       f"S={S} n_steps={n_steps}")
+    value_and_grad.launches += 1
+    return out
+
+
+def _launch_time_major(params_t: torch.Tensor,
+                       inp: HWInputs) -> torch.Tensor:
+    """Launch the time-major ``hw_sse_kernel`` of ``csrc/hw_sse.cu`` on the
+    current stream (contiguous ``params_t (3, S)`` and time-major
+    ``inp.y``); returns the ``(4, S)`` output (not synchronised)."""
     n_steps, S = inp.y.shape
     m = inp.period
     _build.check_inputs([inp.y, params_t, inp.init]
@@ -183,7 +323,7 @@ def _launch(params_t: torch.Tensor, inp: HWInputs) -> torch.Tensor:
                   n_steps, m, int(inp.additive),
                   what=f"hw_sse kernel launch failed for period {m} S={S} "
                        f"n_steps={n_steps}")
-    value_and_grad.launches += 1
+    value_and_grad_time_major.launches += 1
     return out
 
 
@@ -269,7 +409,7 @@ def evaluator(inp: HWInputs, packed_fn=_packed):
     panel, for ``ops.optimize.minimize_box``.  The plain version also takes
     ``x (K, S, 3)``, K parameter sets per lane."""
     def vag(x: torch.Tensor):
-        out = packed_fn(x.to(inp.y.dtype).movedim(-1, 0).contiguous(), inp)
+        out = packed_fn(x.to(inp.y.dtype).movedim(-1, 0), inp)
         return out[0], out[1:].movedim(0, -1)
     return vag
 
@@ -281,14 +421,35 @@ def value_and_grad(params: torch.Tensor, series: torch.Tensor, period: int,
     ``series (S, n)``.
 
     A CUDA tensor launches the kernel (float32 only; anything else raises)
-    and adds one to ``value_and_grad.launches``; a CPU tensor runs
+    and adds one to ``value_and_grad.launches``; it reads ``series`` and
+    ``params`` where they lie (no time-major copy).  A CPU tensor runs
     :func:`value_and_grad_plain`.  ``n_valid (S,)`` restricts each
     left-aligned lane's accumulators to its valid window
     (``ops.ragged``)."""
-    return evaluator(prepare(series, period, model_type, n_valid))(params)
+    return evaluator(prepare(series, period, model_type, n_valid,
+                             time_major=False))(params)
 
 
 value_and_grad.launches = 0
+
+
+def value_and_grad_time_major(params: torch.Tensor, series: torch.Tensor,
+                              period: int, model_type: str,
+                              n_valid: Optional[torch.Tensor] = None):
+    """:func:`value_and_grad` as it ran before ``hw_sse_rows_kernel``: the
+    panel copied time-major, ``params`` to ``(3, S)``, then the time-major
+    ``hw_sse_kernel`` — the comparison of the one-pass kernel (equal bit
+    for bit), on CUDA tensors only; it counts into its own
+    ``launches``."""
+    if not series.is_cuda:
+        raise ValueError("the time-major hw_sse kernel runs on a card: "
+                         "pass CUDA tensors")
+    inp = prepare(series, period, model_type, n_valid)
+    out = _launch_time_major(params.to(inp.y.dtype).T.contiguous(), inp)
+    return out[0], out[1:].movedim(0, -1)
+
+
+value_and_grad_time_major.launches = 0
 
 
 def value_and_grad_plain(params: torch.Tensor, series: torch.Tensor,

@@ -16,7 +16,8 @@ def test_sources_group_into_libraries():
     libs = {name: [p.name for p in paths]
             for name, paths in _build._sources().items()}
     assert set(libs) == {"arma_ne", "hw_sse"}
-    assert libs["hw_sse"] == ["hw_sse.cu"]
+    # its part: the one-pass kernel over the callers' layout
+    assert libs["hw_sse"] == ["hw_sse.cu", "hw_sse.rows.cu"]
     assert libs["arma_ne"][0] == "arma_ne.cu"
     # its parts: the per-order instantiations and the series-major cost
     # kernel

@@ -726,6 +726,81 @@ def test_hw_kernel_matches_plain(cuda, m, model_type, ragged):
     assert float(((g - pg).abs() / scale).max()) < 1e-3
 
 
+@pytest.mark.parametrize("m", [4, 5, 7, 12, 24, 52])
+@pytest.mark.parametrize("model_type", ["additive", "multiplicative"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_hw_rows_kernel_matches_time_major_bitwise(cuda, m, model_type,
+                                                   ragged):
+    # value_and_grad's series-major kernel on the caller's rows, and on a
+    # time-major copy through the evaluator, is the time-major kernel it
+    # replaced bit for bit on every lane: one lane, and a width that is
+    # no multiple of the block; every block width it takes
+    rng = np.random.default_rng(m + 100 * ragged)
+    for S in (1, 1000):
+        n = 3 * m + 5
+        y = _hw_panel(rng, S, n, m)
+        nv = None
+        if ragged:
+            nv = rng.integers(2 * m + 1, n + 1, size=S)
+            y = np.where(np.arange(n)[None, :] < nv[:, None], y, 0.0)
+            nv = torch.from_numpy(nv).to(cuda)
+        params = torch.from_numpy(
+            rng.uniform(0.05, 0.95, size=(S, 3)).astype(np.float32)).to(cuda)
+        y = torch.from_numpy(y).to(cuda)
+        before = (hw_sse.value_and_grad.launches,
+                  hw_sse.value_and_grad_time_major.launches)
+        got = hw_sse.value_and_grad(params, y, m, model_type, n_valid=nv)
+        assert (hw_sse.value_and_grad.launches,
+                hw_sse.value_and_grad_time_major.launches) \
+            == (before[0] + 1, before[1])
+        old = hw_sse.value_and_grad_time_major(params, y, m, model_type,
+                                               n_valid=nv)
+        assert hw_sse.value_and_grad_time_major.launches == before[1] + 1
+        inp_tm = hw_sse.prepare(y, m, model_type, nv)
+        copied = hw_sse.evaluator(inp_tm)(params)
+        inp = hw_sse.prepare(y, m, model_type, nv, time_major=False)
+        widths = [hw_sse._launch(params.T, inp, lanes) for lanes in
+                  (32, 64, 128)]
+        torch.cuda.synchronize()
+        assert all(_bits_equal(a, b) for a, b in zip(got, old))
+        assert all(_bits_equal(a, b) for a, b in zip(copied, old))
+        want = torch.cat([old[0][None], old[1].T])
+        assert all(_bits_equal(w, want) for w in widths)
+
+
+def test_hw_rows_kernel_long_period_keeps_its_ring_in_global_memory(cuda):
+    # a period whose ring does not fit a block of 32 lanes in shared
+    # memory: the same pass with the ring in a global scratch
+    rng = np.random.default_rng(11)
+    S, m = 300, 500
+    y = torch.from_numpy(_hw_panel(rng, S, 2 * m + 40, m)).to(cuda)
+    params = torch.from_numpy(
+        rng.uniform(0.05, 0.95, size=(S, 3)).astype(np.float32)).to(cuda)
+    cfg = hw_sse.sse_config(S, m, True, False, True, cuda)
+    assert not cfg.ring_in_smem and cfg.lanes == 32
+    got = hw_sse.value_and_grad(params, y, m, "additive")
+    old = hw_sse.value_and_grad_time_major(params, y, m, "additive")
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(got, old))
+    assert hw_sse.sse_config(S, 12, True, False, True, cuda).ring_in_smem
+
+
+def test_hw_value_and_grad_that_does_not_launch_raises(cuda):
+    rng = np.random.default_rng(12)
+    y = torch.from_numpy(_hw_panel(rng, 64, 40, 4)).to(cuda)
+    params = torch.full((64, 3), 0.3, device=cuda)
+    before = hw_sse.value_and_grad.launches
+    with pytest.raises(ValueError, match="float32"):
+        hw_sse.value_and_grad(params, y.double(), 4, "additive")
+    inp = hw_sse.prepare(y, 4, "additive", time_major=False)
+    # a block width the kernel does not take: refused, never launched
+    with pytest.raises(hw_sse._build.KernelError, match="unsupported"):
+        hw_sse._launch(params.T, inp, lanes=48)
+    assert hw_sse.value_and_grad.launches == before
+    hw_sse.value_and_grad(params, y, 4, "additive")
+    assert hw_sse.value_and_grad.launches == before + 1
+
+
 def test_css_cost_kernel_matches_plain(cuda):
     rng = np.random.default_rng(8)
     S, n = 1000, 90
