@@ -3,9 +3,10 @@
 // csrc/hw_sse.rows.cu, a part of this library), the time-major
 // hw_sse_kernel it replaced (kept below as its comparison), and the whole
 // projected-gradient box fit of a panel in one persistent launch
-// (hw_box_fit_kernel, further down).  All run hw_step (hw_step.cuh),
-// whose roundings are written out, so they agree bit for bit wherever
-// their rings live.
+// (hw_box_fit_kernel, further down).  The last two run hw_step below,
+// whose contraction into FMAs is nvcc's; the rows kernel runs the same
+// step with nvcc's roundings written out (hw_step.cuh), so all three
+// agree bit for bit.
 //
 // Replaces the Pallas TPU kernel docs/experiments/hw_pallas.py::_hw_kernel
 // (itself the drop-in for models/holt_winters.py::_hw_sse_value_and_grad)
@@ -40,14 +41,15 @@
 // memory, one float4 (s and its three tangents) a slot, laid out
 // [slot][lane], so every lane of a block reads and writes one 512-byte
 // row of a slot a step without bank conflicts; the carry in registers
-// falls to level, trend, their tangents and the accumulators (72
-// registers, 7 blocks of 128 lanes an SM at m = 12, where the time-major
-// kernel's ring in registers took 95 and allowed 5).  The same pass runs
+// falls to level, trend, their tangents and the accumulators (at most
+// 80 registers, for 6 blocks of 128 lanes an SM; 7 blocks at 72
+// registers ran slower on the H100, PERF.md).  The same pass runs
 // every period, its slot at run time, where the time-major kernel kept
 // the ring of any period but 4, 7, 12 and 24 in a (4m, S) global scratch
 // (32 bytes of traffic a lane-step).  y comes from the caller's (S, n)
 // rows, staged 8 steps a window through a tile a warp with 4-byte
-// cp.async, the next window in flight while a window's steps run: the
+// cp.async (each window one 32-byte sector of a row where the rows
+// align), the next window in flight while a window's steps run: the
 // call copies no panel time-major.  A period whose ring does not fit a
 // block of 32 lanes (m > ~450) keeps it in a global scratch, in the same
 // pass.
@@ -108,14 +110,96 @@
 
 #include <cuda_runtime.h>
 
-#include "hw_step.cuh"
-
 namespace {
 
-using hw::Column;
-using hw::hw_step;
-using hw::Smoothing;
-using hw::step_weight;
+// One step of the recurrence and its tangents on one ring slot (s, ds).
+template <bool ADD, bool RAGGED>
+__device__ __forceinline__ void hw_step(
+    const float x, const float w, const float a, const float b,
+    const float g, float& level, float& trend, float (&dl)[3],
+    float (&db)[3], float& s, float (&ds)[3], float& sse,
+    float (&grad)[3]) {
+  const float base = level + trend;
+  float dbase[3], de[3], dlw[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) dbase[j] = dl[j] + db[j];
+  float e, lw;
+  if (ADD) {
+    e = x - (base + s);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) de[j] = -(dbase[j] + ds[j]);
+    lw = x - s;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dlw[j] = -ds[j];
+  } else {
+    e = x - base * s;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) de[j] = -(dbase[j] * s + base * ds[j]);
+    lw = x / s;
+    const float x_s2 = x / (s * s);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dlw[j] = -x_s2 * ds[j];
+  }
+  const float nl = a * lw + (1.0f - a) * base;
+  float dnl[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) dnl[j] = a * dlw[j] + (1.0f - a) * dbase[j];
+  dnl[0] += lw - base;
+  const float nt = b * (nl - level) + (1.0f - b) * trend;
+  float dnt[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) dnt[j] = b * (dnl[j] - dl[j]) + (1.0f - b) * db[j];
+  dnt[1] += nl - level - trend;
+  float sw, dsw[3];
+  if (ADD) {
+    sw = x - nl;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dsw[j] = -dnl[j];
+  } else {
+    sw = x / nl;
+    const float x_l2 = x / (nl * nl);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dsw[j] = -x_l2 * dnl[j];
+  }
+  float dns[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) dns[j] = g * dsw[j] + (1.0f - g) * ds[j];
+  dns[2] += sw - s;
+  s = g * sw + (1.0f - g) * s;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    ds[j] = dns[j];
+    dl[j] = dnl[j];
+    db[j] = dnt[j];
+  }
+  level = nl;
+  trend = nt;
+  if (RAGGED) {
+    e *= w;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) de[j] *= w;
+  }
+  sse += e * e;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) grad[j] += 2.0f * e * de[j];
+}
+
+// A column of a row-major table: row r at p[r * stride].  The lane's
+// column of a time-major panel (stride S), or a thread's column of the
+// shared tile (stride blockDim.x).
+struct Column {
+  const float* p;
+  size_t stride;
+  __device__ __forceinline__ float operator[](int r) const {
+    return p[static_cast<size_t>(r) * stride];
+  }
+};
+
+// The step weight of a ragged lane: 1 while m + t < nv, then 0.
+template <bool RAGGED>
+__device__ __forceinline__ float step_weight(int m_plus_t, float n_valid) {
+  return RAGGED && !(static_cast<float>(m_plus_t) < n_valid) ? 0.0f : 1.0f;
+}
 
 // One value-and-grad pass of a lane at (a, b, g).  M > 0: the ring in
 // registers (m == M); M == 0: the ring in `ring` (4m rows of stride
@@ -125,7 +209,6 @@ __device__ __forceinline__ void hw_pass(
     const float a, const float b, const float g, const Column init,
     const Column y, const float n_valid, const int n_steps, const int m,
     float* ring, const size_t ring_stride, float& sse, float (&grad)[3]) {
-  const Smoothing p(a, b, g);
   float level = init[0], trend = init[1];
   float dl[3] = {0.0f, 0.0f, 0.0f}, db[3] = {0.0f, 0.0f, 0.0f};
   sse = 0.0f;
@@ -142,14 +225,14 @@ __device__ __forceinline__ void hw_pass(
 #pragma unroll
       for (int j = 0; j < M; ++j)
         hw_step<ADD, RAGGED>(y[t + j], step_weight<RAGGED>(M + t + j, n_valid),
-                             p, level, trend, dl, db, sea[j], dsea[j],
+                             a, b, g, level, trend, dl, db, sea[j], dsea[j],
                              sse, grad);
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       if (t + j < n_steps)
         hw_step<ADD, RAGGED>(y[t + j], step_weight<RAGGED>(M + t + j, n_valid),
-                             p, level, trend, dl, db, sea[j], dsea[j],
+                             a, b, g, level, trend, dl, db, sea[j], dsea[j],
                              sse, grad);
     }
   } else {
@@ -163,7 +246,7 @@ __device__ __forceinline__ void hw_pass(
       float* r = ring + static_cast<size_t>(4 * slot) * ring_stride;
       float s = r[0];
       float ds[3] = {r[ring_stride], r[2 * ring_stride], r[3 * ring_stride]};
-      hw_step<ADD, RAGGED>(y[t], step_weight<RAGGED>(m + t, n_valid), p,
+      hw_step<ADD, RAGGED>(y[t], step_weight<RAGGED>(m + t, n_valid), a, b, g,
                            level, trend, dl, db, s, ds, sse, grad);
       r[0] = s;
       r[ring_stride] = ds[0];

@@ -3,10 +3,11 @@
 // and its evaluator, one launch a call.  Its design and bound are in the
 // source note of csrc/hw_sse.cu; this file is a part of that library.
 //
-// A block runs `lanes` consecutive series, one thread a series.  Each
+// A block runs blockDim.x consecutive series, one thread a series.  Each
 // thread runs hw_step (hw_step.cuh) on its lane, step by step, as the
-// time-major hw_sse_kernel does, so every lane's bits are that kernel's;
-// what differs is where the season ring lives and how y arrives.
+// time-major hw_sse_kernel does, in the roundings that kernel has at the
+// lane's period, so every lane's bits are that kernel's; what differs is
+// where the season ring lives and how y arrives.
 //
 // The ring: slot j of a lane is one float4 (s, ds/dalpha, ds/dbeta,
 // ds/dgamma) at ring[j * stride + column].  In shared memory (the rule)
@@ -18,7 +19,7 @@
 // the thread's index in the grid: the same pass, the same bits.
 //
 // y: each warp stages windows of kWin steps of its 32 lanes through a
-// tile of its own in shared memory (kBufs windows), with 4-byte cp.async
+// tile of its own in shared memory (one window), with 4-byte cp.async
 // (stage_rows.cuh) from any strided (n_steps, S) view: series-major rows
 // (the caller's (S, n) panel from column m on, step stride 1) or a
 // time-major copy (lane stride 1).  The tile is [step][lane] at a pitch
@@ -27,12 +28,14 @@
 // step x 32 lanes (time-major; 128 bytes) land in 32 different banks,
 // and so do its reads of one step.  A thread reads its window into
 // registers, the warp then issues the next window's copies, and the
-// steps of the window run while they land.  Rows come in 32-byte pieces,
+// steps of the window run while they land.  Rows come in 32-byte pieces
+// (each one sector: the windows start where the rows' pieces align),
 // which cost the card more than a time-major copy's 128-byte ones
 // (PERF.md), but far less than making that copy each call.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "hw_step.cuh"
@@ -44,30 +47,24 @@ using hw::hw_step;
 using hw::Smoothing;
 using hw::step_weight;
 
-// The window and the residency the kernel is compiled for (PERF.md
-// records the values tried on the H100).
-#ifndef HW_ROWS_WIN
-#define HW_ROWS_WIN 8
-#endif
-#ifndef HW_ROWS_MIN_BLOCKS
-#define HW_ROWS_MIN_BLOCKS 7
-#endif
-#ifndef HW_ROWS_BUFS
-#define HW_ROWS_BUFS 1
-#endif
-
-constexpr int kMaxLanes = 128;              // threads (lanes) a block
-constexpr int kMinBlocks = HW_ROWS_MIN_BLOCKS;  // 7 at m = 12: <= 72 regs
-constexpr int kWin = HW_ROWS_WIN;           // steps a staged window
+// The window and the residency (PERF.md records the values tried on the
+// H100: windows of 4 and 16 steps, 5 and 7 blocks, two windows a tile).
+constexpr int kMaxLanes = 128;  // threads (lanes) a block
+constexpr int kMinBlocks = 6;   // resident blocks an SM: <= 80 registers
+constexpr int kWin = 8;         // steps a staged window: 32 bytes of a row
 // floats between a tile's steps: a series-major copy puts 32 / kWin rows
 // of kWin steps in 32 different banks
 constexpr int kPitch = 32 + 32 / kWin;
-constexpr int kTileFloats = kWin * kPitch;  // a window of a warp's tile
-// windows a warp's tile holds: the copies of window k + kBufs are issued
-// as window k's steps start
-constexpr int kBufs = HW_ROWS_BUFS;
-constexpr int kTileBytesPerLane = kBufs * kTileFloats * 4 / 32;
+constexpr int kTileFloats = kWin * kPitch;  // a warp's tile: one window
+constexpr int kTileBytesPerLane = kTileFloats * 4 / 32;
 static_assert(32 % kWin == 0, "a window's steps must divide a warp");
+
+// The periods whose steps round as the time-major kernel's ring in
+// registers (hw_sse.cu's in_registers); any other rounds as its ring in
+// memory.  The ring of these always fits a block in shared memory.
+inline bool register_period(int m) {
+  return m == 4 || m == 7 || m == 12 || m == 24;
+}
 
 struct RowsArgs {
   const float* params;   // (3, S) at strides (p_comp, p_lane)
@@ -78,6 +75,7 @@ struct RowsArgs {
   float* out;            // (4, S) contiguous
   long long p_lane, p_comp, y_lane, y_step;
   int S, n_steps, m;
+  int t_first;           // the first window's step, in (-kWin, 0]
 };
 
 // How a launch walks the panel; made on the host by make_tile.
@@ -94,23 +92,28 @@ inline long long tile_bytes(int lanes, int m, bool ring_in_smem) {
 }
 
 // The tile of S lanes at period m on a card with `sms` SMs and `optin`
-// bytes of shared memory a block.  lanes 0 picks the block: the widest
-// that still gives every SM two blocks (stage_rows::pick_lanes), narrowed
-// to 32 while its ring does not fit; any other value is taken as given.
-// The ring goes to the global scratch only where 32 lanes' ring does not
-// fit either.  Returns false for lanes no tile serves.
-inline bool make_tile(long long S, int m, int lanes, int sms, int optin,
-                      Tile* t) {
-  if (lanes <= 0) {
-    lanes = stage_rows::pick_lanes(S, sms);
-    while (lanes > 32 && tile_bytes(lanes, m, true) > optin) lanes /= 2;
-  }
-  if (lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0) return false;
+// bytes of shared memory a block: the widest block that still gives every
+// SM two blocks (stage_rows::pick_lanes), narrowed to 32 lanes while its
+// ring does not fit.  The ring goes to the global scratch only where 32
+// lanes' ring does not fit either.
+inline void make_tile(long long S, int m, int sms, int optin, Tile* t) {
+  int lanes = stage_rows::pick_lanes(S, sms);
+  while (lanes > 32 && tile_bytes(lanes, m, true) > optin) lanes /= 2;
   t->lanes = lanes;
   t->ring_in_smem = tile_bytes(lanes, m, true) <= optin ? 1 : 0;
   t->smem = static_cast<int>(tile_bytes(lanes, m, t->ring_in_smem != 0));
   t->blocks = static_cast<int>((S + lanes - 1) / lanes);
-  return true;
+}
+
+// The first window's step: windows of series-major rows start where the
+// rows' kWin-float pieces are aligned (one 32-byte sector each at kWin =
+// 8, not two), when every row shares the first row's alignment; the
+// steps before 0 are neither copied nor run.  0 otherwise.
+inline int first_window(const float* y, long long y_step, long long y_lane) {
+  if (y_step != 1 || y_lane % kWin != 0) return 0;
+  const long long off =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(y) / 4) % kWin;
+  return -static_cast<int>(off);
 }
 
 // A thread's share of its warp's window copies.  Element e = 32 j + i of
@@ -140,43 +143,43 @@ struct Stager {
       ok |= (s_w + r + (ROWS ? j * (32 / kWin) : 0) < A.S ? 1u : 0u) << j;
   }
 
-  // Issues the copies of steps [t0, t0 + kWin) (those below n_steps)
-  // into the buffer `buf` floats into the tile, as one group (empty past
-  // the series' end, so a window's group is always the kBufs-th newest).
-  __device__ __forceinline__ void issue(int t0, int buf, long long y_step,
+  // Issues the copies of steps [t0, t0 + kWin) (those in [0, n_steps))
+  // into the tile, as one group (empty past the series' end).
+  __device__ __forceinline__ void issue(int t0, long long y_step,
                                         int n_steps) const {
     const float* q = src + t0 * y_step;
 #pragma unroll
     for (int j = 0; j < kWin; ++j) {
-      const bool in = ((ok >> j) & 1u) &&
-                      (ROWS ? t0 + t : t0 + j) < n_steps;
+      const int at = ROWS ? t0 + t : t0 + j;
+      const bool in = ((ok >> j) & 1u) && at >= 0 && at < n_steps;
       if (in)
-        stage_rows::cp_async4(dst + buf + j * (ROWS ? 32 / kWin : kPitch),
-                              q);
+        stage_rows::cp_async4(dst + j * (ROWS ? 32 / kWin : kPitch), q);
       q += dj;
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 };
 
-// Waits until the thread's copies of the oldest window in flight have
-// landed, then for the warp's.
+// Waits until the thread's copies of the window in flight have landed,
+// then for the warp's.
 __device__ __forceinline__ void wait_window() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kBufs - 1) : "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncwarp();
 }
 
-template <bool ADD, bool RAGGED, bool SMEM_RING, bool ROWS>
+// REG: the lane's period is a register_period, whose steps round as the
+// time-major kernel's ring in registers.
+template <bool ADD, bool RAGGED, bool REG, bool SMEM_RING, bool ROWS>
 __global__ void __launch_bounds__(kMaxLanes, kMinBlocks)
-hw_sse_rows_kernel(const RowsArgs A, const int lanes) {
+hw_sse_rows_kernel(const RowsArgs A) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x, i = tid & 31;
+  const int tid = threadIdx.x, i = tid & 31, lanes = blockDim.x;
   const long long s = static_cast<long long>(blockIdx.x) * lanes + tid;
   const bool live = s < A.S;
   const int m = A.m, n_steps = A.n_steps;
   const size_t S = static_cast<size_t>(A.S);
   float* const tile = smem + (SMEM_RING ? 4 * m * lanes : 0) +
-                      (tid >> 5) * (kBufs * kTileFloats);
+                      (tid >> 5) * kTileFloats;
   // the lane's ring slot j at ring[j * stride]: shared memory offsets fit
   // 32 bits, a global scratch's need not
   using Off = typename std::conditional<SMEM_RING, unsigned, size_t>::type;
@@ -185,9 +188,7 @@ hw_sse_rows_kernel(const RowsArgs A, const int lanes) {
   const Off stride = static_cast<Off>(SMEM_RING ? lanes : gridDim.x) *
                      static_cast<Off>(SMEM_RING ? 1 : lanes);
   const Stager<ROWS> stager(A, s - i, tile, i);
-#pragma unroll
-  for (int k = 0; k < kBufs; ++k)
-    stager.issue(k * kWin, k * kTileFloats, A.y_step, n_steps);
+  stager.issue(A.t_first, A.y_step, n_steps);
 
   // a lane past S runs the pass on zeros and writes nothing: every thread
   // of a warp stages and meets at the warp's barriers
@@ -204,15 +205,12 @@ hw_sse_rows_kernel(const RowsArgs A, const int lanes) {
         make_float4(live ? A.init[(2 + j) * S + s] : 0.0f, 0.0f, 0.0f, 0.0f);
   wait_window();
 
-  // reads the window at t0 into x, then issues the copies of the window
-  // kBufs later into its buffer
-  int buf = 0;  // the window's buffer in the tile, in floats
+  // reads the window at t0 into x, then issues the copies of the next
   auto next_window = [&](float (&x)[kWin], const int t0) {
 #pragma unroll
-    for (int j = 0; j < kWin; ++j) x[j] = tile[buf + j * kPitch + i];
-    __syncwarp();  // the whole window is read before its buffer refills
-    stager.issue(t0 + kBufs * kWin, buf, A.y_step, n_steps);
-    buf = buf + kTileFloats == kBufs * kTileFloats ? 0 : buf + kTileFloats;
+    for (int j = 0; j < kWin; ++j) x[j] = tile[j * kPitch + i];
+    __syncwarp();  // the whole window is read before the tile refills
+    stager.issue(t0 + kWin, A.y_step, n_steps);
   };
   // step t on the lane's ring slot t mod m
   Off slot = 0;
@@ -220,22 +218,22 @@ hw_sse_rows_kernel(const RowsArgs A, const int lanes) {
   auto step = [&](const float x, const int t) {
     const float4 r = ring[slot];
     float sv = r.x, ds[3] = {r.y, r.z, r.w};
-    hw_step<ADD, RAGGED>(x, step_weight<RAGGED>(m + t, n_valid), p, level,
-                         trend, dl, db, sv, ds, sse, grad);
+    hw_step<ADD, RAGGED, REG>(x, step_weight<RAGGED>(m + t, n_valid), p,
+                              level, trend, dl, db, sv, ds, sse, grad);
     ring[slot] = make_float4(sv, ds[0], ds[1], ds[2]);
     slot += stride;
     if (slot == end) slot = 0;
   };
-  for (int t0 = 0; t0 < n_steps; t0 += kWin) {
+  for (int t0 = A.t_first; t0 < n_steps; t0 += kWin) {
     float x[kWin];
     next_window(x, t0);
-    if (t0 + kWin <= n_steps) {
+    if (t0 >= 0 && t0 + kWin <= n_steps) {
 #pragma unroll
       for (int j = 0; j < kWin; ++j) step(x[j], t0 + j);
     } else {
 #pragma unroll
       for (int j = 0; j < kWin; ++j)
-        if (t0 + j < n_steps) step(x[j], t0 + j);
+        if (t0 + j >= 0 && t0 + j < n_steps) step(x[j], t0 + j);
     }
     wait_window();
   }
@@ -246,25 +244,30 @@ hw_sse_rows_kernel(const RowsArgs A, const int lanes) {
   }
 }
 
-using RowsKernel = void (*)(const RowsArgs, const int);
+using RowsKernel = void (*)(const RowsArgs);
 
-template <bool SMEM_RING, bool ROWS>
+template <bool REG, bool SMEM_RING, bool ROWS>
 RowsKernel pick_rows_of(bool additive, bool ragged) {
   if (additive)
-    return ragged ? &hw_sse_rows_kernel<true, true, SMEM_RING, ROWS>
-                  : &hw_sse_rows_kernel<true, false, SMEM_RING, ROWS>;
-  return ragged ? &hw_sse_rows_kernel<false, true, SMEM_RING, ROWS>
-                : &hw_sse_rows_kernel<false, false, SMEM_RING, ROWS>;
+    return ragged ? &hw_sse_rows_kernel<true, true, REG, SMEM_RING, ROWS>
+                  : &hw_sse_rows_kernel<true, false, REG, SMEM_RING, ROWS>;
+  return ragged ? &hw_sse_rows_kernel<false, true, REG, SMEM_RING, ROWS>
+                : &hw_sse_rows_kernel<false, false, REG, SMEM_RING, ROWS>;
 }
 
-// The instantiation: additive or not, ragged or not, the ring in shared
-// memory or not, y series-major (step stride 1) or not.
-RowsKernel pick_rows(bool additive, bool ragged, bool smem_ring, bool rows) {
+// The instantiation: additive or not, ragged or not, the period's
+// roundings, the ring in shared memory or not (a register period's
+// always is), y series-major (step stride 1) or not.
+RowsKernel pick_rows(bool additive, bool ragged, int m, bool smem_ring,
+                     bool rows) {
+  if (register_period(m))
+    return rows ? pick_rows_of<true, true, true>(additive, ragged)
+                : pick_rows_of<true, true, false>(additive, ragged);
   if (smem_ring)
-    return rows ? pick_rows_of<true, true>(additive, ragged)
-                : pick_rows_of<true, false>(additive, ragged);
-  return rows ? pick_rows_of<false, true>(additive, ragged)
-              : pick_rows_of<false, false>(additive, ragged);
+    return rows ? pick_rows_of<false, true, true>(additive, ragged)
+                : pick_rows_of<false, true, false>(additive, ragged);
+  return rows ? pick_rows_of<false, false, true>(additive, ragged)
+              : pick_rows_of<false, false, false>(additive, ragged);
 }
 
 cudaError_t device_limits(int* sms, int* optin) {
@@ -294,22 +297,22 @@ cudaError_t set_smem(RowsKernel kernel, int bytes) {
 
 }  // namespace
 
-// The tile of S lanes (lanes 0: picked) at period m, y series-major (rows
-// 1: step stride 1) or not, into out[0..7] =
-// (lanes a block, 1 if the ring is in shared memory, dynamic shared bytes
-// a block, blocks, resident blocks per SM, SMs, registers a thread, local
-// (spill) bytes a thread).  The caller sizes the global ring, where the
-// tile has none in shared memory, to (m, blocks * lanes) float4.  Returns
-// 0, a cudaError_t, or -1 for bad arguments.
+// The tile of S lanes at period m, y series-major (rows 1: step stride 1)
+// or not, into out[0..7] = (lanes a block, 1 if the ring is in shared
+// memory, dynamic shared bytes a block, blocks, resident blocks per SM,
+// SMs, registers a thread, local (spill) bytes a thread).  The caller
+// sizes the global ring, where the tile has none in shared memory, to
+// (m, blocks * lanes) float4.  Returns 0, a cudaError_t, or -1 for bad
+// arguments.
 extern "C" int hw_sse_rows_config(int S, int m, int additive, int ragged,
-                                  int rows, int lanes, int* out) {
+                                  int rows, int* out) {
   if (S <= 0 || m < 1) return -1;
   int sms = 0, optin = 0;
   cudaError_t err = device_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   Tile tl;
-  if (!make_tile(S, m, lanes, sms, optin, &tl)) return -1;
-  const RowsKernel kernel = pick_rows(additive != 0, ragged != 0,
+  make_tile(S, m, sms, optin, &tl);
+  const RowsKernel kernel = pick_rows(additive != 0, ragged != 0, m,
                                       tl.ring_in_smem != 0, rows != 0);
   err = set_smem(kernel, tl.smem);
   int blocks_per_sm = 0;
@@ -332,9 +335,9 @@ extern "C" int hw_sse_rows_config(int S, int m, int additive, int ragged,
   return 0;
 }
 
-// Launches on `stream` with hw_sse_rows_config's tile for the same S, m
-// and lanes; does not synchronise, allocates nothing.  params (3, S) and
-// y (n_steps, S) at the strides given (in floats; each at least 1 where it
+// Launches on `stream` with hw_sse_rows_config's tile for the same S and
+// m; does not synchronise, allocates nothing.  params (3, S) and y
+// (n_steps, S) at the strides given (in floats; each at least 1 where it
 // moves), init (2 + m, S) and out (4, S) contiguous, nv (S,) or null,
 // ring (m, blocks * lanes) float4 where the tile keeps no ring in shared
 // memory, else null.  Returns 0, a cudaError_t, or -1 for bad arguments.
@@ -342,7 +345,7 @@ extern "C" int hw_sse_rows_launch(
     const float* params, long long p_comp, long long p_lane,
     const float* init, const float* y, long long y_step, long long y_lane,
     const float* nv, float* ring, float* out, int S, int n_steps, int m,
-    int additive, int lanes, void* stream_ptr) {
+    int additive, void* stream_ptr) {
   if (S <= 0 || n_steps < 1 || m < 1 || p_comp < 0 || p_lane < 0 ||
       y_step < 0 || y_lane < 0)
     return -1;
@@ -350,17 +353,17 @@ extern "C" int hw_sse_rows_launch(
   cudaError_t err = device_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   Tile tl;
-  if (!make_tile(S, m, lanes, sms, optin, &tl)) return -1;
+  make_tile(S, m, sms, optin, &tl);
   if (!tl.ring_in_smem && ring == nullptr) return -1;
-  const RowsKernel kernel = pick_rows(additive != 0, nv != nullptr,
+  const RowsKernel kernel = pick_rows(additive != 0, nv != nullptr, m,
                                       tl.ring_in_smem != 0, y_step == 1);
   err = set_smem(kernel, tl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   RowsArgs args{params, init, y, nv,
                 tl.ring_in_smem ? nullptr : reinterpret_cast<float4*>(ring),
-                out, p_lane, p_comp, y_lane, y_step, S, n_steps, m};
-  int n_lanes = tl.lanes;
-  void* kernel_args[] = {&args, &n_lanes};
+                out, p_lane, p_comp, y_lane, y_step, S, n_steps, m,
+                first_window(y, y_step, y_lane)};
+  void* kernel_args[] = {&args};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
                          dim3(tl.blocks), dim3(tl.lanes), kernel_args,
                          tl.smem, static_cast<cudaStream_t>(stream_ptr));

@@ -1,22 +1,24 @@
-// One step of the Holt-Winters recurrence and its tangents, shared by
-// every kernel of csrc/hw_sse.cu and csrc/hw_sse.rows.cu.
+// One step of the Holt-Winters recurrence and its tangents with every
+// rounding written out, for hw_sse_rows_kernel (csrc/hw_sse.rows.cu).
 //
-// Every rounding is written out (__fmaf_rn, __fmul_rn, __fadd_rn,
-// __fsub_rn, __fdiv_rn, which nvcc never contracts or reorders), so each
-// kernel computes the same bits wherever its ring lives and whatever code
-// surrounds the step.  Left to nvcc, the contraction of this step was not
-// a property of its expressions: a ring in registers and a ring in memory
-// fused different products of the season update, and rounded most lanes
-// apart (PERF.md §6).  The products fused here are those nvcc fused for
-// the ring in registers, so those kernels keep their results: each sum of
-// two products fuses the one written second below, and a multiplicative
-// dense pass leaves x - base * s unfused where the ragged pass fuses it.
+// csrc/hw_sse.cu's hw_step, which the time-major hw_sse_kernel and the
+// box fit run, is written as plain expressions and leaves the
+// contraction into FMAs to nvcc; and nvcc's contraction of it was not a
+// property of its expressions: the ring in registers (periods 4, 7, 12,
+// 24) and the ring in memory (any other period) fused different products
+// of the season update, and rounded most lanes apart (PERF.md §6).  Here
+// each rounding is an intrinsic (__fmaf_rn, __fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn, which nvcc never contracts or reorders), in the
+// pattern nvcc chose for hw_sse.cu at the lane's period (REG: a register
+// period), so the rows kernel computes that kernel's bits wherever its
+// own ring lives.  The two patterns differ only in the season update:
+// g sw + (1 - g) s fuses g sw with the ring in registers and (1 - g) s
+// with the ring in memory.  A multiplicative dense pass leaves x - base s
+// unfused where the ragged pass fuses it.
 
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <cstddef>
 
 namespace hw {
 
@@ -41,8 +43,9 @@ struct Smoothing {
         omg(sub_(1.0f, g_)) {}
 };
 
-// One step of the recurrence and its tangents on one ring slot (s, ds).
-template <bool ADD, bool RAGGED>
+// One step of the recurrence and its tangents on one ring slot (s, ds),
+// rounded as hw_sse.cu's ring in registers (REG) or in memory.
+template <bool ADD, bool RAGGED, bool REG>
 __device__ __forceinline__ void hw_step(
     const float x, const float w, const Smoothing& p, float& level,
     float& trend, float (&dl)[3], float (&db)[3], float& s, float (&ds)[3],
@@ -101,7 +104,7 @@ __device__ __forceinline__ void hw_step(
 #pragma unroll
   for (int j = 0; j < 3; ++j) dns[j] = fma_(omg, ds[j], mul_(g, dsw[j]));
   dns[2] = add_(dns[2], sub_(sw, s));
-  s = fma_(g, sw, mul_(omg, s));
+  s = REG ? fma_(g, sw, mul_(omg, s)) : fma_(omg, s, mul_(g, sw));
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     ds[j] = dns[j];
@@ -116,21 +119,10 @@ __device__ __forceinline__ void hw_step(
     for (int j = 0; j < 3; ++j) de[j] = mul_(de[j], w);
   }
   sse = fma_(e, e, sse);
-  const float e2 = mul_(2.0f, e);
+  const float e2 = add_(e, e);  // 2 e, exactly
 #pragma unroll
   for (int j = 0; j < 3; ++j) grad[j] = fma_(e2, de[j], grad[j]);
 }
-
-// A column of a row-major table: row r at p[r * stride].  The lane's
-// column of a time-major panel (stride S), or a thread's column of the
-// shared tile (stride blockDim.x).
-struct Column {
-  const float* p;
-  size_t stride;
-  __device__ __forceinline__ float operator[](int r) const {
-    return p[static_cast<size_t>(r) * stride];
-  }
-};
 
 // The step weight of a ragged lane: 1 while m + t < nv, then 0.
 template <bool RAGGED>

@@ -174,12 +174,12 @@ def _kernel_fn():
 def _rows_fns():
     lib = _build.library("hw_sse")
     config = lib.hw_sse_rows_config
-    config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     config.restype = ctypes.c_int
     launch = lib.hw_sse_rows_launch
     i64, ptr = ctypes.c_longlong, ctypes.c_void_p
     launch.argtypes = [ptr, i64, i64, ptr, ptr, i64, i64, ptr, ptr, ptr] \
-        + [ctypes.c_int] * 5 + [ptr]
+        + [ctypes.c_int] * 4 + [ptr]
     launch.restype = ctypes.c_int
     time_major = lib.hw_sse_config
     time_major.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -217,25 +217,23 @@ def _config_error(what: str, rc: int) -> _build.KernelError:
 
 
 def sse_config(S: int, period: int, additive: bool, ragged: bool,
-               rows: bool = True, device=None, lanes: int = 0) -> SseConfig:
+               rows: bool = True, device=None) -> SseConfig:
     """How :func:`value_and_grad` launches on ``S`` lanes at ``period`` on
     ``device``'s card: ``rows`` for a series-major ``y`` (step stride 1,
-    the caller's rows), else time-major; ``lanes`` 0: the kernel's own
-    pick of a block."""
+    the caller's rows), else time-major."""
     return _sse_config(S, period, bool(additive), bool(ragged), bool(rows),
-                       torch.device(device or "cuda").index or 0, lanes)
+                       torch.device(device or "cuda").index or 0)
 
 
 @functools.lru_cache(maxsize=256)
-def _sse_config(S, period, additive, ragged, rows, index, lanes):
+def _sse_config(S, period, additive, ragged, rows, index):
     config, _, _ = _rows_fns()
     cfg = (ctypes.c_int * 8)()
     with torch.cuda.device(index):
-        rc = config(S, period, int(additive), int(ragged), int(rows), lanes,
-                    cfg)
+        rc = config(S, period, int(additive), int(ragged), int(rows), cfg)
     if rc != 0:
         raise _config_error(f"hw_sse_rows configuration failed for period "
-                            f"{period} S={S} lanes={lanes}", rc)
+                            f"{period} S={S}", rc)
     return SseConfig(cfg[0], bool(cfg[1]), *cfg[2:])
 
 
@@ -257,12 +255,11 @@ def sse_config_time_major(S: int, period: int, additive: bool,
                      -(-S // threads), cfg[1], sms, cfg[2], cfg[3])
 
 
-def _launch(params_t: torch.Tensor, inp: HWInputs,
-            lanes: int = 0) -> torch.Tensor:
+def _launch(params_t: torch.Tensor, inp: HWInputs) -> torch.Tensor:
     """Launch ``hw_sse_rows_kernel`` on the current stream on
     ``params_t (3, S)`` and ``inp.y (n - m, S)`` at their strides (the
     caller's rows or a time-major copy); returns the ``(4, S)`` output
-    (not synchronised).  ``lanes`` 0: the kernel's pick of a block."""
+    (not synchronised)."""
     y, m = inp.y, inp.period
     n_steps, S = y.shape
     _build.check_inputs([inp.init]
@@ -280,7 +277,7 @@ def _launch(params_t: torch.Tensor, inp: HWInputs,
             f"{tuple(y.shape)}")
     dev = y.device
     cfg = sse_config(S, m, inp.additive, inp.n_valid is not None,
-                     y.stride(0) == 1, dev, lanes)
+                     y.stride(0) == 1, dev)
     out = torch.empty((4, S), dtype=torch.float32, device=dev)
     ring = None if cfg.ring_in_smem else torch.empty(
         (m, cfg.blocks * cfg.lanes, 4), dtype=torch.float32, device=dev)
@@ -290,7 +287,7 @@ def _launch(params_t: torch.Tensor, inp: HWInputs,
                   y.stride(0), y.stride(1),
                   0 if inp.n_valid is None else inp.n_valid.data_ptr(),
                   0 if ring is None else ring.data_ptr(), out.data_ptr(), S,
-                  n_steps, m, int(inp.additive), lanes,
+                  n_steps, m, int(inp.additive),
                   what=f"hw_sse_rows kernel launch failed for period {m} "
                        f"S={S} n_steps={n_steps}")
     value_and_grad.launches += 1

@@ -733,10 +733,13 @@ def test_hw_rows_kernel_matches_time_major_bitwise(cuda, m, model_type,
                                                    ragged):
     # value_and_grad's series-major kernel on the caller's rows, and on a
     # time-major copy through the evaluator, is the time-major kernel it
-    # replaced bit for bit on every lane: one lane, and a width that is
-    # no multiple of the block; every block width it takes
+    # replaced bit for bit on every lane: one lane, widths that are no
+    # multiple of the block, and widths at which it takes blocks of 32,
+    # 64 and 128 lanes (the widest that gives every SM two blocks)
     rng = np.random.default_rng(m + 100 * ragged)
-    for S in (1, 1000):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widths = set()
+    for S in (1, 1000, 2 * sms * 64, 2 * sms * 128 + 5):
         n = 3 * m + 5
         y = _hw_panel(rng, S, n, m)
         nv = None
@@ -758,14 +761,12 @@ def test_hw_rows_kernel_matches_time_major_bitwise(cuda, m, model_type,
         assert hw_sse.value_and_grad_time_major.launches == before[1] + 1
         inp_tm = hw_sse.prepare(y, m, model_type, nv)
         copied = hw_sse.evaluator(inp_tm)(params)
-        inp = hw_sse.prepare(y, m, model_type, nv, time_major=False)
-        widths = [hw_sse._launch(params.T, inp, lanes) for lanes in
-                  (32, 64, 128)]
         torch.cuda.synchronize()
+        widths.add(hw_sse.sse_config(S, m, model_type == "additive", ragged,
+                                     True, cuda).lanes)
         assert all(_bits_equal(a, b) for a, b in zip(got, old))
         assert all(_bits_equal(a, b) for a, b in zip(copied, old))
-        want = torch.cat([old[0][None], old[1].T])
-        assert all(_bits_equal(w, want) for w in widths)
+    assert widths == {32, 64, 128}
 
 
 def test_hw_rows_kernel_long_period_keeps_its_ring_in_global_memory(cuda):
@@ -793,9 +794,9 @@ def test_hw_value_and_grad_that_does_not_launch_raises(cuda):
     with pytest.raises(ValueError, match="float32"):
         hw_sse.value_and_grad(params, y.double(), 4, "additive")
     inp = hw_sse.prepare(y, 4, "additive", time_major=False)
-    # a block width the kernel does not take: refused, never launched
-    with pytest.raises(hw_sse._build.KernelError, match="unsupported"):
-        hw_sse._launch(params.T, inp, lanes=48)
+    # parameters of another shape: refused, never launched
+    with pytest.raises(ValueError, match="shape mismatch"):
+        hw_sse._launch(params.T[:2], inp)
     assert hw_sse.value_and_grad.launches == before
     hw_sse.value_and_grad(params, y, 4, "additive")
     assert hw_sse.value_and_grad.launches == before + 1

@@ -6,17 +6,19 @@
 plain pass, held here against the JAX package's ``_hw_sse_value_and_grad``
 at float64.
 
-On a card the view reaches ``hw_sse_rows_kernel`` (``csrc/hw_sse.rows.cu``):
-its season ring in shared memory, or in a global scratch for a period
-too long for a block, and ``y`` staged a window at a time through a tile
-a warp.  Here g++ compiles that source and the time-major
-``hw_sse_kernel`` it replaced (``csrc/hw_sse.cu``, the same ``hw_step``)
+On a card the view reaches ``hw_sse_rows_kernel``
+(``csrc/hw_sse.rows.cu``): its season ring in shared memory, or in a
+global scratch for a period too long for a block, and ``y`` staged a
+window at a time through a tile a warp.  Here g++ compiles that source
 with a stub CUDA header (the step's written-out roundings as the card
-rounds them, nothing else contracted; ``cp.async`` an immediate copy) and runs each block's warps as host threads meeting at a barrier
-a warp, so the tiles, windows, ring slots, partial blocks and dead lanes
-run as on the card.  Every lane is held bit for bit against the
-time-major kernel run lane by lane, and within float32's spread of the
-plain pass.
+rounds them, nothing else contracted; ``cp.async`` an immediate copy)
+and runs each block's warps as host threads meeting at a barrier a warp,
+so the tiles, windows, ring slots, partial blocks and dead lanes run as
+on the card.  Every lane is held bit for bit against the same
+``hw_step`` run lane by lane over a plain ring, and within float32's
+spread of the plain pass.  (On the card, ``tests/test_torch_cuda.py``
+holds the kernel bit for bit against the time-major ``hw_sse_kernel`` it
+replaced.)
 """
 
 import re
@@ -152,10 +154,13 @@ inline float fabsf(float a) { return std::fabs(a); }
 """
 
 # Runs one case: the rows kernel block by block (each warp's threads as
-# host threads at a barrier) on a series-major or a time-major y, and the
-# time-major kernel lane by lane; writes both (4, S) outputs and the tile.
+# host threads at a barrier) on a series-major or a time-major y, and
+# the same step lane by lane over a plain ring; writes both (4, S)
+# outputs and the tile.
 _HARNESS = r"""
+#include <algorithm>
 #include <barrier>
+#include <cstdint>
 #include <cstdio>
 #include <memory>
 #include <thread>
@@ -167,60 +172,84 @@ alignas(16) float g_smem[hw_host_smem_floats];
 static std::vector<std::unique_ptr<std::barrier<>>> g_bars;
 void __syncwarp() { g_bars[threadIdx.x / 32]->arrive_and_wait(); }
 void __syncthreads() {}
-#include "hw_sse.cu"
 #include "hw_sse.rows.cu"
 
 template <class T> void rd(FILE* f, std::vector<T>& v) {
   if (fread(v.data(), sizeof(T), v.size(), f) != v.size()) throw 1;
 }
 
-template <bool ADD, bool R>
-void old_lanes(int m, int S, int n_steps, const float* prm_t,
-               const float* init, const float* y_t, const float* nv,
-               float* ring, float* out) {
-  blockDim = dim3(128);
+// the lane loop: (S, n) series, (S, 3) params, (2 + m, S) init
+template <bool ADD, bool R, bool REG>
+void ref_lanes(int m, int S, int n, const float* prm, const float* series,
+               const float* init, const float* nv, float* out) {
+  std::vector<float> ring(4 * m);
   for (int s = 0; s < S; ++s) {
-    blockIdx = dim3(s / 128);
-    threadIdx = dim3(s % 128);
-    switch (m) {
-      case 4: hw_sse_kernel<4, ADD, R>(prm_t, init, y_t, nv, ring, out, S, n_steps, m); break;
-      case 7: hw_sse_kernel<7, ADD, R>(prm_t, init, y_t, nv, ring, out, S, n_steps, m); break;
-      case 12: hw_sse_kernel<12, ADD, R>(prm_t, init, y_t, nv, ring, out, S, n_steps, m); break;
-      case 24: hw_sse_kernel<24, ADD, R>(prm_t, init, y_t, nv, ring, out, S, n_steps, m); break;
-      default: hw_sse_kernel<0, ADD, R>(prm_t, init, y_t, nv, ring, out, S, n_steps, m);
+    const hw::Smoothing p(prm[3 * s], prm[3 * s + 1], prm[3 * s + 2]);
+    float level = init[s], trend = init[S + s], sse = 0.0f;
+    float dl[3] = {0, 0, 0}, db[3] = {0, 0, 0}, grad[3] = {0, 0, 0};
+    for (int j = 0; j < m; ++j) {
+      ring[4 * j] = init[(2 + j) * S + s];
+      ring[4 * j + 1] = ring[4 * j + 2] = ring[4 * j + 3] = 0.0f;
     }
+    for (int t = 0; t + m < n; ++t) {
+      float* r = &ring[4 * (t % m)];
+      float ds[3] = {r[1], r[2], r[3]};
+      hw::hw_step<ADD, R, REG>(
+          series[s * n + m + t], hw::step_weight<R>(m + t, R ? nv[s] : 0.0f),
+          p, level, trend, dl, db, r[0], ds, sse, grad);
+      for (int c = 0; c < 3; ++c) r[1 + c] = ds[c];
+    }
+    out[s] = sse;
+    for (int c = 0; c < 3; ++c) out[(1 + c) * S + s] = grad[c];
   }
+}
+
+template <bool ADD, bool R>
+void ref_of(int m, int S, int n, const float* prm, const float* series,
+            const float* init, const float* nv, float* out) {
+  if (register_period(m))
+    ref_lanes<ADD, R, true>(m, S, n, prm, series, init, nv, out);
+  else
+    ref_lanes<ADD, R, false>(m, S, n, prm, series, init, nv, out);
 }
 
 int main(int, char** argv) {
   FILE* f = fopen(argv[1], "rb");
-  std::vector<int> h(7);
+  std::vector<int> h(8);
   rd(f, h);
   const int m = h[0], add = h[1], rag = h[2], S = h[3], n_steps = h[4],
-            lanes = h[5], rows = h[6], n = n_steps + m;
+            sms = h[5], rows = h[6], shift = h[7], n = n_steps + m;
   std::vector<float> prm(S * 3), series(S * n), init((2 + m) * S), nv(S);
   rd(f, prm); rd(f, series); rd(f, init); rd(f, nv);
   fclose(f);
+  // the rows `shift` floats past a 32-byte boundary, as a caller's panel
+  // may lie: the windows start where the rows' pieces align
+  std::vector<float> store(S * n + 16);
+  float* rows_at = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(store.data()) + 31) & ~uintptr_t(31)) + shift;
+  std::copy(series.begin(), series.end(), rows_at);
   std::vector<float> y_t(n_steps * S), prm_t(3 * S);
   for (int s = 0; s < S; ++s) {
     for (int t = 0; t < n_steps; ++t) y_t[t * S + s] = series[s * n + m + t];
     for (int c = 0; c < 3; ++c) prm_t[c * S + s] = prm[s * 3 + c];
   }
   Tile tl;
-  if (!make_tile(S, m, lanes, 132, 232448, &tl)) return 2;
+  make_tile(S, m, sms, 232448, &tl);
   // series-major: the rows from column m and (S, 3) parameters seen as
   // (3, S); time-major: the copies, contiguous
   RowsArgs A{rows ? prm.data() : prm_t.data(), init.data(),
-             rows ? series.data() + m : y_t.data(), rag ? nv.data() : nullptr,
+             rows ? rows_at + m : y_t.data(), rag ? nv.data() : nullptr,
              nullptr, nullptr, rows ? 3LL : 1LL, rows ? 1LL : S,
-             rows ? (long long)n : 1LL, rows ? 1LL : S, S, n_steps, m};
+             rows ? (long long)n : 1LL, rows ? 1LL : S, S, n_steps, m, 0};
+  A.t_first = first_window(A.y, A.y_step, A.y_lane);
   std::vector<float4> ring(tl.ring_in_smem ? 0 : (size_t)m * tl.blocks * tl.lanes);
   A.ring = tl.ring_in_smem ? nullptr : ring.data();
   std::vector<float> out(4 * S, -1.0f), old(4 * S, -2.0f);
   A.out = out.data();
   blockDim = dim3(tl.lanes);
   gridDim = dim3(tl.blocks);
-  auto kernel = pick_rows(add != 0, rag != 0, tl.ring_in_smem != 0, rows != 0);
+  auto kernel = pick_rows(add != 0, rag != 0, m, tl.ring_in_smem != 0,
+                          rows != 0);
   for (int b = 0; b < tl.blocks; ++b) {
     blockIdx = dim3(b);
     g_bars.clear();
@@ -228,21 +257,19 @@ int main(int, char** argv) {
       g_bars.emplace_back(new std::barrier<>(32));
     std::vector<std::thread> ts;
     for (int i = 0; i < tl.lanes; ++i)
-      ts.emplace_back([&, i] { threadIdx = dim3(i); kernel(A, tl.lanes); });
+      ts.emplace_back([&, i] { threadIdx = dim3(i); kernel(A); });
     for (auto& t : ts) t.join();
   }
-  std::vector<float> old_ring(4 * m * S);
-  const float* nvp = rag ? nv.data() : nullptr;
-  float* rp = in_registers(m) ? nullptr : old_ring.data();
+  const float* args[] = {prm.data(), series.data(), init.data(), nv.data()};
   if (add) {
-    if (rag) old_lanes<true, true>(m, S, n_steps, prm_t.data(), init.data(), y_t.data(), nvp, rp, old.data());
-    else old_lanes<true, false>(m, S, n_steps, prm_t.data(), init.data(), y_t.data(), nvp, rp, old.data());
+    if (rag) ref_of<true, true>(m, S, n, args[0], args[1], args[2], args[3], old.data());
+    else ref_of<true, false>(m, S, n, args[0], args[1], args[2], args[3], old.data());
   } else {
-    if (rag) old_lanes<false, true>(m, S, n_steps, prm_t.data(), init.data(), y_t.data(), nvp, rp, old.data());
-    else old_lanes<false, false>(m, S, n_steps, prm_t.data(), init.data(), y_t.data(), nvp, rp, old.data());
+    if (rag) ref_of<false, true>(m, S, n, args[0], args[1], args[2], args[3], old.data());
+    else ref_of<false, false>(m, S, n, args[0], args[1], args[2], args[3], old.data());
   }
   FILE* o = fopen(argv[2], "wb");
-  const int tile[4] = {tl.lanes, tl.ring_in_smem, tl.smem, tl.blocks};
+  const int tile[4] = {tl.lanes, tl.ring_in_smem, tl.smem, A.t_first};
   fwrite(tile, 4, 4, o);
   fwrite(out.data(), 4, out.size(), o);
   fwrite(old.data(), 4, old.size(), o);
@@ -272,8 +299,7 @@ def host_hw(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernels' sources for the host")
     d = tmp_path_factory.mktemp("hw_host")
     (d / "cuda_runtime.h").write_text(_STUB)
-    for name in ("hw_step.cuh", "stage_rows.cuh", "hw_sse.cu",
-                 "hw_sse.rows.cu"):
+    for name in ("hw_step.cuh", "stage_rows.cuh", "hw_sse.rows.cu"):
         (d / name).write_text(_host_source(name))
     (d / "harness.cpp").write_text(_HARNESS)
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
@@ -288,26 +314,32 @@ def _bitwise(a, b):
                        torch.as_tensor(b).view(torch.int32))
 
 
-# period, model, ragged, S, n_obs, lanes (0: the kernel's pick), layout:
-# S = 1, partial blocks and warps, periods in and out of the time-major
-# kernel's registers, a ring too long for shared memory (m = 460 in a
-# global scratch), both layouts, steps ending in a partial window of
-# every length from 1 to 7, one of them the only window
+# period, model, ragged, S, n_obs, the SMs the tile is made for and the
+# block it picks for them (the widest that gives every SM two blocks),
+# layout, the rows' offset past a 32-byte boundary (floats) and the first
+# window it gives (series-major rows whose length is a multiple of 8
+# start their windows where the rows' 8-float pieces align): S = 1,
+# partial blocks and warps, blocks of 32, 64 and 128 lanes, periods in
+# and out of the time-major kernel's registers (their two roundings), a
+# ring too long for shared memory (m = 460 in a global scratch), both
+# layouts, steps ending in a partial window of every length from 1 to 7,
+# one of them the only window
 HOST_CASES = [
-    (4, "additive", False, 1, 11, 0, "rows"),
-    (5, "multiplicative", True, 37, 40, 0, "rows"),
-    (7, "additive", True, 100, 69, 64, "time_major"),
-    (12, "additive", False, 200, 120, 0, "rows"),
-    (12, "multiplicative", False, 130, 61, 128, "rows"),
-    (24, "multiplicative", True, 65, 77, 32, "time_major"),
-    (52, "additive", True, 70, 158, 0, "rows"),
-    (460, "additive", False, 33, 925, 0, "rows"),
+    (4, "additive", False, 1, 11, 132, 32, "rows", 0, 0),
+    (5, "multiplicative", True, 37, 40, 132, 32, "rows", 2, -7),
+    (7, "additive", True, 100, 69, 1, 64, "time_major", 0, 0),
+    (12, "additive", False, 200, 120, 132, 32, "rows", 0, -4),
+    (12, "multiplicative", False, 130, 61, 1, 128, "rows", 0, 0),
+    (24, "multiplicative", True, 65, 77, 132, 32, "time_major", 0, 0),
+    (52, "additive", True, 70, 158, 132, 32, "rows", 0, 0),
+    (460, "additive", False, 33, 925, 132, 32, "rows", 0, 0),
 ]
 
 
-@pytest.mark.parametrize("m,model_type,ragged,S,n,lanes,layout", HOST_CASES)
-def test_rows_kernel_on_the_host(host_hw, m, model_type, ragged, S, n,
-                                 lanes, layout):
+@pytest.mark.parametrize(
+    "m,model_type,ragged,S,n,sms,lanes,layout,shift,first", HOST_CASES)
+def test_rows_kernel_on_the_host(host_hw, m, model_type, ragged, S, n, sms,
+                                 lanes, layout, shift, first):
     rng = np.random.default_rng(m + S)
     y = _panel(rng, S, n, m)
     nv = None
@@ -321,8 +353,8 @@ def test_rows_kernel_on_the_host(host_hw, m, model_type, ragged, S, n,
     f32 = np.float32
     d = host_hw
     with open(d / "in.bin", "wb") as fh:
-        np.array([m, model_type == "additive", ragged, S, n - m, lanes,
-                  layout == "rows"], np.int32).tofile(fh)
+        np.array([m, model_type == "additive", ragged, S, n - m, sms,
+                  layout == "rows", shift], np.int32).tofile(fh)
         params.tofile(fh)
         y.tofile(fh)
         inp.init.numpy().astype(f32).tofile(fh)
@@ -332,8 +364,9 @@ def test_rows_kernel_on_the_host(host_hw, m, model_type, ragged, S, n,
     raw = np.fromfile(d / "out.bin", f32)
     tile = raw[:4].view(np.int32)
     got, old = raw[4:4 + 4 * S].reshape(4, S), raw[4 + 4 * S:].reshape(4, S)
+    assert tile[0] == lanes                 # the block's lanes
     assert tile[1] == (m != 460)            # the ring in shared memory
-    assert tile[3] * tile[0] >= S
+    assert tile[3] == first                 # the first window's step
     assert _bitwise(got, old)
     # the plain pass rounds otherwise where torch's CPU addcmul fuses a
     # multiply-add: float32's own spread over the lane's steps

@@ -2,8 +2,9 @@
 machine code.
 
 Each checkout's ``csrc/arma_ne*.cu`` (the per-order instantiations of
-the one-pass and LM-fit kernels and the cost kernels) compiles with the
-port's nvcc flags
+the one-pass and LM-fit kernels and the cost kernels; ``--sources``
+names another prefix, e.g. ``hw_sse`` for the Holt-Winters kernels)
+compiles with the port's nvcc flags
 plus ``-Xptxas -v``, one nvcc a source, all started together; the tool
 reads each kernel's registers, stack frame and spill bytes from ptxas's
 report and hashes each kernel's SASS (``cuobjdump -sass``).  On a machine
@@ -12,6 +13,8 @@ with the CUDA toolkit, from the root of the repository::
     git archive <commit> | tar -x -C build/parent
     python3 tools/torch_kernel_regs.py build/parent . \
         --match arma_lm_fit arma_ne_kernel
+    python3 tools/torch_kernel_regs.py build/parent . --sources hw_sse \
+        --match hw_sse_kernel hw_box_fit_kernel
 
 Prints one JSON line per checkout (its kernels whose mangled name
 contains one of ``--match``: registers, stack, spill stores and loads,
@@ -34,12 +37,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def _compile(root: str, out: str):
+def _compile(root: str, out: str, prefix: str):
     from spark_timeseries_tpu_torch import _build
 
     csrc = os.path.join(root, "spark_timeseries_tpu_torch", "csrc")
     srcs = sorted(f for f in os.listdir(csrc)
-                  if f.startswith("arma_ne") and f.endswith(".cu"))
+                  if f.startswith(prefix) and f.endswith(".cu"))
     procs = []
     for src in srcs:
         obj = os.path.join(out, src + ".o")
@@ -103,6 +106,8 @@ def _sass(objs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", help="checkouts to compare")
+    ap.add_argument("--sources", default="arma_ne",
+                    help="compile the csrc/*.cu files with this prefix")
     ap.add_argument("--match", nargs="+", default=["arma_lm_fit"],
                     help="compare the kernels whose name contains one of "
                          "these")
@@ -110,7 +115,7 @@ def main(argv=None) -> int:
     tables = []
     for root in args.roots:
         with tempfile.TemporaryDirectory() as out:
-            log, objs = _compile(root, out)
+            log, objs = _compile(root, out, args.sources)
             regs, sass = _ptxas(log), _sass(objs)
         table = {n: dict(regs.get(n, {}), sass=sass.get(n))
                  for n in sorted(set(regs) | set(sass))
